@@ -1,6 +1,6 @@
 """Compute ops: the permutation backends.
 
-`make_perm_mont_fn` is the seam the models (sponge, Merkle) build on:
+`make_perm_mont_fn` is the seam the models (sponge, Merkle, cipher) build on:
 a function (B, WIDTH, N_DIGITS) Montgomery-domain state -> permuted state.
 """
 
@@ -27,8 +27,9 @@ def make_perm_mont_fn(backend: str = "ref", *, schedule: str = DEFAULT_SCHEDULE)
     """A Montgomery-domain batched permutation.
 
     backend "ref": the torch oracle (dense schedule, any device).
-    backend "cuda": the CUDA kernel of `schedule` ("naive" or "opt") for a
-    CUDA tensor; for a CPU tensor, that kernel's plain version.
+    backend "cuda": the CUDA kernel of `schedule` ("naive", "opt" or
+    "mxu8", perm_cuda.SCHEDULES) for a CUDA tensor; for a CPU tensor, that
+    kernel's plain version.
     """
     if backend == "ref":
         return permute_mont

@@ -2,9 +2,11 @@
 
 The sources (`ops/csrc/*.cu`, which include `*.cuh`) compile into one
 shared library with a plain C interface, under `build/hades252_tpu_torch/`
-at the root of the checkout. The build runs at first use, and again
-whenever the sources or flags change: the library's name carries their
-hash. A failed build raises with nvcc's output; nothing falls back.
+at the root of the checkout: one nvcc per source, all started together (so
+the build takes as long as the slowest file), then one link. The build
+runs at first use, and again whenever the sources or flags change: the
+library's name carries their hash. A failed build raises with nvcc's
+output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hades252_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -44,6 +46,19 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_together(cmds: list[list[str]]) -> str:
+    """Start every command at once and wait for all of them. Returns their
+    joined output; raises with the output of each one that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    failed = [f"nvcc failed with exit code {proc.returncode} ({Path(cmd[-1]).name}):\n{out}"
+              for cmd, proc, out in zip(cmds, procs, outs) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
+
+
 def build() -> tuple[Path, str]:
     """Compile the library unless it exists for the current sources.
     Returns its path and the compiler's report (ptxas register counts)."""
@@ -52,17 +67,19 @@ def build() -> tuple[Path, str]:
     if lib.exists():
         return lib, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.stem}.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stdout}{proc.stderr}"
-        )
-    report = proc.stdout + proc.stderr
-    log.write_text(report)
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    nvcc, stem = _nvcc(), f".{lib.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{stem}.so"
+    try:
+        report = _run_together([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                                for src, obj in zip(sources, objs)])
+        report += _run_together([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        log.write_text(report)
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return lib, report
 
 
@@ -91,6 +108,11 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hades_perm_mxu8_launch.argtypes = [p, p, i64, i32, p, p, p]
+    lib.hades_perm_mxu8_launch.restype = ctypes.c_int
+    lib.hades_mxu8_dot_launch.argtypes = [p, p, p, i32, i32, i64, p]
+    lib.hades_mxu8_dot_launch.restype = ctypes.c_int
     lib.hades_error_string.argtypes = [ctypes.c_int]
     lib.hades_error_string.restype = ctypes.c_char_p
     return lib

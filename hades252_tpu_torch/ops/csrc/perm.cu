@@ -40,34 +40,6 @@
 namespace hades {
 
 constexpr int kThreads = 128;
-constexpr int kDigits = 16;
-
-__device__ __forceinline__ void load_state(uint32_t s[kWidth][kLimbs],
-                                           const int32_t* __restrict__ x,
-                                           long long b, long long n) {
-#pragma unroll
-  for (int w = 0; w < kWidth; ++w) {
-#pragma unroll
-    for (int k = 0; k < kLimbs; ++k) {
-      const uint32_t lo = (uint32_t)x[(long long)(w * kDigits + 2 * k) * n + b];
-      const uint32_t hi = (uint32_t)x[(long long)(w * kDigits + 2 * k + 1) * n + b];
-      s[w][k] = lo | (hi << 16);
-    }
-  }
-}
-
-__device__ __forceinline__ void store_state(int32_t* __restrict__ out,
-                                            const uint32_t s[kWidth][kLimbs],
-                                            long long b, long long n) {
-#pragma unroll
-  for (int w = 0; w < kWidth; ++w) {
-#pragma unroll
-    for (int k = 0; k < kLimbs; ++k) {
-      out[(long long)(w * kDigits + 2 * k) * n + b] = (int32_t)(s[w][k] & 0xFFFFu);
-      out[(long long)(w * kDigits + 2 * k + 1) * n + b] = (int32_t)(s[w][k] >> 16);
-    }
-  }
-}
 
 }  // namespace hades
 
@@ -101,22 +73,12 @@ hades_perm_opt(const int32_t* __restrict__ x, int32_t* __restrict__ out,
 
 namespace {
 
-constexpr int kErrTableSize = -1;
-constexpr int kErrModulus = -2;
-constexpr int kErrBatch = -3;
-
 // Copy the next sizeof(symbol) bytes of src to a __constant__ table.
 template <typename T>
 cudaError_t upload(const T& symbol, const uint32_t*& src) {
   const cudaError_t err = cudaMemcpyToSymbol(symbol, src, sizeof(T));
   src += sizeof(T) / sizeof(uint32_t);
   return err;
-}
-
-// Blocks for a batch of n states, or 0 when n is out of range.
-unsigned grid_for(long long n) {
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  return (n <= 0 || blocks > 0x7FFFFFFFLL) ? 0u : (unsigned)blocks;
 }
 
 }  // namespace
@@ -152,7 +114,7 @@ int hades_init(const uint32_t* tables, long long words) {
 
 int hades_perm_naive_launch(const void* x, void* out, long long n, int convert,
                             void* stream) {
-  const unsigned grid = grid_for(n);
+  const unsigned grid = grid_for(n, kThreads);
   if (grid == 0) return kErrBatch;
   hades_perm_naive<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (int32_t*)out, n, convert);
@@ -161,7 +123,7 @@ int hades_perm_naive_launch(const void* x, void* out, long long n, int convert,
 
 int hades_perm_opt_launch(const void* x, void* out, long long n, int convert,
                           void* stream) {
-  const unsigned grid = grid_for(n);
+  const unsigned grid = grid_for(n, kThreads);
   if (grid == 0) return kErrBatch;
   hades_perm_opt<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)x, (int32_t*)out, n, convert);
@@ -173,6 +135,7 @@ const char* hades_error_string(int code) {
     case kErrTableSize: return "constant tables have the wrong size";
     case kErrModulus: return "constant tables were built for another modulus";
     case kErrBatch: return "batch size out of range for one launch";
+    case kErrShape: return "matrix shape not supported by the kernel";
     default: return cudaGetErrorString((cudaError_t)code);
   }
 }

@@ -1,0 +1,253 @@
+// The `mxu8` schedule's per-state code: the dense 67-round permutation
+// with every constant product as a byte dot, for the kernel in
+// perm_mxu8.cu. Counterparts in hades252_tpu/ops/perm_pallas.py:
+// _perm_kernel_mxu_impl (:731), _MxuOps (:653), _redc_words_mxu (:580).
+//
+// The code is written against a "dot" object that multiplies constant byte
+// weights by the byte rows of values, one column per state:
+//   d.put<N>(words)   this state's N 32-bit words become its 4N byte rows;
+//   d.run<M, K>(W)    M x K weights (row-major bytes) times the byte rows;
+//   d.col(i)          this state's column sum i of the last run (< 2^24);
+//   d.done()          the sums have been read and may be overwritten.
+// On the card (perm_mxu8.cu) the dot is a block-wide int8 tensor-core MMA
+// through shared memory. For the host, below, it is a plain loop over the
+// same weights, so the whole schedule compiles with a host C++ compiler and
+// can be checked against the int oracle without a card.
+//
+// The byte rows of a word are its bytes in natural order: row k of a
+// 256-bit value is its byte k, so its 32 rows are its 8 limbs as stored.
+// The JAX package orders them low bytes of 16-bit digits, then high bytes;
+// params._kernel_weights permutes the weights' K axis to match.
+
+#pragma once
+
+#include "field.cuh"
+
+namespace hades {
+namespace mxu8 {
+
+constexpr int kBlockRows = 64;                     // 63 columns, padded to 64
+constexpr int kLinK = kWidth * 4 * kLimbs;         // 160 byte rows of a state
+constexpr int kLinBytes = kWidth * kBlockRows * kLinK;  // w_lin: 51,200 B
+constexpr int kPpBytes = 32 * 32;                       // w_pp:   1,024 B
+constexpr int kPBytes = kBlockRows * 32;                // w_p:    2,048 B
+constexpr int kWeightBytes = kLinBytes + kPpBytes + kPBytes;
+// the kernel's uint32 table: the dense ARK, then R^2
+constexpr int kConstWords = kRounds * kWidth * kLimbs + kLimbs;
+
+// t <- t - m where t >= m, for 9-limb values.
+HADES_FN void cond_sub9(uint32_t t[kLimbs + 1], const uint32_t m[kLimbs + 1]) {
+  uint32_t d[kLimbs + 1];
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j <= kLimbs; ++j) {
+    const uint64_t x = (uint64_t)t[j] - m[j] - borrow;
+    d[j] = (uint32_t)x;
+    borrow = (uint32_t)(x >> 63);
+  }
+#pragma unroll
+  for (int j = 0; j <= kLimbs; ++j) t[j] = borrow ? t[j] : d[j];
+}
+
+// t = a b exactly, 16 limbs: the S-box's variable x variable product, on
+// the CUDA cores. a, b < 2^256 (they may be un-normalised below 2p).
+HADES_FN void mul_wide(uint32_t t[2 * kLimbs], const uint32_t a[kLimbs],
+                       const uint32_t b[kLimbs]) {
+#pragma unroll
+  for (int j = 0; j < 2 * kLimbs; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) {
+      c += (uint64_t)a[j] * b[i] + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    t[i + kLimbs] = (uint32_t)c;
+  }
+}
+
+// The last run's first M base-256 column sums (column i at bit 8i) ->
+// L normalised 32-bit limbs of their value, mod 2^(32L): JAX's
+// _recombine16 and _carry in one pass. A column is < 160 * 255^2 < 2^24,
+// so a limb's four shifted columns plus the carry stay below 2^50.
+template <int M, int L, class Dot>
+HADES_FN void recombine(const Dot& d, uint32_t out[L]) {
+  uint64_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (4 * j + b < M) acc += (uint64_t)d.col(4 * j + b) << (8 * b);
+    }
+    out[j] = (uint32_t)acc;
+    acc >>= 32;
+  }
+}
+
+// Montgomery REDC, out = T R^-1 mod p, with both constant products as dots
+// (_redc_words_mxu). T comes as NT normalised limbs, so JAX's _carry_lo
+// (T mod R exact before the m step) is already done: NT = 16 for an S-box
+// product (T < 2.2p^2 < 2^512), 17 for the MDS layer (wide: T < 5p^2).
+//   m = T_lo p' mod R  (w_pp, the Toeplitz of p' truncated to 32 columns)
+//   s = T + m p        (w_p, the Toeplitz of p), exactly divisible by R
+// wide: s / R < 5p^2 / R + p < 3.3p, normalised by subtracting 2p, then p.
+// Otherwise s / R < 2p and `normalize` subtracts p; the S-box skips that
+// for x^2 and x^4 (perm_pallas.py:594-599): x < p gives x^2 < 1.46p, so
+// (x^2)^2 < 2.11p^2 < Rp keeps the next REDC exact and x^4 < 1.96p, and
+// x^4 x < 1.96p^2 < Rp; every un-normalised value is < 2p < 2^256.
+template <int NT, class Dot>
+HADES_FN void redc(Dot& d, uint32_t out[kLimbs], const uint32_t t[NT], bool normalize) {
+  uint32_t m[kLimbs], mp[2 * kLimbs], s[kLimbs + 1];
+  d.template put<kLimbs>(t);
+  d.template run<32, 32>(d.w_pp);
+  recombine<32, kLimbs>(d, m);
+  d.done();
+  d.template put<kLimbs>(m);
+  d.template run<kBlockRows, 32>(d.w_p);
+  recombine<2 * 32 - 1, 2 * kLimbs>(d, mp);  // m p < R p < 2^512
+  d.done();
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < 2 * kLimbs; ++j) {
+    c += (uint64_t)mp[j] + t[j];
+    if (j >= kLimbs) s[j - kLimbs] = (uint32_t)c;
+    c >>= 32;
+  }
+  s[kLimbs] = (uint32_t)c + (NT > 2 * kLimbs ? t[NT - 1] : 0u);
+  if (NT > 2 * kLimbs) {
+    uint32_t p9[kLimbs + 1], twop9[kLimbs + 1];
+#pragma unroll
+    for (int j = 0; j <= kLimbs; ++j) {
+      p9[j] = j < kLimbs ? p_limb(j) : 0u;
+      twop9[j] = (p9[j] << 1) | (j ? p_limb(j - 1) >> 31 : 0u);
+    }
+    cond_sub9(s, twop9);
+    cond_sub9(s, p9);
+  }
+  copy(out, s);
+  if (NT <= 2 * kLimbs && normalize) cond_sub_p(out, out);
+}
+
+// x <- x^5 = (x^2)^2 x: raw products on the CUDA cores, reductions on the
+// dot (_MxuOps.sbox_words). x < p in and out.
+template <class Dot>
+HADES_FN void sbox(Dot& d, uint32_t x[kLimbs]) {
+  uint32_t t[2 * kLimbs], x2[kLimbs], x4[kLimbs];
+  mul_wide(t, x, x);
+  redc<2 * kLimbs>(d, x2, t, false);
+  mul_wide(t, x2, x2);
+  redc<2 * kLimbs>(d, x4, t, false);
+  mul_wide(t, x4, x);
+  redc<2 * kLimbs>(d, x, t, true);
+}
+
+// s <- MDS s: the 160 byte rows of the state times w_lin, one 63-column
+// block per output word (_MxuOps.mds_mxu), then one wide REDC per word.
+// The REDCs run in a loop that is not unrolled, to keep one copy of the
+// code: each turn reduces t[0], shifts t down and parks the result in
+// t[4], so after five turns t[k] holds output word k.
+template <class Dot>
+HADES_FN void mds(Dot& d, uint32_t s[kWidth][kLimbs]) {
+  constexpr int kT = 2 * kLimbs + 1;
+  uint32_t t[kWidth][kT];
+  d.template put<kWidth * kLimbs>(&s[0][0]);
+#pragma unroll
+  for (int k = 0; k < kWidth; ++k) {
+    d.template run<kBlockRows, kLinK>(d.w_lin + k * kBlockRows * kLinK);
+    recombine<63, kT>(d, t[k]);  // T_k < 5p^2 < 2^513
+    d.done();
+  }
+#pragma unroll 1
+  for (int k = 0; k < kWidth; ++k) {
+    uint32_t r[kLimbs];
+    redc<kT>(d, r, t[0], true);
+#pragma unroll
+    for (int i = 0; i + 1 < kWidth; ++i) {
+#pragma unroll
+      for (int j = 0; j < kT; ++j) t[i][j] = t[i + 1][j];
+    }
+    copy(t[kWidth - 1], r);
+  }
+#pragma unroll
+  for (int k = 0; k < kWidth; ++k) copy(s[k], t[k]);
+}
+
+// The 67 dense rounds (_perm_kernel_mxu_impl): ARK by add_mod, x^5 on every
+// word of a full round and on word 4 of a partial one, then the MDS dot.
+// consts: the Montgomery ARK (kRounds x kWidth x kLimbs), then R^2. The
+// convert products by R^2 and by 1 are CIOS products, as the TPU kernel's
+// are VPU products.
+template <class Dot>
+HADES_FN void perm(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ consts,
+                   bool convert) {
+  if (convert) {
+    uint32_t r2[kLimbs];
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) r2[j] = consts[kRounds * kWidth * kLimbs + j];
+#pragma unroll
+    for (int w = 0; w < kWidth; ++w) mont_mul(s[w], s[w], r2);
+  }
+#pragma unroll 1
+  for (int r = 0; r < kRounds; ++r) {
+#pragma unroll
+    for (int w = 0; w < kWidth; ++w) {
+      uint32_t a[kLimbs];
+#pragma unroll
+      for (int j = 0; j < kLimbs; ++j) a[j] = consts[(r * kWidth + w) * kLimbs + j];
+      add_mod(s[w], s[w], a);
+    }
+    const bool full = r < kHalf || r >= kHalf + kPartialRounds;
+    // One copy of the S-box code: word 4 is S-boxed, and in a full round
+    // the state is rotated by a word after each, five times over.
+#pragma unroll 1
+    for (int i = 0; i < (full ? kWidth : 1); ++i) {
+      sbox(d, s[kWidth - 1]);
+      if (full) {
+        uint32_t last[kLimbs];
+        copy(last, s[kWidth - 1]);
+#pragma unroll
+        for (int w = kWidth - 1; w > 0; --w) copy(s[w], s[w - 1]);
+        copy(s[0], last);
+      }
+    }
+    mds(d, s);
+  }
+  if (convert) {
+    const uint32_t one[kLimbs] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int w = 0; w < kWidth; ++w) mont_mul(s[w], s[w], one);
+  }
+}
+
+#ifndef __CUDACC__
+// The host's dot: a plain loop over the same byte weights.
+struct HostDot {
+  const uint8_t* w_lin;
+  const uint8_t* w_pp;
+  const uint8_t* w_p;
+  uint8_t x[kLinK];
+  int32_t c[kBlockRows];
+
+  template <int N>
+  void put(const uint32_t* words) {
+    for (int i = 0; i < N; ++i) {
+      for (int b = 0; b < 4; ++b) x[4 * i + b] = (uint8_t)(words[i] >> (8 * b));
+    }
+  }
+  template <int M, int K>
+  void run(const uint8_t* w) {
+    for (int m = 0; m < M; ++m) {
+      int32_t sum = 0;
+      for (int k = 0; k < K; ++k) sum += (int32_t)w[m * K + k] * x[k];
+      c[m] = sum;
+    }
+  }
+  uint32_t col(int i) const { return (uint32_t)c[i]; }
+  void done() {}
+};
+#endif
+
+}  // namespace mxu8
+}  // namespace hades

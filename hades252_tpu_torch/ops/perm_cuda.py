@@ -1,11 +1,13 @@
 """The fused Hades252 permutation: CUDA kernels, their wrappers and their
 plain PyTorch versions.
 
-Port of the `naive` and `opt` schedules of `hades252_tpu/ops/perm_pallas.py`
-(`permute_planar` :1270, `_batch_major` :1390). The kernels are in
-`csrc/perm.cu`: `hades_perm_naive` (dense rounds, replacing
+Port of the `naive`, `opt` and `mxu8` schedules of
+`hades252_tpu/ops/perm_pallas.py` (`permute_planar` :1270, `_batch_major`
+:1390). The kernels are `hades_perm_naive` (dense rounds, replacing
 `_perm_kernel`) and `hades_perm_opt` (sparse-factored partial rounds,
-replacing `_perm_kernel_opt`).
+replacing `_perm_kernel_opt`) in `csrc/perm.cu`, and `hades_perm_mxu8`
+(dense rounds with every constant product as an 8-bit integer tensor-core
+MMA, replacing `_perm_kernel_mxu8`) in `csrc/perm_mxu8.cu`.
 
 A wrapper launches its kernel for a CUDA tensor and raises where it cannot;
 it takes the plain version only for a tensor on the CPU. The plain versions
@@ -20,21 +22,28 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import field
 from ..params import (
+    MXU8_BLOCK_ROWS,
     N_DIGITS,
+    P,
     PARTIAL_ROUNDS,
+    ROUNDS,
     TOTAL_FULL_ROUNDS,
     WIDTH,
     digits_to_limbs,
+    int_to_digits,
+    mxu8_tables,
+    mxu_weights_np,
     opt_schedule_np,
     perm_constants_np,
     perm_tables,
 )
 from . import _build, perm_ref
 
-SCHEDULES = ("naive", "opt")
+SCHEDULES = ("naive", "opt", "mxu8")
 DEFAULT_SCHEDULE = "opt"
 
 #: Kernel launches per schedule. A wrapper adds one where it launches its
@@ -59,6 +68,23 @@ def kernel_tables() -> np.ndarray:
     return np.concatenate([digits_to_limbs(a).reshape(-1) for a in parts])
 
 
+def mxu8_kernel_tables() -> tuple[np.ndarray, np.ndarray]:
+    """The mxu8 kernel's tables as `hades_perm_mxu8_launch` takes them: the
+    dense ARK and R^2 as one flat uint32 array of 32-bit limbs, and the
+    weights w_lin, w_pp, w_p as one flat uint8 array (params.mxu8_tables)."""
+    t = mxu8_tables()
+    consts = np.concatenate([digits_to_limbs(t[k]).reshape(-1) for k in ("ark_mont", "r2")])
+    weights = np.concatenate([t[k].reshape(-1) for k in ("w_lin", "w_pp", "w_p")])
+    return consts, weights
+
+
+@functools.cache
+def _mxu8_device_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    consts, weights = mxu8_kernel_tables()
+    return (torch.from_numpy(consts.view(np.int32)).to(device),
+            torch.from_numpy(weights).to(device))
+
+
 def _check_status(lib, status: int, what: str) -> None:
     if status != 0:
         raise RuntimeError(f"{what}: {lib.hades_error_string(status).decode()} ({status})")
@@ -68,16 +94,51 @@ def _launch(x: torch.Tensor, out: torch.Tensor, *, convert: bool, schedule: str)
     lib = _build.library()
     with torch.cuda.device(x.device):
         dev = torch.cuda.current_device()
-        if dev not in _initialized:
-            tables = kernel_tables()
-            _check_status(lib, lib.hades_init(tables.ctypes.data, tables.size),
-                          "hades_init")
-            _initialized.add(dev)
-        fn = getattr(lib, f"hades_perm_{schedule}_launch")
         stream = torch.cuda.current_stream().cuda_stream
-        _check_status(lib, fn(x.data_ptr(), out.data_ptr(), x.shape[2], int(convert), stream),
-                      f"hades_perm_{schedule}")
+        args = (x.data_ptr(), out.data_ptr(), x.shape[2], int(convert))
+        if schedule == "mxu8":
+            consts, weights = _mxu8_device_tables(torch.device("cuda", dev))
+            status = lib.hades_perm_mxu8_launch(*args, consts.data_ptr(),
+                                                weights.data_ptr(), stream)
+        else:
+            if dev not in _initialized:
+                tables = kernel_tables()
+                _check_status(lib, lib.hades_init(tables.ctypes.data, tables.size),
+                              "hades_init")
+                _initialized.add(dev)
+            status = getattr(lib, f"hades_perm_{schedule}_launch")(*args, stream)
+        _check_status(lib, status, f"hades_perm_{schedule}")
     launches[schedule] += 1
+
+
+def mxu8_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) over uint8 operands with exact int32 sums: on a CUDA
+    tensor through the mxu8 kernel's own tensor-core tile product
+    (`hades_mxu8_dot`), which exists so that its MMA fragment layout can be
+    checked against a matmul; on the CPU in float64 (exact: sums < 2^53).
+    M <= 320 and K <= 160, the kernel's tile sizes; both are zero-padded to
+    the MMA's 16 rows and 32 bytes."""
+    if w.dtype != torch.uint8 or x.dtype != torch.uint8 or w.dim() != 2 or x.dim() != 2:
+        raise ValueError("expected two uint8 matrices")
+    (m, k), n = w.shape, x.shape[1]
+    if x.shape[0] != k or not (0 < m <= 5 * MXU8_BLOCK_ROWS and 0 < k <= 160 and n > 0):
+        raise ValueError(f"unsupported shapes {tuple(w.shape)} @ {tuple(x.shape)}")
+    if w.device.type == "cpu":
+        return torch.matmul(w.double(), x.double()).to(torch.int32)
+    if w.device.type != "cuda" or x.device != w.device:
+        raise ValueError(f"no kernel for devices {w.device}, {x.device}")
+    mp, kp = -(-m // 16) * 16, -(-k // 32) * 32
+    wp = torch.zeros((mp, kp), dtype=torch.uint8, device=w.device)
+    wp[:m, :k] = w
+    xt = torch.zeros((n, kp), dtype=torch.uint8, device=w.device)
+    xt[:, :k] = x.t()
+    out = torch.empty((mp, n), dtype=torch.int32, device=w.device)
+    lib = _build.library()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _check_status(lib, lib.hades_mxu8_dot_launch(wp.data_ptr(), xt.data_ptr(), out.data_ptr(),
+                                                     mp, kp, n, stream), "hades_mxu8_dot")
+    return out[:m]
 
 
 def _check_schedule(schedule: str) -> None:
@@ -183,19 +244,137 @@ def _permute_opt_mont(s: torch.Tensor) -> torch.Tensor:
     return s
 
 
+# -- mxu8: the dense schedule with every constant product as a byte dot -------
+# Follows `_perm_kernel_mxu_impl` (perm_pallas.py:731) and `_MxuOps` (:653)
+# step for step, on (..., digits) int64 tensors. A dot runs in float64,
+# exact because every sum is < 2^24 (torch has no integer matmul on CUDA).
+
+
+@functools.cache
+def _mxu8_plain_tables(device: torch.device) -> dict[str, torch.Tensor]:
+    w = mxu_weights_np()
+    out = {k: torch.from_numpy(w[k].astype(np.float64)).to(device) for k in w}
+    p17 = int_to_digits(P, N_DIGITS + 1).astype(np.int64)
+    out["p17"] = torch.from_numpy(p17).to(device)
+    out["twop17"] = torch.from_numpy(int_to_digits(2 * P, N_DIGITS + 1).astype(np.int64)).to(device)
+    out["ark"] = perm_tables()["ark_mont"].to(device)
+    return out
+
+
+def _byte_rows(x16: torch.Tensor) -> torch.Tensor:
+    """(..., 16) digits -> (..., 32) byte rows: the low bytes of digits
+    0..15, then their high bytes (params._byte_pos)."""
+    x16 = x16.to(torch.int64)
+    return torch.cat([x16 & 0xFF, x16 >> 8], dim=-1)
+
+
+def _dot_bytes(w: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
+    """(M, K) byte weights (float64) times (..., K) byte rows -> (..., M)
+    int64 column sums; the counterpart of `_dot_u32_i8` (perm_pallas.py:524)."""
+    return torch.matmul(xb.to(torch.float64), w.t()).to(torch.int64)
+
+
+def _recombine16(cols: torch.Tensor, n16: int) -> torch.Tensor:
+    """Base-256 columns (2 n16 or 2 n16 - 1) -> n16 un-carried 16-bit
+    columns: col[2d] + (col[2d + 1] << 8)."""
+    hi = cols[..., 1::2]
+    hi = F.pad(hi, (0, n16 - hi.shape[-1]))
+    return cols[..., 0::2] + (hi << 8)
+
+
+def _carry(acc: torch.Tensor) -> torch.Tensor:
+    """Carry-normalize (..., n) non-negative columns into n 16-bit digits
+    (int64); a carry out of the top digit is dropped."""
+    n = acc.shape[-1]
+    _, digits = field.carry_normalize(F.pad(acc, (0, n % 2)))
+    return digits[..., :n].to(torch.int64)
+
+
+def _carry_lo(acc: torch.Tensor) -> torch.Tensor:
+    """Carry-normalize only the first 16 columns (T mod R, which the REDC's
+    m-step needs exact); their carry goes into column 16, the high columns
+    stay un-carried."""
+    carry, lo = field.carry_normalize(acc[..., :N_DIGITS])
+    mid = acc[..., N_DIGITS : N_DIGITS + 1] + carry[..., None].to(torch.int64)
+    return torch.cat([lo.to(torch.int64), mid, acc[..., N_DIGITS + 1 :]], dim=-1)
+
+
+def _cond_sub(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """a - m where a >= m, else a: (..., n) digits, m (n,) digits."""
+    n = a.shape[-1]
+    pad = (0, 2 * N_DIGITS - n)
+    borrow, diff = field.sub_digits(F.pad(a, pad), F.pad(m, pad))
+    return torch.where((borrow == 0)[..., None], diff[..., :n].to(torch.int64), a)
+
+
+def _redc_words(t: torch.Tensor, *, wide: bool, normalize: bool = True) -> torch.Tensor:
+    """Montgomery REDC of un-carried columns t, both constant products as
+    byte dots (`_redc_words_mxu`, perm_pallas.py:580): (..., 33) columns of
+    T < 5p^2 when wide, else (..., 32) of T < 2.2p^2. Returns (..., 16)
+    int64 digits: < p, or < 2p where normalize is False (the S-box's x^2
+    and x^4, valid under the bounds stated at perm_pallas.py:594-599)."""
+    c = _mxu8_plain_tables(t.device)
+    tcat = _carry_lo(t.to(torch.int64))
+    m = _carry(_recombine16(_dot_bytes(c["w_pp"], _byte_rows(tcat[..., :N_DIGITS])), N_DIGITS))
+    mp = _recombine16(_dot_bytes(c["w_p"], _byte_rows(m)), 2 * N_DIGITS)
+    if wide:
+        s = _carry(F.pad(mp, (0, 1)) + tcat)  # 33 digits, t < 3.3p
+        return _cond_sub(_cond_sub(s[..., N_DIGITS:], c["twop17"]), c["p17"])[..., :N_DIGITS]
+    out = _carry(mp + tcat)[..., N_DIGITS:]  # T + m p < 2.2p^2 + Rp < 2^512
+    return field.cond_sub_p(out).to(torch.int64) if normalize else out
+
+
+def _sbox_words(x: torch.Tensor) -> torch.Tensor:
+    """x^5 = (x^2)^2 x with the raw products as schoolbook columns and
+    every REDC through the dots; x^2 and x^4 stay below 2p
+    (`_MxuOps.sbox_words`, perm_pallas.py:678)."""
+    x2 = _redc_words(field._columns(x, x, 2 * N_DIGITS), wide=False, normalize=False)
+    x4 = _redc_words(field._columns(x2, x2, 2 * N_DIGITS), wide=False, normalize=False)
+    return _redc_words(field._columns(x4, x, 2 * N_DIGITS), wide=False)
+
+
+def _mds_mxu(s: torch.Tensor) -> torch.Tensor:
+    """The MDS layer as one byte dot with w_lin, then one wide REDC per
+    word (`_MxuOps.mds_mxu`, perm_pallas.py:707)."""
+    c = _mxu8_plain_tables(s.device)
+    by = _byte_rows(s).flatten(-2)                       # (B, 5 * 32)
+    cols = _dot_bytes(c["w_lin"], by).unflatten(-1, (WIDTH, 63))
+    return _redc_words(F.pad(_recombine16(cols, 2 * N_DIGITS), (0, 1)), wide=True)
+
+
+def _permute_mxu8_mont(s: torch.Tensor) -> torch.Tensor:
+    """The mxu8 schedule on (B, WIDTH, N_DIGITS) Montgomery state: 67
+    dense rounds of ARK (add_mod), x^5 and the MDS dot."""
+    ark = _mxu8_plain_tables(s.device)["ark"]
+    half = TOTAL_FULL_ROUNDS // 2
+    for r in range(ROUNDS):
+        s = field.add_mod(s, ark[r]).to(torch.int64)
+        if half <= r < half + PARTIAL_ROUNDS:
+            s = torch.cat([s[:, :-1], _sbox_words(s[:, -1:])], dim=1)
+        else:
+            s = _sbox_words(s)
+        s = _mds_mxu(s)
+    return s.to(torch.int32)
+
+
+_PLAIN = {"naive": perm_ref.permute_mont, "opt": _permute_opt_mont,
+          "mxu8": _permute_mxu8_mont}
+
+
 def permute_planar_plain(x: torch.Tensor, *, convert: bool = True,
                          schedule: str = DEFAULT_SCHEDULE) -> torch.Tensor:
     """The plain PyTorch version of the kernels, on x's own device: same
     planar (WIDTH, N_DIGITS, B) layout, same `convert`, same outputs.
     `naive` runs the dense rounds of ops/perm_ref.py; `opt` the sparse
-    schedule from the port's opt tables."""
+    schedule from the port's opt tables; `mxu8` the dense rounds with byte
+    dots."""
     _check_schedule(schedule)
     if x.dim() != 3 or tuple(x.shape[:2]) != (WIDTH, N_DIGITS):
         raise ValueError(f"expected ({WIDTH}, {N_DIGITS}, B), got {tuple(x.shape)}")
     s = x.permute(2, 0, 1)
     if convert:
         s = field.to_mont(s)
-    s = perm_ref.permute_mont(s) if schedule == "naive" else _permute_opt_mont(s)
+    s = _PLAIN[schedule](s)
     if convert:
         s = field.from_mont(s)
     return s.permute(1, 2, 0).contiguous()

@@ -290,6 +290,141 @@ def perm_tables() -> dict[str, torch.Tensor]:
     return from_jax_tables(perm_constants_np(), opt_schedule_np())
 
 
+# ---------------------------------------------------------------------------
+# The mxu8 schedule's constant matmul weights (hades252_tpu/params.py:347-402)
+#
+# A 256-bit value enters a constant product as 32 byte rows; a weight block
+# is the Toeplitz matrix of the constant's bytes, so (weights @ byte rows)
+# gives the base-256 columns, un-carried, of constant * value.
+# ---------------------------------------------------------------------------
+
+
+def _byte_pos(r: int) -> int:
+    """Byte position encoded by input row r of the byte-row layout: rows
+    0..15 are the low bytes of 16-bit digits 0..15 (positions 0, 2, .., 30),
+    rows 16..31 the high bytes (positions 1, 3, .., 31)."""
+    return 2 * r if r < N_DIGITS else 2 * (r - N_DIGITS) + 1
+
+
+def _value_bytes(x: int) -> list[int]:
+    return list(int(x).to_bytes(32, "little"))
+
+
+def _toeplitz_rows(value: int, n_cols: int) -> np.ndarray:
+    """(n_cols, 32) float32 weight block: W[c, r] = byte_{c - pos(r)} of
+    value, so W @ (byte rows of a variable) = the base-256 columns of
+    value * variable."""
+    vb = _value_bytes(value)
+    w = np.zeros((n_cols, 2 * N_DIGITS), np.float32)
+    for r in range(2 * N_DIGITS):
+        pos = _byte_pos(r)
+        for c in range(n_cols):
+            e = c - pos
+            if 0 <= e < 32:
+                w[c, r] = vb[e]
+    return w
+
+
+@functools.cache
+def mxu_weights_np() -> dict[str, np.ndarray]:
+    """The mxu8 schedule's weights as float32 arrays of bytes 0..255, equal
+    key by key to `hades252_tpu.params.mxu_weights_np()`.
+
+    w_lin (5*63, 5*32): the Montgomery MDS as one digit convolution; row
+      k*63+c is base-256 column c of sum_j mds_mont[k][j] * state[j], column
+      j*32+r is byte row r of state word j. Max column sum 160*255^2 < 2^24.
+    w_pp (32, 32): truncated Toeplitz of P' = -p^-1 mod R (byte rows of
+      T_lo -> columns of T_lo P' mod R, columns >= 32 dropped).
+    w_p (63, 32): Toeplitz of p (byte rows of m -> columns of m p).
+    """
+    mds = mds_matrix_int()
+    w_lin = np.zeros((WIDTH * 63, WIDTH * 2 * N_DIGITS), np.float32)
+    for k in range(WIDTH):
+        for j in range(WIDTH):
+            w_lin[k * 63 : (k + 1) * 63, j * 32 : (j + 1) * 32] = (
+                _toeplitz_rows(_to_mont(mds[k][j]), 63)
+            )
+    return {
+        "w_lin": w_lin,
+        "w_pp": _toeplitz_rows(P_PRIME, 32),
+        "w_p": _toeplitz_rows(P, 63),
+    }
+
+
+#: Rows of one output word's weight block in the CUDA kernel's tables: the
+#: 63 base-256 columns padded to a multiple of the MMA's 16 rows.
+MXU8_BLOCK_ROWS = 64
+
+# K index in the kernel's layout = byte position: column pos(r) <- row r
+_NATURAL_ORDER = np.argsort([_byte_pos(r) for r in range(2 * N_DIGITS)])
+
+
+def _kernel_weights(w_lin: np.ndarray, w_pp: np.ndarray, w_p: np.ndarray) -> dict:
+    """Byte weights in the JAX layout -> the CUDA kernel's: uint8, the K
+    axis in natural byte order (so a word's byte rows are its 32-bit limbs as
+    stored), and every 63-row block padded with a zero row to 64."""
+    def natural(w):
+        k = w.shape[1]
+        order = np.concatenate([j * 32 + _NATURAL_ORDER for j in range(k // 32)])
+        return w[:, order]
+
+    def pad_blocks(w, n_blocks):
+        out = np.zeros((n_blocks * MXU8_BLOCK_ROWS, w.shape[1]), np.uint8)
+        for b in range(n_blocks):
+            out[b * MXU8_BLOCK_ROWS : b * MXU8_BLOCK_ROWS + 63] = w[b * 63 : (b + 1) * 63]
+        return out
+
+    return {
+        "w_lin": pad_blocks(natural(w_lin), WIDTH),
+        "w_pp": np.ascontiguousarray(natural(w_pp)),
+        "w_p": pad_blocks(natural(w_p), 1),
+    }
+
+
+def _as_bytes(w: np.ndarray, key: str) -> np.ndarray:
+    w = np.asarray(w)
+    if (w < 0).any() or (w > 255).any() or (w != np.round(w)).any():
+        raise ValueError(f"{key} is not a table of bytes")
+    return w.astype(np.uint8)
+
+
+@functools.cache
+def mxu8_tables() -> dict[str, np.ndarray]:
+    """The CUDA mxu8 kernel's tables (`ops/csrc/perm_mxu8.cu`): ark_mont
+    (ROUNDS, WIDTH, N_DIGITS) and r2 (N_DIGITS,) uint32 digits; w_lin
+    (320, 160), w_pp (32, 32), w_p (64, 32) uint8, unsigned bytes (Hopper's
+    integer MMA takes .u8 operands, so no offset encoding)."""
+    w = mxu_weights_np()
+    c = perm_constants_np()
+    return {"ark_mont": c["ark_mont"], "r2": c["r2"],
+            **_kernel_weights(*(_as_bytes(w[k], k) for k in ("w_lin", "w_pp", "w_p")))}
+
+
+def from_jax_mxu8_tables(consts) -> dict[str, np.ndarray]:
+    """Carry the JAX package's mxu8 constants across: `consts` is the tuple
+    of `hades252_tpu/ops/perm_pallas.py:_const_arrays_mxu8()`, (ark_mont,
+    fc, w_lin, w_pp, w_p as int8 weights offset by -128, and their int32
+    row sums). Checks every row sum against its weights and fc's modulus,
+    and returns the tables of `mxu8_tables()`."""
+    ark, fc, *rest = consts
+    if len(rest) != 6:
+        raise ValueError(f"expected 8 arrays, got {2 + len(rest)}")
+    fc = np.asarray(fc)
+    if not np.array_equal(fc[0], int_to_digits(P)):
+        raise ValueError("fc[0] is not the modulus p")
+    unsigned = []
+    for key, w_s8, rowsum in zip(("w_lin", "w_pp", "w_p"), rest[:3], rest[3:]):
+        w_s8 = np.asarray(w_s8)
+        if w_s8.dtype != np.int8:
+            raise ValueError(f"{key} is not int8")
+        if not np.array_equal(w_s8.astype(np.int32).sum(axis=1, keepdims=True),
+                              np.asarray(rowsum)):
+            raise ValueError(f"{key}: row sums do not match the weights")
+        unsigned.append((w_s8.astype(np.int32) + 128).astype(np.uint8))
+    return {"ark_mont": np.asarray(ark, np.uint32), "r2": fc[2].astype(np.uint32),
+            **_kernel_weights(*unsigned)}
+
+
 def digits_to_limbs(digits: np.ndarray) -> np.ndarray:
     """(..., 16) 16-bit digits -> (..., 8) uint32 limbs of 32 bits, the
     layout of the CUDA kernels' constant tables."""

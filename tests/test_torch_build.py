@@ -1,5 +1,6 @@
-"""The kernels' build helpers, the arithmetic of `perm.cuh` compiled for the
-host, and the independent oracles of `chip_smoke.py`, all on the CPU."""
+"""The kernels' build helpers, the per-state code of `perm.cuh` and
+`perm_mxu8.cuh` compiled for the host, and the independent oracles of
+`chip_smoke.py`, all on the CPU."""
 
 import shutil
 import subprocess
@@ -10,34 +11,45 @@ import torch
 
 import chip_smoke
 from hades252_tpu_torch import selftest
-from hades252_tpu_torch.models import merkle, sponge
+from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import _build, perm_cuda
 from hades252_tpu_torch.params import digits_to_limbs
 from hades252_tpu_torch.utils.encoding import digits_to_ints
 
 torch.set_num_threads(1)
 
-# Runs perm.cuh's per-state permutation over states given as 32-bit limbs:
-# harness TABLES STATES SCHEDULE(0 naive, 1 opt) CONVERT -> limbs on stdout.
+# Runs the per-state permutation over states given as 32-bit limbs:
+# harness TABLES STATES SCHEDULE(0 naive, 1 opt, 2 mxu8) CONVERT MXU8_CONSTS
+# MXU8_WEIGHTS -> limbs on stdout. mxu8 runs perm_mxu8.cuh with its host
+# dot, a plain loop over the kernel's byte weights in the MMA's place.
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <vector>
 #include "perm.cuh"
+#include "perm_mxu8.cuh"
 using namespace hades;
-static std::vector<uint32_t> read_words(const char* path) {
+template <typename T>
+static std::vector<T> read_file(const char* path) {
   FILE* f = fopen(path, "rb");
-  std::vector<uint32_t> v;
-  uint32_t w;
-  while (fread(&w, 4, 1, f) == 1) v.push_back(w);
+  std::vector<T> v;
+  T w;
+  while (fread(&w, sizeof(T), 1, f) == 1) v.push_back(w);
   fclose(f);
   return v;
 }
+static std::vector<uint32_t> read_words(const char* path) { return read_file<uint32_t>(path); }
 #define TAKE(sym) memcpy(sym, src, sizeof(sym)); src += sizeof(sym) / 4;
 int main(int argc, char** argv) {
   std::vector<uint32_t> tables = read_words(argv[1]), states = read_words(argv[2]);
-  const int opt = atoi(argv[3]), convert = atoi(argv[4]);
+  const int schedule = atoi(argv[3]), convert = atoi(argv[4]);
+  std::vector<uint32_t> consts = read_words(argv[5]);
+  std::vector<uint8_t> weights = read_file<uint8_t>(argv[6]);
+  if ((int)consts.size() != mxu8::kConstWords || (int)weights.size() != mxu8::kWeightBytes)
+    return 4;
+  mxu8::HostDot dot{weights.data(), weights.data() + mxu8::kLinBytes,
+                    weights.data() + mxu8::kLinBytes + mxu8::kPpBytes, {}, {}};
   const uint32_t* src = tables.data();
   for (int j = 0; j < kLimbs; ++j) if (src[j] != p_limb(j)) return 2;
   src += kLimbs;
@@ -47,7 +59,9 @@ int main(int argc, char** argv) {
   for (size_t b = 0; b * 40 < states.size(); ++b) {
     uint32_t s[kWidth][kLimbs];
     memcpy(s, &states[b * 40], sizeof(s));
-    if (opt) perm_opt(s, convert != 0); else perm_naive(s, convert != 0);
+    if (schedule == 2) mxu8::perm(dot, s, consts.data(), convert != 0);
+    else if (schedule == 1) perm_opt(s, convert != 0);
+    else perm_naive(s, convert != 0);
     memcpy(&states[b * 40], s, sizeof(s));
   }
   fwrite(states.data(), 4, states.size(), stdout);
@@ -66,10 +80,13 @@ def harness(tmp_path_factory):
     subprocess.run([cxx, "-O1", "-std=c++17", "-w", f"-I{_build.CSRC}", "-o",
                     str(d / "harness"), str(d / "harness.cpp")], check=True, timeout=300)
     perm_cuda.kernel_tables().astype("<u4").tofile(d / "tables.bin")
+    consts, weights = perm_cuda.mxu8_kernel_tables()
+    consts.astype("<u4").tofile(d / "mxu8_consts.bin")
+    weights.tofile(d / "mxu8_weights.bin")
     return d
 
 
-@pytest.mark.parametrize("schedule", ["naive", "opt"])
+@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8"])
 @pytest.mark.parametrize("convert", [True, False])
 def test_kernel_math_on_host_matches_int_oracle(harness, schedule, convert):
     inputs, expected, inputs_m, expected_m = selftest._vectors()
@@ -77,7 +94,8 @@ def test_kernel_math_on_host_matches_int_oracle(harness, schedule, convert):
     digits_to_limbs(x).astype("<u4").tofile(harness / "states.bin")
     out = subprocess.run(
         [str(harness / "harness"), str(harness / "tables.bin"), str(harness / "states.bin"),
-         str(int(schedule == "opt")), str(int(convert))],
+         str(perm_cuda.SCHEDULES.index(schedule)), str(int(convert)),
+         str(harness / "mxu8_consts.bin"), str(harness / "mxu8_weights.bin")],
         capture_output=True, check=True, timeout=300,
     ).stdout
     got = np.frombuffer(out, "<u4").reshape(-1, 5, 8)
@@ -88,7 +106,7 @@ def test_source_hash_covers_every_source():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = sorted(p.name for p in _build.CSRC.glob("*.cu*"))
-    assert names == ["perm.cu", "perm.cuh"]
+    assert names == ["field.cuh", "perm.cu", "perm.cuh", "perm_mxu8.cu", "perm_mxu8.cuh"]
 
 
 def test_ptxas_summary():
@@ -103,6 +121,48 @@ def test_ptxas_summary():
         "32 bytes spill loads",
         "_Z14hades_perm_optPKiPixi: Used 255 registers, used 0 barriers",
     ]
+
+
+# Stands in for nvcc: logs its arguments, creates the file after -o, and
+# fails for a source named in FAIL_ON.
+FAKE_NVCC = """#!/bin/sh
+echo "$@" >> "$(dirname "$0")/calls.log"
+for a in "$@"; do case "$a" in *"$FAIL_ON") echo "error in $a"; exit 2;; esac; done
+while [ $# -gt 0 ]; do [ "$1" = "-o" ] && : > "$2"; shift; done
+echo "ptxas info    : Used 8 registers"
+"""
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    return tmp_path / "calls.log"
+
+
+def test_build_runs_one_nvcc_per_source_then_links(fake_nvcc, monkeypatch):
+    monkeypatch.setenv("FAIL_ON", "no-such-source")
+    lib, report = _build.build()
+    calls = fake_nvcc.read_text().splitlines()
+    sources = sorted(str(p) for p in _build.CSRC.glob("*.cu"))
+    compiles, link = calls[:-1], calls[-1]
+    assert sorted(c.split()[-1] for c in compiles) == sources
+    assert all(" -c -o " in c and "arch=compute_90a,code=sm_90a" in c for c in compiles)
+    assert link.startswith("-shared -o ") and link.count(".o") == len(sources)
+    assert lib.exists() and report.count("Used 8 registers") == len(sources) + 1
+    assert sorted(lib.parent.iterdir()) == sorted([lib, lib.with_suffix(".log")])
+    assert _build.build() == (lib, report)  # built once for these sources
+    assert len(fake_nvcc.read_text().splitlines()) == len(calls)
+
+
+def test_build_failure_raises_and_leaves_nothing(fake_nvcc, monkeypatch):
+    monkeypatch.setenv("FAIL_ON", "perm_mxu8.cu")
+    with pytest.raises(RuntimeError, match=r"exit code 2 \(perm_mxu8\.cu\):\nerror in"):
+        _build.build()
+    assert list((fake_nvcc.parent / "build").iterdir()) == []
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -139,3 +199,17 @@ def test_chip_smoke_oracles_agree_with_the_port():
     digests = sponge.sponge_hash(msgs, chip_smoke.plain_mont_fn("naive"))
     assert int(digits_to_ints(digests[1].numpy())) == chip_smoke.int_sponge(
         list(digits_to_ints(msgs[1].numpy())))
+
+
+def test_chip_smoke_cipher_oracle_agrees_with_the_port():
+    rng = np.random.default_rng(5)
+    key = torch.from_numpy(chip_smoke.random_elements((2, 2), rng))
+    nonce = torch.from_numpy(chip_smoke.random_elements((2,), rng))
+    msgs = torch.from_numpy(chip_smoke.random_elements((2, 6), rng))
+    ct, tag = cipher.encrypt(key, nonce, msgs, chip_smoke.plain_mont_fn("mxu8"))
+    for i in range(2):
+        want_ct, want_tag = chip_smoke.int_cipher(list(digits_to_ints(key[i].numpy())),
+                                                  int(digits_to_ints(nonce[i].numpy())),
+                                                  list(digits_to_ints(msgs[i].numpy())))
+        assert list(digits_to_ints(ct[i].numpy())) == want_ct
+        assert int(digits_to_ints(tag[i].numpy())) == want_tag

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from hades252_tpu_torch import field, selftest
-from hades252_tpu_torch.models import merkle, sponge
+from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import make_perm_mont_fn, perm_cuda, permute
 from hades252_tpu_torch.strategy import ScalarStrategy
 
@@ -33,7 +33,7 @@ def _elements(shape, seed: int) -> torch.Tensor:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 1000, 4096])
-@pytest.mark.parametrize("schedule", ["naive", "opt"])
+@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8"])
 @pytest.mark.parametrize("convert", [True, False])
 def test_kernel_matches_plain(cuda_device, b, schedule, convert):
     x = _elements((5, b), 20 + b).permute(0, 2, 1).contiguous().to(cuda_device)
@@ -74,9 +74,66 @@ def test_merkle_and_sponge(cuda_device):
     perm_cuda.reset_launches()
     root = merkle.merkle_root(leaves.to(cuda_device))
     digest = sponge.sponge_hash(msgs.to(cuda_device))
-    assert perm_cuda.launches == {"naive": 0, "opt": merkle.tree_levels(256) + 3}
+    assert perm_cuda.launches == {"naive": 0, "opt": merkle.tree_levels(256) + 3, "mxu8": 0}
     naive = merkle.merkle_root(leaves.to(cuda_device), make_perm_mont_fn("cuda", schedule="naive"))
     assert perm_cuda.launches["naive"] == merkle.tree_levels(256)
     assert torch.equal(root.cpu(), merkle.merkle_root(leaves))
     assert torch.equal(naive, root)
     assert torch.equal(digest.cpu(), sponge.sponge_hash(msgs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(16, 32, 8), (64, 160, 128), (320, 160, 1000), (45, 70, 129)])
+def test_mxu8_dot_matches_float64_matmul(cuda_device, m, k, n):
+    g = torch.Generator().manual_seed(m * k + n)
+    w = torch.randint(0, 256, (m, k), dtype=torch.uint8, generator=g)
+    x = torch.randint(0, 256, (k, n), dtype=torch.uint8, generator=g)
+    got = perm_cuda.mxu8_dot(w.to(cuda_device), x.to(cuda_device))
+    want = torch.matmul(w.double(), x.double()).to(cuda_device)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.double(), want)
+
+
+@pytest.mark.cuda
+def test_cipher_through_mxu8(cuda_device):
+    b, l = 1000, 32
+    key, nonce, msgs = _elements((b, 2), 600), _elements((b,), 601), _elements((b, l), 602)
+    key, nonce, msgs = key.to(cuda_device), nonce.to(cuda_device), msgs.to(cuda_device)
+    perm_cuda.reset_launches()
+    ct, tag = cipher.encrypt(key, nonce, msgs, make_perm_mont_fn("cuda", schedule="mxu8"))
+    torch.cuda.synchronize()
+    assert perm_cuda.launches == {"naive": 0, "opt": 0, "mxu8": 1 + l // cipher.RATE}
+    ct_opt, tag_opt = cipher.encrypt(key, nonce, msgs)  # the default opt kernel
+    assert torch.equal(ct, ct_opt) and torch.equal(tag, tag_opt)
+    ct_p, tag_p = cipher.encrypt(key[:16], nonce[:16], msgs[:16], _plain_mont_fn("mxu8"))
+    assert torch.equal(ct[:16], ct_p) and torch.equal(tag[:16], tag_p)
+    pt, ok = cipher.decrypt(key, nonce, ct, tag, make_perm_mont_fn("cuda", schedule="mxu8"))
+    assert bool(ok.all()) and torch.equal(pt, msgs)
+
+
+def _plain_mont_fn(schedule):
+    def fn(x):
+        out = perm_cuda.permute_planar_plain(x.permute(1, 2, 0).contiguous(), convert=False,
+                                             schedule=schedule)
+        return out.permute(2, 0, 1).contiguous()
+    return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8"])
+def test_cuda_tensor_never_takes_the_plain_path(cuda_device, monkeypatch, schedule):
+    x = _elements((5, 300), 3).permute(0, 2, 1).contiguous().to(cuda_device)
+    want = perm_cuda.permute_planar_plain(x, schedule=schedule)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(perm_cuda, "permute_planar_plain", refuse)
+    monkeypatch.setitem(perm_cuda._PLAIN, schedule, refuse)
+    before = perm_cuda.launches[schedule]
+    got = perm_cuda.permute_planar(x, schedule=schedule)
+    torch.cuda.synchronize()
+    assert perm_cuda.launches[schedule] == before + 1 and torch.equal(got, want)
+    # an input the kernel cannot take raises instead of falling back
+    with pytest.raises(ValueError):
+        perm_cuda.permute_planar(x[:, :, ::2], schedule=schedule)

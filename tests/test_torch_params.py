@@ -2,9 +2,11 @@
 package's, bit for bit."""
 
 import numpy as np
+import pytest
 import torch
 
 from hades252_tpu import params as jparams
+from hades252_tpu.ops.perm_pallas import _const_arrays_mxu8
 from hades252_tpu import selftest as jselftest
 from hades252_tpu.strategy import ScalarStrategy as JaxScalarStrategy
 from hades252_tpu_torch import params, selftest
@@ -48,6 +50,42 @@ def test_from_jax_tables_reproduces_port_tables():
     for key, t in ours.items():
         assert t.dtype == carried[key].dtype == torch.int32, key
         assert torch.equal(t, carried[key]), key
+
+
+def test_mxu_weights_match():
+    ours, theirs = params.mxu_weights_np(), jparams.mxu_weights_np()
+    assert sorted(ours) == sorted(theirs)
+    for key in theirs:
+        assert ours[key].dtype == theirs[key].dtype == np.float32, key
+        assert np.array_equal(ours[key], theirs[key]), key
+
+
+def test_from_jax_mxu8_tables_reproduces_port_tables():
+    carried = params.from_jax_mxu8_tables(_const_arrays_mxu8())
+    ours = params.mxu8_tables()
+    assert sorted(carried) == sorted(ours) == ["ark_mont", "r2", "w_lin", "w_p", "w_pp"]
+    for key, t in ours.items():
+        assert t.dtype == carried[key].dtype, key
+        assert np.array_equal(t, carried[key]), key
+    assert ours["w_lin"].shape == (320, 160) and ours["w_p"].shape == (64, 32)
+
+
+def test_from_jax_mxu8_tables_checks_row_sums():
+    consts = list(_const_arrays_mxu8())
+    consts[6] = consts[6] + 1  # w_pp's row sums
+    with pytest.raises(ValueError, match="row sums"):
+        params.from_jax_mxu8_tables(tuple(consts))
+
+
+def test_mxu8_weights_in_natural_byte_order():
+    """Row c of w_pp times the bytes of x, in natural order, gives the
+    base-256 columns of x p' mod R; w_p's those of x p."""
+    t = params.mxu8_tables()
+    x = 0x1234_5678_9ABC_DEF0_0FED_CBA9_8765_4321_1111_2222_3333_4444_5555_6666_7777_8888
+    xb = np.frombuffer(x.to_bytes(32, "little"), np.uint8).astype(np.int64)
+    value = lambda cols: sum(int(c) << (8 * i) for i, c in enumerate(cols))  # noqa: E731
+    assert value(t["w_pp"].astype(np.int64) @ xb) % params.R == x * params.P_PRIME % params.R
+    assert value(t["w_p"].astype(np.int64) @ xb) == x * params.P
 
 
 def test_word_level_montgomery_constant():

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from hades252_tpu.ops import perm_pallas
 from hades252_tpu.ops.perm_pallas import permute_planar_emulated
 from hades252_tpu.ops.perm_ref import permute as jax_permute
 from hades252_tpu_torch import field, selftest
@@ -52,7 +53,7 @@ def test_oracle_mont_path():
     assert torch.equal(field.from_mont(permute_mont(field.to_mont(x))), permute(x))
 
 
-@pytest.mark.parametrize("schedule", ["naive", "opt"])
+@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8"])
 @pytest.mark.parametrize("convert", [True, False])
 def test_plain_kernel_matches_jax_kernel_harness(schedule, convert):
     x = np.ascontiguousarray(_states(128, 3).transpose(1, 2, 0))  # planar (5, 16, B)
@@ -60,6 +61,61 @@ def test_plain_kernel_matches_jax_kernel_harness(schedule, convert):
     theirs = permute_planar_emulated(x, convert=convert, schedule=schedule)
     assert ours.dtype == torch.int32 and ours.shape == (5, 16, 128)
     assert np.array_equal(ours.numpy().astype(np.uint32), theirs)
+
+
+@pytest.mark.parametrize("convert", [True, False])
+def test_plain_mxu8_matches_jax_kernel_harness_ragged(convert):
+    x = np.ascontiguousarray(_states(37, 6).transpose(1, 2, 0))
+    ours = perm_cuda.permute_planar_plain(_t(x), convert=convert, schedule="mxu8")
+    theirs = permute_planar_emulated(x, convert=convert, schedule="mxu8")
+    assert np.array_equal(ours.numpy().astype(np.uint32), theirs)
+
+
+def _jax_mxu_ops():
+    """The JAX package's mxu8 machinery on its numpy emulation path."""
+    ark, fc, w_lin, w_pp, w_p, rs_lin, rs_pp, rs_p = perm_pallas._const_arrays_mxu8()
+    dot = lambda w, rs: lambda xb: perm_pallas._dot_u32_i8(w, rs, xb)  # noqa: E731
+    return perm_pallas._MxuOps(ark, fc, dot(w_lin, rs_lin), dot(w_pp, rs_pp), dot(w_p, rs_p))
+
+
+def test_dot_bytes_matches_jax_int8_dot():
+    consts = perm_pallas._const_arrays_mxu8()
+    plain = perm_cuda._mxu8_plain_tables(torch.device("cpu"))
+    rng = np.random.default_rng(11)
+    token = perm_pallas._EMULATE.set(True)
+    try:
+        for key, w_s8, rs in zip(("w_lin", "w_pp", "w_p"), consts[2:5], consts[5:]):
+            xb = rng.integers(0, 256, (w_s8.shape[1], 50)).astype(np.uint32)
+            theirs = perm_pallas._dot_u32_i8(w_s8, rs, xb)
+            ours = perm_cuda._dot_bytes(plain[key], torch.from_numpy(xb.T.astype(np.int64)))
+            assert ours.dtype == torch.int64
+            assert np.array_equal(ours.numpy().T, theirs.astype(np.int64)), key
+    finally:
+        perm_pallas._EMULATE.reset(token)
+
+
+@pytest.mark.parametrize("wide,normalize", [(True, True), (False, True), (False, False)])
+def test_redc_words_matches_jax(wide, normalize):
+    b = 40
+    elems = [_states(b, 30 + k)[:, 0].T.copy() for k in range(10)]  # (16, b) digits < p
+    token = perm_pallas._EMULATE.set(True)
+    try:
+        ops = _jax_mxu_ops()
+        if wide:  # a lazy sum of 5 products: T < 5p^2, 33 columns
+            cols = None
+            for k in range(5):
+                cols = perm_pallas._mul_cols(elems[k], elems[5 + k], 2 * 16 + 1, cols)
+            theirs = perm_pallas._redc_words_mxu([cols], ops.dot_pp, ops.dot_p, ops.p,
+                                                 ops.p17, ops.twop17, wide=True)[0]
+        else:  # an S-box square: T < p^2, 32 columns
+            cols = perm_pallas._sqr_cols(elems[0])
+            theirs = ops.redc_words([cols], normalize=normalize)[0]
+    finally:
+        perm_pallas._EMULATE.reset(token)
+    ours = perm_cuda._redc_words(torch.from_numpy(cols.T.astype(np.int64)), wide=wide,
+                                 normalize=normalize)
+    assert ours.shape == (b, 16)
+    assert np.array_equal(ours.numpy().T, theirs.astype(np.int64))
 
 
 @functools.cache
@@ -71,7 +127,7 @@ def _oracle_outputs(b: int):
 
 
 @pytest.mark.parametrize("b", [1, 5, 130])
-@pytest.mark.parametrize("schedule", ["naive", "opt"])
+@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8"])
 def test_batch_major_wrappers_on_cpu(b, schedule):
     x, want, xm, want_m = _oracle_outputs(b)
     perm_cuda.reset_launches()
@@ -80,7 +136,7 @@ def test_batch_major_wrappers_on_cpu(b, schedule):
     assert torch.equal(out, want)
     assert torch.equal(perm_cuda.permute_cuda_mont(xm, schedule=schedule), want_m)
     # the CPU takes the plain version: no kernel was launched
-    assert perm_cuda.launches == {"naive": 0, "opt": 0}
+    assert perm_cuda.launches == {"naive": 0, "opt": 0, "mxu8": 0}
 
 
 def test_scalar_strategy_batched_ref_backend():
@@ -108,3 +164,27 @@ def test_kernel_tables_layout():
     # p, R^2, dense ARK and MDS, then ark_fr, c0, u, w, m, d, final
     words = 8 * (1 + 1 + 67 * 5 + 25 + 8 * 5 + 5 + 59 * 4 * 2 + 1 + 59 * 5 + 16)
     assert tables.dtype == np.uint32 and tables.shape == (words,)
+
+
+def test_mxu8_kernel_tables_layout():
+    consts, weights = perm_cuda.mxu8_kernel_tables()
+    assert consts.dtype == np.uint32 and consts.shape == (8 * (67 * 5 + 1),)
+    assert weights.dtype == np.uint8 and weights.shape == (320 * 160 + 32 * 32 + 64 * 32,)
+    # every padding row of the 64-row blocks is zero
+    w_lin = weights[: 320 * 160].reshape(5, 64, 160)
+    assert not w_lin[:, 63].any() and w_lin[:, :63].any()
+    assert not weights[-32:].any()
+
+
+def test_mxu8_dot_on_cpu():
+    rng = np.random.default_rng(12)
+    w = torch.from_numpy(rng.integers(0, 256, (20, 40)).astype(np.uint8))
+    x = torch.from_numpy(rng.integers(0, 256, (40, 7)).astype(np.uint8))
+    got = perm_cuda.mxu8_dot(w, x)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), w.numpy().astype(np.int64) @ x.numpy().astype(np.int64))
+    with pytest.raises(ValueError):
+        perm_cuda.mxu8_dot(w.to(torch.int32), x)
+    with pytest.raises(ValueError):
+        perm_cuda.mxu8_dot(torch.zeros((321, 32), dtype=torch.uint8),
+                           torch.zeros((32, 1), dtype=torch.uint8))
