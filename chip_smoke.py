@@ -9,19 +9,28 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
   1. prints the card, its power limit and the toolchain;
   2. builds the kernels and prints ptxas's register and spill counts;
   3. runs the KAT gate: the 128 selftest vectors tiled to 2^14 lanes
-     through the `naive`, `opt` and `mxu8` kernels, canonical and
-     Montgomery paths, against the exact int oracle (which is itself held
-     against the four SURVEY known answers);
+     through the `naive`, `opt`, `mxu8`, `hyb` and `hybp` kernels,
+     canonical and Montgomery paths, against the exact int oracle (which
+     is itself held against the four SURVEY known answers);
   4. holds each kernel against its plain PyTorch version on the card at
      B = 2^14, 4096 and a ragged 1000, both `convert` values, and `naive`
      and `opt` at the first Merkle level's B = 2^18 on the Montgomery path;
-     and holds the `mxu8` kernel's tensor-core tile product against a
-     float64 matmul at the shapes of its three dots;
+     and holds the tensor-core tile products against a float64 matmul:
+     `mxu8`'s at the shapes of its three dots, and the wide one of `hyb`
+     and `hybp` at K = 1024, 2048 and 2080 with the chain's own weights;
   5. builds the arity-4 Merkle root over 2^20 seeded leaves through
-     `merkle_root` (BASELINE config 4) with the default `opt` kernel, the
-     `naive` kernel and the `mxu8` kernel, and checks the roots agree, the
-     launch counts, a 4096-leaf tree against the plain version and a
-     16-leaf tree against the int oracle;
+     `merkle_root` (BASELINE config 4) with the default `opt` kernel, and
+     over their first 2^16 with the `opt`, `naive` and `mxu8` kernels, and
+     checks that the roots agree, the launch counts, a 4096-leaf tree
+     against the plain version and a 16-leaf tree against the int oracle;
+     then the openings: `merkle_levels` over the 2^20 leaves through
+     `hybp` (the root must be `opt`'s), `merkle_open_batched` for 2^14
+     seeded leaf indices, and `merkle_verify_batched` through `hybp`,
+     `hyb` and `opt` (all true, and equal), with rows 0..63 of the
+     openings against the loop of `merkle_open_compact`, one opening
+     through `merkle_verify` and an int-oracle walk up its path, and the
+     rejections: a tampered sibling digit and a position of 4 fail their
+     own rows only, a height of 9 fails every row;
   6. hashes 2^14 streams of 64 elements through `sponge_hash` (BASELINE
      config 3) and checks the first 64 digests against the plain version
      and stream 0 against the int oracle;
@@ -31,11 +40,20 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      version, row 0 against the int oracle of the cipher spec, the
      round trip through `decrypt`, and the rejection of a tampered word
      (its row only) and of a truncated ciphertext (every row);
-  8. times the kernels, their plain versions, the tree, the sponge and
-     the cipher with CUDA events (median of 5 after a warm-up).
+  8. times the kernels, their plain versions, the trees, the openings,
+     the sponge and the cipher with CUDA events (median of 5 after a
+     warm-up), and works out each kernel's bound: the least time the card
+     could take for the same states (`bound`).
 
 Each path of phases 5-7 runs with the launch counts set to 0 just before
-it and read just after; the kernels' JSON line reports their sum.
+it and read just after; the kernels' JSON line reports their sum. No
+single PyTorch call computes a 255-bit modular permutation, so the line's
+`library_ms` is null for every kernel.
+
+With `--profile` it also traces one warm call of each of the openings'
+paths with `torch.profiler` (phase 9) and prints, per path, the span of
+its device work, the time the device was busy, the idle share, the
+permutation kernel's share and the plain-torch glue's.
 
 Every check is exact (integer arithmetic: tolerance 0). Any failure raises
 and the script exits non-zero. The last line of standard output is
@@ -57,13 +75,16 @@ import torch
 from hades252_tpu_torch import selftest
 from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import _build, make_perm_mont_fn, perm_cuda
-from hades252_tpu_torch.params import P, WIDTH, mxu8_tables
+from hades252_tpu_torch import field
+from hades252_tpu_torch.params import HYB_N_BASIS, P, WIDTH, hyb_tables, mxu8_tables
 from hades252_tpu_torch.strategy import ScalarStrategy
 from hades252_tpu_torch.utils.encoding import digits_to_ints
 
 SEED = 0x5EED
 PERM_BATCH = 1 << 14
 MERKLE_LEAVES = 1 << 20
+CROSS_LEAVES = 1 << 16      # the naive and mxu8 trees, against opt's over the same leaves
+OPENINGS = 1 << 14
 SPONGE_STREAMS, SPONGE_LEN = 1 << 14, 64
 CIPHER_STREAMS, CIPHER_LEN = 1 << 14, 32
 REPS = 5
@@ -71,12 +92,24 @@ SOURCES = {
     "naive": "hades252_tpu_torch/ops/csrc/perm.cu",
     "opt": "hades252_tpu_torch/ops/csrc/perm.cu",
     "mxu8": "hades252_tpu_torch/ops/csrc/perm_mxu8.cu",
+    "hyb": "hades252_tpu_torch/ops/csrc/perm_hyb.cu",
+    "hybp": "hades252_tpu_torch/ops/csrc/perm_hyb.cu",
 }
 REPLACES = {
     "naive": "hades252_tpu/ops/perm_pallas.py:330 (_perm_kernel)",
     "opt": "hades252_tpu/ops/perm_pallas.py:390 (_perm_kernel_opt)",
     "mxu8": "hades252_tpu/ops/perm_pallas.py:640 (_perm_kernel_mxu8)",
+    "hyb": "hades252_tpu/ops/perm_pallas.py:845 (_perm_kernel_hyb)",
+    "hybp": "hades252_tpu/ops/perm_pallas.py:945 (_perm_kernel_hybp)",
 }
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): dense int8 on the
+# tensor cores and device memory. Its 32-bit integer rate is not published:
+# 132 SMs x 64 INT32 lanes x the 1.98 GHz boost clock, one multiply-add a
+# lane a clock.
+INT8_OPS_PER_S = 1979e12
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -129,12 +162,76 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def bound(schedule: str, b: int) -> dict:
+    """The least time the card could take for b states through `schedule`,
+    canonical in and out: the largest of (i) the byte multiply-adds of its
+    dots over the int8 peak, (ii) the 32-bit integer operations of its
+    CUDA-core work over the int32 rate, and (iii) its bytes over the memory
+    rate. Counted per state from the sources (csrc/field.cuh, perm.cuh,
+    perm_mxu8.cuh, perm_hyb.cuh):
+
+    - a CIOS Montgomery product is 136 multiply-adds (8 steps of 8 for a b,
+      1 for m, 8 for m p); naive runs 1,982 and opt 1,054 of them (the 10
+      conversion products included), with 1,675 and 984 modular adds of 16
+      adds and subtracts;
+    - the byte-dot kernels run 99 S-boxes of three 64-multiply-add products
+      and the 10 CIOS conversion products; each REDC (632 in mxu8, 401 in
+      hyb and hybp) is a (32, 32) and a (63, 32) dot, 2 adds for each of
+      their 95 recombined columns, the 16-limb sum and a 9-limb subtract;
+      an MDS dot is (315, 160), round r of the chain (63, 32 (6 + r)), the
+      exit (315, 2080), each with 2 adds per recombined column; hybp adds a
+      17-limb sum to 58 rounds; the chain's 64 big REDCs end in five 9-limb
+      subtracts;
+    - every state is 320 B read and 320 B written, and the tables are read
+      once.
+    """
+    full, partial = 8, 59
+    cores = tensor = 0
+    if schedule in ("naive", "opt"):
+        products, adds = (1982, 1675) if schedule == "naive" else (1054, 984)
+        cores = 136 * products + 16 * adds
+        table_bytes = perm_cuda.kernel_tables().nbytes
+    else:
+        dense = full + partial if schedule == "mxu8" else full
+        chain = 0 if schedule == "mxu8" else partial
+        sboxes = 5 * full + partial
+        redcs = 3 * sboxes + 5 * dense + (chain + 5 if chain else 0)
+        dot_cols = 5 * 63 * dense + (63 * (chain + 5) if chain else 0)
+        tensor = redcs * (32 * 32 + 63 * 32) + dense * 315 * 160
+        cores = (sboxes * 3 * 64 + 10 * 136 + redcs * (2 * 95 + 16 + 9) + 2 * dot_cols
+                 + 16 * 5 * dense)
+        if chain:
+            tensor += sum(63 * 32 * (6 + r) for r in range(chain)) + 315 * 2080
+            cores += (chain + 5) * 5 * 9
+        if schedule == "hybp":
+            cores += (chain - 1) * (2 * 63 + 17)
+        tables = (perm_cuda.mxu8_kernel_tables() if schedule == "mxu8"
+                  else perm_cuda.hyb_kernel_tables(schedule))
+        table_bytes = sum(t.nbytes for t in tables)
+    times = {"tensor_ms": 2 * tensor * b / INT8_OPS_PER_S * 1e3,
+             "cores_ms": cores * b / INT32_OPS_PER_S * 1e3,
+             "bytes_ms": (2 * WIDTH * 16 * 4 * b + table_bytes) / HBM_BYTES_PER_S * 1e3}
+    bound_ms = max(times.values())
+    return {"bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_ms == times["bytes_ms"] else "operations", **times}
+
+
 def int_merkle_root(leaves: list[int]) -> int:
     strat, level = ScalarStrategy(), list(leaves)
     while len(level) > 1:
         level = [strat.perm([merkle.TAG] + level[i : i + 4])[merkle.DIGEST_INDEX]
                  for i in range(0, len(level), 4)]
     return level[0]
+
+
+def int_merkle_walk(leaf: int, siblings: list[list[int]], positions: list[int]) -> int:
+    """Walk one compact opening up to the root on ints: per level the node
+    goes back among its ARITY - 1 siblings at its position."""
+    strat, node = ScalarStrategy(), leaf
+    for sibs, pos in zip(siblings, positions):
+        children = list(sibs[:pos]) + [node] + list(sibs[pos:])
+        node = strat.perm([merkle.TAG] + children)[merkle.DIGEST_INDEX]
+    return node
 
 
 def int_sponge(words: list[int]) -> int:
@@ -160,6 +257,35 @@ def int_cipher(key2: list[int], nonce: int, msg: list[int]) -> tuple[list[int], 
             state[1 + i] = c
         state = strat.perm(state)
     return ct, state[1]
+
+
+def profile_path(name: str, fn) -> None:
+    """Trace one warm call of fn with torch.profiler and print where its
+    device time went: the span from the first device operation's start to
+    the last one's end, the busy time (the union of the operations'
+    intervals), the idle share of the span, the permutation kernels and
+    the rest (the plain-torch glue)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    check(bool(ops), f"profile of {name}: no operation ran on the device")
+    busy, reach = 0.0, ops[0][0]
+    for start, end, _ in ops:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    span = reach - ops[0][0]
+    perm = [(end - start) for start, end, op in ops if op.startswith("hades_perm")]
+    glue = [(end - start) for start, end, op in ops if not op.startswith("hades_perm")]
+    log(f"[profile] {name}: span {span / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
+        f"{1 - busy / span:.3f}, permutation kernels {sum(perm) / 1e3:.3f} ms in {len(perm)} "
+        f"launches, plain-torch glue {sum(glue) / 1e3:.3f} ms in {len(glue)} launches")
 
 
 def drive(fn):
@@ -201,10 +327,10 @@ def main() -> int:
     log(f"[kat] {', '.join(perm_cuda.SCHEDULES)} x canonical, Montgomery on "
         f"{selftest.BENCH_LANES} lanes: bit-identical to the int oracle (SURVEY KATs included)")
 
-    # 4. kernel vs plain: the sponge's and cipher's batch, the first Merkle
-    # level's batch on the Montgomery path the models use (naive and opt;
-    # mxu8 covers it through its own 2^20-leaf tree in phase 5), 4096 and a
-    # ragged 1000 (the tail mask)
+    # 4. kernel vs plain: the sponge's, cipher's and openings' batch, the
+    # first Merkle level's batch on the Montgomery path the models use
+    # (naive and opt; hybp covers it through its own 2^20-leaf tree in phase
+    # 5), 4096 and a ragged 1000 (the tail mask)
     cases = [(PERM_BATCH, (True, False), perm_cuda.SCHEDULES),
              (MERKLE_LEAVES // merkle.ARITY, (False,), ("naive", "opt")),
              (4096, (True, False), perm_cuda.SCHEDULES),
@@ -233,6 +359,18 @@ def main() -> int:
               f"mxu8 tile product with {key} != float64 matmul")
     log(f"[plain] mxu8 tile product == float64 matmul for w_lin, w_pp, w_p x {PERM_BATCH} columns")
 
+    # the wide tile product of hyb and hybp, whose K loop reads both operands
+    # from global memory: the last round of each segment and the exit map
+    chain = hyb_tables()
+    for key, w in (("w_seg1", chain["w_seg1"][-1]), ("w_seg2", chain["w_seg2"][-1]),
+                   ("w_out", chain["w_out"][:, : 32 * HYB_N_BASIS])):
+        w = torch.from_numpy(w).to(dev)
+        xb = torch.from_numpy(rng.integers(0, 256, (w.shape[1], PERM_BATCH), dtype=np.uint8)).to(dev)
+        check(torch.equal(perm_cuda.hyb_dot(w, xb).double(), torch.matmul(w.double(), xb.double())),
+              f"wide tile product with {key} != float64 matmul")
+    log(f"[plain] wide tile product == float64 matmul at K = 1024, 2048, 2080 x {PERM_BATCH} "
+        "columns")
+
     # 5a. Merkle checks against the plain version and the int oracle
     small = torch.from_numpy(random_elements((4096,), rng)).to(dev)
     check(torch.equal(merkle.merkle_root(small), merkle.merkle_root(small, plain_mont_fn("opt"))),
@@ -247,26 +385,53 @@ def main() -> int:
     keys = torch.from_numpy(random_elements((CIPHER_STREAMS, 2), rng)).to(dev)
     nonces = torch.from_numpy(random_elements((CIPHER_STREAMS,), rng)).to(dev)
     plaintext = torch.from_numpy(random_elements((CIPHER_STREAMS, CIPHER_LEN), rng)).to(dev)
+    opened_idx = torch.from_numpy(rng.integers(0, MERKLE_LEAVES, OPENINGS)).to(dev)
+    opened = leaves[opened_idx]
     torch.cuda.synchronize()
 
     # 5b-7. the main path, one entry point at a time; each path's counts are
     # its own launches
-    mxu8_fn = make_perm_mont_fn("cuda", schedule="mxu8")
-    levels = merkle.tree_levels(MERKLE_LEAVES)
+    mxu8_fn, hyb_fn, hybp_fn = (make_perm_mont_fn("cuda", schedule=s)
+                                for s in ("mxu8", "hyb", "hybp"))
+    levels, cross_levels = merkle.tree_levels(MERKLE_LEAVES), merkle.tree_levels(CROSS_LEAVES)
     chunks = 1 + CIPHER_LEN // cipher.RATE
+    cross = leaves[:CROSS_LEAVES]
+    state = {}  # what a later path takes from an earlier one
+
+    def open_many():
+        state["sibs"], state["poss"] = merkle.merkle_open_batched(state["levels"], opened_idx)
+
+    def verify_many(fn):
+        return lambda: merkle.merkle_verify_batched(root, opened, state["sibs"], state["poss"],
+                                                    levels, fn)
+
     paths = {
         "merkle (opt)": (lambda: merkle.merkle_root(leaves), {"opt": levels}),
-        "merkle (naive)": (lambda: merkle.merkle_root(
-            leaves, make_perm_mont_fn("cuda", schedule="naive")), {"naive": levels}),
-        "merkle (mxu8)": (lambda: merkle.merkle_root(leaves, mxu8_fn), {"mxu8": levels}),
+        "merkle 2^16 (opt)": (lambda: merkle.merkle_root(cross), {"opt": cross_levels}),
+        "merkle 2^16 (naive)": (lambda: merkle.merkle_root(
+            cross, make_perm_mont_fn("cuda", schedule="naive")), {"naive": cross_levels}),
+        "merkle 2^16 (mxu8)": (lambda: merkle.merkle_root(cross, mxu8_fn),
+                               {"mxu8": cross_levels}),
+        "levels (hybp)": (lambda: state.update(levels=merkle.merkle_levels(leaves, hybp_fn)),
+                          {"hybp": levels}),
+        "open": (open_many, {}),
+        "verify (hybp)": (verify_many(hybp_fn), {"hybp": levels}),
+        "verify (hyb)": (verify_many(hyb_fn), {"hyb": levels}),
+        "verify (opt)": (verify_many(None), {"opt": levels}),
+        "verify one (hybp)": (lambda: merkle.merkle_verify(
+            root, opened[0], merkle.merkle_open(state["levels"], int(opened_idx[0])), levels,
+            hybp_fn), {"hybp": levels}),
         "sponge (opt)": (lambda: sponge.sponge_hash(msgs), {"opt": SPONGE_LEN // sponge.RATE}),
         "cipher (mxu8)": (lambda: cipher.encrypt(keys, nonces, plaintext, mxu8_fn),
                           {"mxu8": chunks}),
         "cipher (opt)": (lambda: cipher.encrypt(keys, nonces, plaintext), {"opt": chunks}),
     }
     results, main_launches = {}, {s: 0 for s in perm_cuda.SCHEDULES}
+    root = None
     for name, (fn, expected) in paths.items():
         results[name], counts = drive(fn)
+        if name == "merkle (opt)":
+            root = results[name]
         want = {s: expected.get(s, 0) for s in perm_cuda.SCHEDULES}
         check(counts == want, f"{name}: launches {counts} != {want}")
         log(f"[launches] {name}: {counts}")
@@ -275,15 +440,52 @@ def main() -> int:
     check(all(main_launches[s] > 0 for s in perm_cuda.SCHEDULES),
           f"a kernel of the main path never launched: {main_launches}")
 
-    root = results["merkle (opt)"]
-    check(torch.equal(root, results["merkle (naive)"]),
-          "2^20-leaf Merkle root: opt kernel != naive kernel")
-    check(torch.equal(root, results["merkle (mxu8)"]),
-          "2^20-leaf Merkle root: opt kernel != mxu8 kernel")
+    for s in ("naive", "mxu8"):
+        check(torch.equal(results["merkle 2^16 (opt)"], results[f"merkle 2^16 ({s})"]),
+              f"2^16-leaf Merkle root: opt kernel != {s} kernel")
     check(root.shape == (16,) and bool(((root >= 0) & (root < 1 << 16)).all()),
           "Merkle root is not 16 digits")
-    log(f"[merkle] 2^20 leaves, {levels} levels: opt root == naive root == mxu8 root "
-        f"== 0x{int(digits_to_ints(root.cpu().numpy())):064x}")
+    check(torch.equal(root, field.from_mont(state["levels"][-1][0])),
+          "2^20-leaf Merkle root: opt kernel != hybp kernel")
+    log(f"[merkle] 2^20 leaves, {levels} levels: opt root == hybp root "
+        f"== 0x{int(digits_to_ints(root.cpu().numpy())):064x}; 2^16 leaves: opt root == "
+        "naive root == mxu8 root")
+
+    # 5c. the openings: shapes, verdicts, the loop, one path on ints, rejections
+    sibs, poss = state["sibs"], state["poss"]
+    check(sibs.shape == (OPENINGS, levels, merkle.ARITY - 1, 16) and sibs.dtype == torch.int32
+          and poss.shape == (OPENINGS, levels) and poss.dtype == torch.int32,
+          "openings have the wrong shape")
+    ok = results["verify (hybp)"]
+    check(ok.shape == (OPENINGS,) and ok.dtype == torch.bool and bool(ok.all()),
+          "an honest opening failed through hybp")
+    for s in ("hyb", "opt"):
+        check(torch.equal(ok, results[f"verify ({s})"]), f"verdicts: hybp kernel != {s} kernel")
+    check(results["verify one (hybp)"] is True, "merkle_verify rejected an honest opening")
+    loop = [merkle.merkle_open_compact(state["levels"], int(i)) for i in opened_idx[:64]]
+    check(torch.equal(sibs[:64], torch.stack([s for s, _ in loop]))
+          and torch.equal(poss[:64], torch.stack([p for _, p in loop])),
+          "openings 0..63: gathers != the loop of merkle_open_compact")
+    walk = int_merkle_walk(
+        int(digits_to_ints(opened[0].cpu().numpy())),
+        [list(digits_to_ints(row)) for row in field.from_mont(sibs[0]).cpu().numpy()],
+        poss[0].tolist())
+    check(walk == int(digits_to_ints(root.cpu().numpy())), "opening 0: int oracle walk != root")
+    tampered = sibs.clone()
+    tampered[5, 3, 1, 0] ^= 1
+    bad = merkle.merkle_verify_batched(root, opened, tampered, poss, levels, hybp_fn)
+    check(not bool(bad[5]) and int(bad.sum()) == OPENINGS - 1,
+          "openings: a tampered sibling must fail its own row and only it")
+    out_of_range = poss.clone()
+    out_of_range[9, 2] = merkle.ARITY
+    bad = merkle.merkle_verify_batched(root, opened, sibs, out_of_range, levels, hybp_fn)
+    check(not bool(bad[9]) and int(bad.sum()) == OPENINGS - 1,
+          "openings: a position of 4 must fail its own row and only it")
+    bad = merkle.merkle_verify_batched(root, opened, sibs, poss, levels - 1, hybp_fn)
+    check(not bool(bad.any()), "openings: a wrong height must fail every row")
+    log(f"[openings] {OPENINGS} of 2^20 leaves: all verify through hybp, hyb and opt; rows 0..63 "
+        "== the loop; opening 0 verifies alone and on ints; a tampered sibling and a position "
+        "of 4 fail their rows only; height 9 fails every row")
 
     digests = results["sponge (opt)"]
     check(digests.shape == (SPONGE_STREAMS, 16), "sponge digests have the wrong shape")
@@ -325,17 +527,31 @@ def main() -> int:
 
     # 8. timings at the main path's shapes
     x = torch.from_numpy(random_elements((WIDTH, PERM_BATCH), rng).transpose(0, 2, 1).copy()).to(dev)
-    ms, plain_ms = {}, {}
+    ms, plain_ms, bounds = {}, {}, {}
     for schedule in perm_cuda.SCHEDULES:
         ms[schedule] = cuda_ms(lambda: perm_cuda.permute_planar(x, schedule=schedule))
         plain_ms[schedule] = cuda_ms(
             lambda: perm_cuda.permute_planar_plain(x, schedule=schedule))
+        bounds[schedule] = bound(schedule, PERM_BATCH)
         log(f"[time] {schedule}: kernel {ms[schedule]:.4f} ms = "
             f"{PERM_BATCH / ms[schedule] * 1e3:,.0f} perms/s; plain {plain_ms[schedule]:.1f} ms "
-            f"= {PERM_BATCH / plain_ms[schedule] * 1e3:,.0f} perms/s; B={PERM_BATCH} | {smi}")
+            f"= {PERM_BATCH / plain_ms[schedule] * 1e3:,.0f} perms/s; bound "
+            + ", ".join(f"{k} {v:.4f}" if k != "bound_by" else f"by {v}"
+                        for k, v in bounds[schedule].items())
+            + f"; B={PERM_BATCH} | {smi}")
     tree_ms = cuda_ms(lambda: merkle.merkle_root(leaves))
     log(f"[time] merkle_root 2^20 leaves (opt): {tree_ms / 1e3:.6f} s/tree = "
         f"{MERKLE_LEAVES / tree_ms * 1e3:,.0f} leaves/s | {smi}")
+    tree_ms = cuda_ms(lambda: merkle.merkle_levels(leaves, hybp_fn))
+    log(f"[time] merkle_levels 2^20 leaves (hybp): {tree_ms / 1e3:.6f} s/tree = "
+        f"{MERKLE_LEAVES / tree_ms * 1e3:,.0f} leaves/s | {smi}")
+    open_ms = cuda_ms(open_many)
+    log(f"[time] merkle_open_batched {OPENINGS} of 2^20: {open_ms:.3f} ms = "
+        f"{OPENINGS / open_ms * 1e3:,.0f} openings/s | {smi}")
+    for schedule, fn in (("hybp", hybp_fn), ("hyb", hyb_fn), ("opt", None)):
+        verify_ms = cuda_ms(verify_many(fn))
+        log(f"[time] merkle_verify_batched {OPENINGS} x height {levels} ({schedule}): "
+            f"{verify_ms:.3f} ms = {OPENINGS / verify_ms * 1e3:,.0f} openings verified/s | {smi}")
     sponge_ms = cuda_ms(lambda: sponge.sponge_hash(msgs))
     log(f"[time] sponge_hash {SPONGE_STREAMS} x {SPONGE_LEN} (opt): {sponge_ms:.3f} ms = "
         f"{SPONGE_STREAMS * SPONGE_LEN / sponge_ms * 1e3:,.0f} elements/s | {smi}")
@@ -345,10 +561,21 @@ def main() -> int:
             f"{enc_ms:.3f} ms = {CIPHER_STREAMS * CIPHER_LEN / enc_ms * 1e3:,.0f} elements/s "
             f"| {smi}")
 
+    # 9. on request: where the openings' paths spend their device time
+    if "--profile" in sys.argv[1:]:
+        for name, fn in (("merkle_levels 2^20 (hybp)",
+                          lambda: merkle.merkle_levels(leaves, hybp_fn)),
+                         (f"merkle_open_batched {OPENINGS}", open_many),
+                         (f"merkle_verify_batched {OPENINGS} (hybp)", verify_many(hybp_fn)),
+                         (f"merkle_verify_batched {OPENINGS} (hyb)", verify_many(hyb_fn)),
+                         (f"merkle_verify_batched {OPENINGS} (opt)", verify_many(None))):
+            profile_path(f"{name} | {smi}", fn)
+
     kernels = [
         {"name": f"hades_perm_{s}", "route": "cuda", "source": SOURCES[s],
          "replaces": REPLACES[s], "launches": main_launches[s], "max_abs_err": max_err[s],
-         "ms": ms[s], "plain_ms": plain_ms[s]}
+         "ms": ms[s], "plain_ms": plain_ms[s], "bound_ms": bounds[s]["bound_ms"],
+         "bound_by": bounds[s]["bound_by"], "library_ms": None}
         for s in perm_cuda.SCHEDULES
     ]
     print(json.dumps({"kernels": kernels}))

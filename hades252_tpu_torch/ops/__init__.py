@@ -27,9 +27,9 @@ def make_perm_mont_fn(backend: str = "ref", *, schedule: str = DEFAULT_SCHEDULE)
     """A Montgomery-domain batched permutation.
 
     backend "ref": the torch oracle (dense schedule, any device).
-    backend "cuda": the CUDA kernel of `schedule` ("naive", "opt" or
-    "mxu8", perm_cuda.SCHEDULES) for a CUDA tensor; for a CPU tensor, that
-    kernel's plain version.
+    backend "cuda": the CUDA kernel of `schedule` (perm_cuda.SCHEDULES:
+    "naive", "opt", "mxu8", "hyb" or "hybp", the JAX package's default) for
+    a CUDA tensor; for a CPU tensor, that kernel's plain version.
     """
     if backend == "ref":
         return permute_mont

@@ -111,8 +111,14 @@ def library() -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.hades_perm_mxu8_launch.argtypes = [p, p, i64, i32, p, p, p]
     lib.hades_perm_mxu8_launch.restype = ctypes.c_int
-    lib.hades_mxu8_dot_launch.argtypes = [p, p, p, i32, i32, i64, p]
-    lib.hades_mxu8_dot_launch.restype = ctypes.c_int
+    for name in ("hades_perm_hyb_launch", "hades_perm_hybp_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, i64, i32, p, p, p, p, i64, p]
+        fn.restype = ctypes.c_int
+    for name in ("hades_mxu8_dot_launch", "hades_hyb_dot_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, i32, i32, i64, p]
+        fn.restype = ctypes.c_int
     lib.hades_error_string.argtypes = [ctypes.c_int]
     lib.hades_error_string.restype = ctypes.c_char_p
     return lib

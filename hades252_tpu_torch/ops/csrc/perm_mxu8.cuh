@@ -86,18 +86,38 @@ HADES_FN void recombine(const Dot& d, uint32_t out[L]) {
   }
 }
 
+// t <- t mod p for a 9-limb t < 2^RUNGS p: conditional subtracts of
+// 2^(RUNGS-1) p, .., 2p, p. 16p < 2^260 fits 9 limbs, so RUNGS <= 5.
+template <int RUNGS>
+HADES_FN void ladder9(uint32_t t[kLimbs + 1]) {
+  static_assert(RUNGS >= 0 && RUNGS <= 5, "2^(RUNGS-1) p must fit 9 limbs");
+#pragma unroll
+  for (int sh = RUNGS - 1; sh >= 0; --sh) {
+    uint32_t m[kLimbs + 1];
+#pragma unroll
+    for (int j = 0; j <= kLimbs; ++j) {
+      const uint32_t lo = j < kLimbs ? p_limb(j) : 0u;
+      const uint32_t below = j ? p_limb(j - 1) : 0u;
+      m[j] = sh == 0 ? lo : (lo << sh) | (below >> ((32 - sh) & 31));
+    }
+    cond_sub9(t, m);
+  }
+}
+
 // Montgomery REDC, out = T R^-1 mod p, with both constant products as dots
-// (_redc_words_mxu). T comes as NT normalised limbs, so JAX's _carry_lo
-// (T mod R exact before the m step) is already done: NT = 16 for an S-box
-// product (T < 2.2p^2 < 2^512), 17 for the MDS layer (wide: T < 5p^2).
+// (_redc_words_mxu, _redc_wide_big). T comes as NT normalised limbs, so
+// JAX's _carry_lo (T mod R exact before the m step) is already done: NT = 16
+// for an S-box product (T < 2.2p^2 < 2^512), 17 for a lazy sum of products.
 //   m = T_lo p' mod R  (w_pp, the Toeplitz of p' truncated to 32 columns)
 //   s = T + m p        (w_p, the Toeplitz of p), exactly divisible by R
-// wide: s / R < 5p^2 / R + p < 3.3p, normalised by subtracting 2p, then p.
-// Otherwise s / R < 2p and `normalize` subtracts p; the S-box skips that
+// NT = 17: s / R < T / R + p < 2^RUNGS p is normalised by a ladder of RUNGS
+// conditional subtracts: 2 for the MDS layer (T < 5p^2, s / R < 3.3p), 5
+// for the hyb chain (T < 65p^2, s / R < 31p).
+// NT = 16: s / R < 2p and `normalize` subtracts p; the S-box skips that
 // for x^2 and x^4 (perm_pallas.py:594-599): x < p gives x^2 < 1.46p, so
 // (x^2)^2 < 2.11p^2 < Rp keeps the next REDC exact and x^4 < 1.96p, and
 // x^4 x < 1.96p^2 < Rp; every un-normalised value is < 2p < 2^256.
-template <int NT, class Dot>
+template <int NT, int RUNGS = (NT > 2 * kLimbs ? 2 : 0), class Dot>
 HADES_FN void redc(Dot& d, uint32_t out[kLimbs], const uint32_t t[NT], bool normalize) {
   uint32_t m[kLimbs], mp[2 * kLimbs], s[kLimbs + 1];
   d.template put<kLimbs>(t);
@@ -116,16 +136,7 @@ HADES_FN void redc(Dot& d, uint32_t out[kLimbs], const uint32_t t[NT], bool norm
     c >>= 32;
   }
   s[kLimbs] = (uint32_t)c + (NT > 2 * kLimbs ? t[NT - 1] : 0u);
-  if (NT > 2 * kLimbs) {
-    uint32_t p9[kLimbs + 1], twop9[kLimbs + 1];
-#pragma unroll
-    for (int j = 0; j <= kLimbs; ++j) {
-      p9[j] = j < kLimbs ? p_limb(j) : 0u;
-      twop9[j] = (p9[j] << 1) | (j ? p_limb(j - 1) >> 31 : 0u);
-    }
-    cond_sub9(s, twop9);
-    cond_sub9(s, p9);
-  }
+  if (NT > 2 * kLimbs) ladder9<RUNGS>(s);
   copy(out, s);
   if (NT <= 2 * kLimbs && normalize) cond_sub_p(out, out);
 }
@@ -174,51 +185,63 @@ HADES_FN void mds(Dot& d, uint32_t s[kWidth][kLimbs]) {
   for (int k = 0; k < kWidth; ++k) copy(s[k], t[k]);
 }
 
-// The 67 dense rounds (_perm_kernel_mxu_impl): ARK by add_mod, x^5 on every
-// word of a full round and on word 4 of a partial one, then the MDS dot.
-// consts: the Montgomery ARK (kRounds x kWidth x kLimbs), then R^2. The
-// convert products by R^2 and by 1 are CIOS products, as the TPU kernel's
-// are VPU products.
+// One dense round (_MxuOps.round_fn): ARK by add_mod, x^5 on every word of
+// a full round and on word 4 of a partial one, then the MDS dot. consts
+// opens with the Montgomery ARK (kRounds x kWidth x kLimbs).
+template <class Dot>
+HADES_FN void dense_round(Dot& d, uint32_t s[kWidth][kLimbs],
+                          const uint32_t* __restrict__ consts, int r, bool full) {
+#pragma unroll
+  for (int w = 0; w < kWidth; ++w) {
+    uint32_t a[kLimbs];
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) a[j] = consts[(r * kWidth + w) * kLimbs + j];
+    add_mod(s[w], s[w], a);
+  }
+  // One copy of the S-box code: word 4 is S-boxed, and in a full round
+  // the state is rotated by a word after each, five times over.
+#pragma unroll 1
+  for (int i = 0; i < (full ? kWidth : 1); ++i) {
+    sbox(d, s[kWidth - 1]);
+    if (full) {
+      uint32_t last[kLimbs];
+      copy(last, s[kWidth - 1]);
+#pragma unroll
+      for (int w = kWidth - 1; w > 0; --w) copy(s[w], s[w - 1]);
+      copy(s[0], last);
+    }
+  }
+  mds(d, s);
+}
+
+// The state into the Montgomery domain (times R^2, which follows the ARK in
+// consts) and back out (times 1): CIOS products, as the TPU kernel's are
+// VPU products.
+HADES_FN void state_to_mont(uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ consts) {
+  uint32_t r2[kLimbs];
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) r2[j] = consts[kRounds * kWidth * kLimbs + j];
+#pragma unroll
+  for (int w = 0; w < kWidth; ++w) mont_mul(s[w], s[w], r2);
+}
+
+HADES_FN void state_from_mont(uint32_t s[kWidth][kLimbs]) {
+  const uint32_t one[kLimbs] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int w = 0; w < kWidth; ++w) mont_mul(s[w], s[w], one);
+}
+
+// The 67 dense rounds (_perm_kernel_mxu_impl). consts: the Montgomery ARK,
+// then R^2.
 template <class Dot>
 HADES_FN void perm(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ consts,
                    bool convert) {
-  if (convert) {
-    uint32_t r2[kLimbs];
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) r2[j] = consts[kRounds * kWidth * kLimbs + j];
-#pragma unroll
-    for (int w = 0; w < kWidth; ++w) mont_mul(s[w], s[w], r2);
-  }
+  if (convert) state_to_mont(s, consts);
 #pragma unroll 1
   for (int r = 0; r < kRounds; ++r) {
-#pragma unroll
-    for (int w = 0; w < kWidth; ++w) {
-      uint32_t a[kLimbs];
-#pragma unroll
-      for (int j = 0; j < kLimbs; ++j) a[j] = consts[(r * kWidth + w) * kLimbs + j];
-      add_mod(s[w], s[w], a);
-    }
-    const bool full = r < kHalf || r >= kHalf + kPartialRounds;
-    // One copy of the S-box code: word 4 is S-boxed, and in a full round
-    // the state is rotated by a word after each, five times over.
-#pragma unroll 1
-    for (int i = 0; i < (full ? kWidth : 1); ++i) {
-      sbox(d, s[kWidth - 1]);
-      if (full) {
-        uint32_t last[kLimbs];
-        copy(last, s[kWidth - 1]);
-#pragma unroll
-        for (int w = kWidth - 1; w > 0; --w) copy(s[w], s[w - 1]);
-        copy(s[0], last);
-      }
-    }
-    mds(d, s);
+    dense_round(d, s, consts, r, r < kHalf || r >= kHalf + kPartialRounds);
   }
-  if (convert) {
-    const uint32_t one[kLimbs] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int w = 0; w < kWidth; ++w) mont_mul(s[w], s[w], one);
-  }
+  if (convert) state_from_mont(s);
 }
 
 #ifndef __CUDACC__

@@ -1,13 +1,16 @@
 """The fused Hades252 permutation: CUDA kernels, their wrappers and their
 plain PyTorch versions.
 
-Port of the `naive`, `opt` and `mxu8` schedules of
+Port of the `naive`, `opt`, `mxu8`, `hyb` and `hybp` schedules of
 `hades252_tpu/ops/perm_pallas.py` (`permute_planar` :1270, `_batch_major`
 :1390). The kernels are `hades_perm_naive` (dense rounds, replacing
 `_perm_kernel`) and `hades_perm_opt` (sparse-factored partial rounds,
-replacing `_perm_kernel_opt`) in `csrc/perm.cu`, and `hades_perm_mxu8`
+replacing `_perm_kernel_opt`) in `csrc/perm.cu`, `hades_perm_mxu8`
 (dense rounds with every constant product as an 8-bit integer tensor-core
-MMA, replacing `_perm_kernel_mxu8`) in `csrc/perm_mxu8.cu`.
+MMA, replacing `_perm_kernel_mxu8`) in `csrc/perm_mxu8.cu`, and
+`hades_perm_hyb` and `hades_perm_hybp` (mxu8's full rounds around the
+full-expansion partial chain, replacing `_perm_kernel_hyb` and
+`_perm_kernel_hybp`) in `csrc/perm_hyb.cu`.
 
 A wrapper launches its kernel for a CUDA tensor and raises where it cannot;
 it takes the plain version only for a tensor on the CPU. The plain versions
@@ -26,6 +29,9 @@ import torch.nn.functional as F
 
 from .. import field
 from ..params import (
+    HYB_KERNEL_K_OUT,
+    HYB_N_BASIS,
+    HYB_SEG1_ROUNDS,
     MXU8_BLOCK_ROWS,
     N_DIGITS,
     P,
@@ -34,6 +40,10 @@ from ..params import (
     TOTAL_FULL_ROUNDS,
     WIDTH,
     digits_to_limbs,
+    hyb_tables,
+    hyb_weights_np,
+    hybp_tables,
+    hybp_weights_np,
     int_to_digits,
     mxu8_tables,
     mxu_weights_np,
@@ -43,7 +53,7 @@ from ..params import (
 )
 from . import _build, perm_ref
 
-SCHEDULES = ("naive", "opt", "mxu8")
+SCHEDULES = ("naive", "opt", "mxu8", "hyb", "hybp")
 DEFAULT_SCHEDULE = "opt"
 
 #: Kernel launches per schedule. A wrapper adds one where it launches its
@@ -78,11 +88,28 @@ def mxu8_kernel_tables() -> tuple[np.ndarray, np.ndarray]:
     return consts, weights
 
 
-@functools.cache
-def _mxu8_device_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+#: States of one block of the byte-dot kernels (csrc/mma_tile.cuh).
+_BLOCK_STATES = 128
+
+
+def hyb_kernel_tables(schedule: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The hyb or hybp kernel's tables as its launch takes them: mxu8's
+    consts with R mod p appended (uint32 limbs), mxu8's weights (for the
+    full rounds and every REDC), and the chain's weights as one flat uint8
+    array: segment 1, segment 2, for hybp w_new, then w_out."""
     consts, weights = mxu8_kernel_tables()
-    return (torch.from_numpy(consts.view(np.int32)).to(device),
-            torch.from_numpy(weights).to(device))
+    t = hybp_tables() if schedule == "hybp" else hyb_tables()
+    consts = np.concatenate([consts, digits_to_limbs(t["one_mont"])])
+    chain = np.concatenate([v.reshape(-1) for v in t.values() if v.dtype == np.uint8])
+    return consts, weights, chain
+
+
+@functools.cache
+def _device_tables(schedule: str, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The tables of a byte-dot kernel (mxu8, hyb, hybp) on the device."""
+    tables = mxu8_kernel_tables() if schedule == "mxu8" else hyb_kernel_tables(schedule)
+    return tuple(torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).to(device)
+                 for t in tables)
 
 
 def _check_status(lib, status: int, what: str) -> None:
@@ -96,17 +123,25 @@ def _launch(x: torch.Tensor, out: torch.Tensor, *, convert: bool, schedule: str)
         dev = torch.cuda.current_device()
         stream = torch.cuda.current_stream().cuda_stream
         args = (x.data_ptr(), out.data_ptr(), x.shape[2], int(convert))
-        if schedule == "mxu8":
-            consts, weights = _mxu8_device_tables(torch.device("cuda", dev))
-            status = lib.hades_perm_mxu8_launch(*args, consts.data_ptr(),
-                                                weights.data_ptr(), stream)
+        fn = getattr(lib, f"hades_perm_{schedule}_launch")
+        if schedule in ("hyb", "hybp"):
+            tables = _device_tables(schedule, torch.device("cuda", dev))
+            # every block writes the basis of all its states, live or not
+            blocks = -(-x.shape[2] // _BLOCK_STATES)
+            scratch = torch.empty(blocks * _BLOCK_STATES * HYB_KERNEL_K_OUT, dtype=torch.uint8,
+                                  device=x.device)
+            status = fn(*args, *(t.data_ptr() for t in tables), scratch.data_ptr(),
+                        scratch.numel(), stream)
+        elif schedule == "mxu8":
+            tables = _device_tables(schedule, torch.device("cuda", dev))
+            status = fn(*args, *(t.data_ptr() for t in tables), stream)
         else:
             if dev not in _initialized:
                 tables = kernel_tables()
                 _check_status(lib, lib.hades_init(tables.ctypes.data, tables.size),
                               "hades_init")
                 _initialized.add(dev)
-            status = getattr(lib, f"hades_perm_{schedule}_launch")(*args, stream)
+            status = fn(*args, stream)
         _check_status(lib, status, f"hades_perm_{schedule}")
     launches[schedule] += 1
 
@@ -138,6 +173,37 @@ def mxu8_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         _check_status(lib, lib.hades_mxu8_dot_launch(wp.data_ptr(), xt.data_ptr(), out.data_ptr(),
                                                      mp, kp, n, stream), "hades_mxu8_dot")
+    return out[:m]
+
+
+def hyb_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) over uint8 operands with exact int32 sums, for any K
+    (K 255^2 < 2^31: K <= 33,000): on a CUDA tensor through the hyb kernels'
+    own wide tile product (`hades_hyb_dot`), whose K loop reads both
+    operands from global memory, so that it can be checked against a matmul
+    at the chain's K = 1024, 2048 and 2080; on the CPU in float64. M is
+    zero-padded to the tile's 64 rows, K to the loop's step of 64 bytes and
+    N to whole blocks of 128 columns."""
+    if w.dtype != torch.uint8 or x.dtype != torch.uint8 or w.dim() != 2 or x.dim() != 2:
+        raise ValueError("expected two uint8 matrices")
+    (m, k), n = w.shape, x.shape[1]
+    if x.shape[0] != k or not (m > 0 and 0 < k <= 33000 and n > 0):
+        raise ValueError(f"unsupported shapes {tuple(w.shape)} @ {tuple(x.shape)}")
+    if w.device.type == "cpu":
+        return torch.matmul(w.double(), x.double()).to(torch.int32)
+    if w.device.type != "cuda" or x.device != w.device:
+        raise ValueError(f"no kernel for devices {w.device}, {x.device}")
+    mp, kp, np_ = -(-m // 64) * 64, -(-k // 64) * 64, -(-n // _BLOCK_STATES) * _BLOCK_STATES
+    wp = torch.zeros((mp, kp), dtype=torch.uint8, device=w.device)
+    wp[:m, :k] = w
+    xt = torch.zeros((np_, kp), dtype=torch.uint8, device=w.device)
+    xt[:n, :k] = x.t()
+    out = torch.empty((mp, n), dtype=torch.int32, device=w.device)
+    lib = _build.library()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _check_status(lib, lib.hades_hyb_dot_launch(wp.data_ptr(), xt.data_ptr(), out.data_ptr(),
+                                                    mp, kp, n, stream), "hades_hyb_dot")
     return out[:m]
 
 
@@ -342,23 +408,141 @@ def _mds_mxu(s: torch.Tensor) -> torch.Tensor:
     return _redc_words(F.pad(_recombine16(cols, 2 * N_DIGITS), (0, 1)), wide=True)
 
 
+def _mxu_round(s: torch.Tensor, ark_r: torch.Tensor, *, full: bool) -> torch.Tensor:
+    """One dense round of the byte-dot schedules (`_MxuOps.round_fn`,
+    perm_pallas.py:720): ARK (add_mod), x^5 on every word of a full round
+    and on word 4 of a partial one, then the MDS dot."""
+    s = field.add_mod(s, ark_r).to(torch.int64)
+    s = _sbox_words(s) if full else torch.cat([s[:, :-1], _sbox_words(s[:, -1:])], dim=1)
+    return _mds_mxu(s)
+
+
 def _permute_mxu8_mont(s: torch.Tensor) -> torch.Tensor:
     """The mxu8 schedule on (B, WIDTH, N_DIGITS) Montgomery state: 67
     dense rounds of ARK (add_mod), x^5 and the MDS dot."""
     ark = _mxu8_plain_tables(s.device)["ark"]
     half = TOTAL_FULL_ROUNDS // 2
     for r in range(ROUNDS):
-        s = field.add_mod(s, ark[r]).to(torch.int64)
-        if half <= r < half + PARTIAL_ROUNDS:
-            s = torch.cat([s[:, :-1], _sbox_words(s[:, -1:])], dim=1)
-        else:
-            s = _sbox_words(s)
-        s = _mds_mxu(s)
+        s = _mxu_round(s, ark[r], full=not half <= r < half + PARTIAL_ROUNDS)
     return s.to(torch.int32)
 
 
+# -- hyb, hybp: mxu8's full rounds around the full-expansion partial chain ----
+# Follow `_perm_kernel_hyb` (perm_pallas.py:845) and `_perm_kernel_hybp`
+# (:945) step for step. The basis buffer is (B, 65 * 32) byte rows, element j
+# in columns 32 j .. 32 j + 31; the weights are unsigned, so the JAX bodies'
+# offset encoding, row sums and running column sum `cs` have no counterpart.
+# A dot's sums stay below 65 * 32 * 255^2 < 2^28, exact in float64.
+
+
+@functools.cache
+def _chain_plain_tables(device: torch.device, pipelined: bool) -> dict[str, torch.Tensor]:
+    w = hybp_weights_np() if pipelined else hyb_weights_np()
+    out = {k: torch.from_numpy(v).to(device) for k, v in w.items() if v.dtype == np.uint8}
+    out["pmul17"] = torch.from_numpy(w["pmul17"].astype(np.int64)).to(device)
+    out["one_mont"] = torch.from_numpy(w["one_mont"].astype(np.int64)).to(device)
+    return out
+
+
+def _recombine16_wide(cols: torch.Tensor) -> torch.Tensor:
+    """63 base-256 columns below 2^28 -> 33 un-carried 16-bit columns, the
+    last one zero (`_recombine16_wide`, perm_pallas.py:793): the odd
+    column's high bits carry one byte up,
+    t16[d] = cols[2d] + ((cols[2d+1] & 0xFF) << 8) + (cols[2d-1] >> 8)."""
+    odd = F.pad(cols[..., 1::2], (0, 1))                 # cols[2d+1], 0 for d = 31
+    t = cols[..., 0::2] + ((odd & 0xFF) << 8)
+    t = t + F.pad(cols[..., 1::2] >> 8, (1, 0))          # cols[2d-1] >> 8, 0 for d = 0
+    return F.pad(t, (0, 1))
+
+
+def _redc_wide_big(t33: torch.Tensor, pmul17: torch.Tensor, n_subs: int = 5) -> torch.Tensor:
+    """Montgomery REDC of a `_carry_lo`'d 33-column T < k p^2, k <= 65
+    (`_redc_wide_big`, perm_pallas.py:818): t = (T + m p) / R < (0.46 k + 1) p
+    is brought below p by the last n_subs rungs of the ladder 16p, 8p, 4p, 2p,
+    p (k <= 6: 2, k <= 32: 4, else 5). Returns (..., 16) int64 digits < p."""
+    c = _mxu8_plain_tables(t33.device)
+    m = _carry(_recombine16(_dot_bytes(c["w_pp"], _byte_rows(t33[..., :N_DIGITS])), N_DIGITS))
+    mp = _recombine16(_dot_bytes(c["w_p"], _byte_rows(m)), 2 * N_DIGITS)
+    hi = _carry(F.pad(mp, (0, 1)) + t33)[..., N_DIGITS:]           # 17 digits
+    for k in range(5 - n_subs, 5):
+        hi = _cond_sub(hi, pmul17[k])
+    return hi[..., :N_DIGITS]
+
+
+def _permute_chain_mont(s: torch.Tensor, *, pipelined: bool) -> torch.Tensor:
+    """The hyb (pipelined=False) or hybp schedule on (B, WIDTH, N_DIGITS)
+    Montgomery state."""
+    ark = _mxu8_plain_tables(s.device)["ark"]
+    c = _chain_plain_tables(s.device, pipelined)
+    half = TOTAL_FULL_ROUNDS // 2
+    for r in range(half):
+        s = _mxu_round(s, ark[r], full=True)
+
+    # the basis buffer: [1_mont, x_0..x_4], then s_0..s_58 as they appear
+    y = torch.zeros((s.shape[0], 32 * HYB_N_BASIS), dtype=torch.int64, device=s.device)
+
+    def put_elem(j, digits16):
+        y[:, 32 * j : 32 * (j + 1)] = _byte_rows(digits16)
+
+    def dot(w, n_elems=None):
+        k = w.shape[-1] if n_elems is None else 32 * n_elems
+        return _dot_bytes(w.to(torch.float64), y[:, :k])
+
+    def reduce_t(cols, n_subs):
+        return _redc_wide_big(_carry_lo(_recombine16_wide(cols)), c["pmul17"], n_subs)
+
+    put_elem(0, c["one_mont"])
+    for i in range(WIDTH):
+        put_elem(1 + i, s[:, i])
+    first, last = HYB_SEG1_ROUNDS, PARTIAL_ROUNDS - 1
+    if not pipelined:
+        for r in range(PARTIAL_ROUNDS):
+            w = c["w_seg1"][r] if r < first else c["w_seg2"][r - first]
+            t = reduce_t(dot(w), 4 if r < first else 5)
+            put_elem(1 + WIDTH + r, _sbox_words(t))
+    else:
+        def older(r):  # round r's big dot, without its newest element
+            return dot(c["wo_seg1"][r] if r < first else c["wo_seg2"][r - first])
+
+        # round 0: every input is in the basis; round 1's big dot goes with it
+        cols0, d_old = older(0), older(1)
+        s_prev = _sbox_words(reduce_t(cols0, 2))                    # s_0 (k = 6)
+        # rounds 1..58; at 26 the next dot takes segment 2's width, at 58
+        # there is none
+        for i in range(1, PARTIAL_ROUNDS):
+            sb = _byte_rows(s_prev)
+            npart = _dot_bytes(c["w_new"][i].to(torch.float64), sb)
+            t = reduce_t(d_old + npart, 4 if i < first else 5)
+            y[:, 32 * (WIDTH + i) : 32 * (WIDTH + i + 1)] = sb      # s_{i-1} enters the basis
+            if i < last:
+                d_old = older(i + 1)
+            s_prev = _sbox_words(t)
+        put_elem(HYB_N_BASIS - 1, s_prev)                           # s_58
+
+    # the chain's exit: all 5 words in one dot, one big REDC each
+    cols = dot(c["w_out"]).unflatten(-1, (WIDTH, 63))
+    s = reduce_t(cols, 5)
+    for r in range(half + PARTIAL_ROUNDS, ROUNDS):
+        s = _mxu_round(s, ark[r], full=True)
+    return s.to(torch.int32)
+
+
+def _permute_hyb_mont(s: torch.Tensor) -> torch.Tensor:
+    """The hyb schedule: mxu8's full rounds, and each of the 59 partial
+    rounds as one byte dot over the basis [1, x_0..x_4, s_0..s_{r-1}], one
+    big REDC and one S-box; one (315, 2080) dot at the exit."""
+    return _permute_chain_mont(s, pipelined=False)
+
+
+def _permute_hybp_mont(s: torch.Tensor) -> torch.Tensor:
+    """The hybp schedule: hyb with the newest basis element's share of each
+    dot split off into a (63, 32) dot, so that round r+1's big dot does not
+    wait for round r's S-box; the two are summed before the REDC."""
+    return _permute_chain_mont(s, pipelined=True)
+
+
 _PLAIN = {"naive": perm_ref.permute_mont, "opt": _permute_opt_mont,
-          "mxu8": _permute_mxu8_mont}
+          "mxu8": _permute_mxu8_mont, "hyb": _permute_hyb_mont, "hybp": _permute_hybp_mont}
 
 
 def permute_planar_plain(x: torch.Tensor, *, convert: bool = True,
@@ -367,7 +551,8 @@ def permute_planar_plain(x: torch.Tensor, *, convert: bool = True,
     planar (WIDTH, N_DIGITS, B) layout, same `convert`, same outputs.
     `naive` runs the dense rounds of ops/perm_ref.py; `opt` the sparse
     schedule from the port's opt tables; `mxu8` the dense rounds with byte
-    dots."""
+    dots; `hyb` and `hybp` mxu8's full rounds around the full-expansion
+    chain of byte dots over the basis."""
     _check_schedule(schedule)
     if x.dim() != 3 or tuple(x.shape[:2]) != (WIDTH, N_DIGITS):
         raise ValueError(f"expected ({WIDTH}, {N_DIGITS}, B), got {tuple(x.shape)}")

@@ -200,6 +200,46 @@ def optimized_partial_int() -> dict:
 
 
 @functools.cache
+def dot_schedule_int() -> dict:
+    """The full-expansion partial-round schedule, equal to
+    `hades252_tpu.params.dot_schedule_int()` (hades252_tpu/params.py:253).
+
+    The 59 partial rounds apply the S-box to word 4 only, so the whole chain
+    is affine except for the 59 S-box outputs. Over the basis
+        e = [1, x_0..x_4, s_0..s_58]          (65 elements)
+    where x_i is the state entering the chain (after full round 3's MDS,
+    before any partial ARK) and s_r the r-th partial S-box output, every
+    S-box input and the chain's output are fixed linear maps:
+        t_r       = alpha[r] . e[:6+r]        (s_r = t_r^5)
+        state_out = omega    . e
+    with every ARK constant folded into the coefficient of basis element 1.
+
+    Returns canonical ints mod P: alpha, a tuple of 59 tuples (alpha[r] has
+    length 6+r), and omega, (5, 65).
+    """
+    mds = mds_matrix_int()
+    ark = round_constants_int()
+    half = TOTAL_FULL_ROUNDS // 2
+    n_basis = 1 + WIDTH + PARTIAL_ROUNDS
+
+    def unit(j):
+        return [1 if i == j else 0 for i in range(n_basis)]
+
+    state = [unit(1 + i) for i in range(WIDTH)]
+    alpha = []
+    for r in range(PARTIAL_ROUNDS):
+        for i in range(WIDTH):
+            state[i][0] = (state[i][0] + ark[(half + r) * WIDTH + i]) % P
+        alpha.append(tuple(state[4][: 6 + r]))
+        state[4] = unit(6 + r)
+        state = [
+            [sum(mds[k][j] * state[j][b] for j in range(WIDTH)) % P for b in range(n_basis)]
+            for k in range(WIDTH)
+        ]
+    return {"alpha": tuple(alpha), "omega": tuple(tuple(row) for row in state)}
+
+
+@functools.cache
 def perm_constants_np() -> dict[str, np.ndarray]:
     """Numpy digit tables of the dense schedule, equal key by key to
     `hades252_tpu.params.perm_constants_np()`.
@@ -359,25 +399,32 @@ MXU8_BLOCK_ROWS = 64
 _NATURAL_ORDER = np.argsort([_byte_pos(r) for r in range(2 * N_DIGITS)])
 
 
+def _natural_k(w: np.ndarray) -> np.ndarray:
+    """Reorder the K (last) axis of byte weights from the JAX layout to
+    natural byte order inside every 32-byte element block."""
+    k = w.shape[-1]
+    order = np.concatenate([j * 32 + _NATURAL_ORDER for j in range(k // 32)])
+    return w[..., order]
+
+
+def _pad_blocks(w: np.ndarray) -> np.ndarray:
+    """(..., 63 n, K) byte weights -> (..., 64 n, K) uint8: every 63-row
+    block followed by a zero row."""
+    *lead, rows, k = w.shape
+    n = rows // 63
+    out = np.zeros((*lead, n, MXU8_BLOCK_ROWS, k), np.uint8)
+    out[..., :63, :] = w.reshape(*lead, n, 63, k)
+    return out.reshape(*lead, n * MXU8_BLOCK_ROWS, k)
+
+
 def _kernel_weights(w_lin: np.ndarray, w_pp: np.ndarray, w_p: np.ndarray) -> dict:
     """Byte weights in the JAX layout -> the CUDA kernel's: uint8, the K
     axis in natural byte order (so a word's byte rows are its 32-bit limbs as
     stored), and every 63-row block padded with a zero row to 64."""
-    def natural(w):
-        k = w.shape[1]
-        order = np.concatenate([j * 32 + _NATURAL_ORDER for j in range(k // 32)])
-        return w[:, order]
-
-    def pad_blocks(w, n_blocks):
-        out = np.zeros((n_blocks * MXU8_BLOCK_ROWS, w.shape[1]), np.uint8)
-        for b in range(n_blocks):
-            out[b * MXU8_BLOCK_ROWS : b * MXU8_BLOCK_ROWS + 63] = w[b * 63 : (b + 1) * 63]
-        return out
-
     return {
-        "w_lin": pad_blocks(natural(w_lin), WIDTH),
-        "w_pp": np.ascontiguousarray(natural(w_pp)),
-        "w_p": pad_blocks(natural(w_p), 1),
+        "w_lin": _pad_blocks(_natural_k(w_lin)),
+        "w_pp": np.ascontiguousarray(_natural_k(w_pp)),
+        "w_p": _pad_blocks(_natural_k(w_p)),
     }
 
 
@@ -423,6 +470,160 @@ def from_jax_mxu8_tables(consts) -> dict[str, np.ndarray]:
         unsigned.append((w_s8.astype(np.int32) + 128).astype(np.uint8))
     return {"ark_mont": np.asarray(ark, np.uint32), "r2": fc[2].astype(np.uint32),
             **_kernel_weights(*unsigned)}
+
+
+# ---------------------------------------------------------------------------
+# The hyb and hybp schedules' weights (hades252_tpu/params.py:405-522)
+#
+# Unsigned bytes throughout: Hopper's integer MMA takes .u8 operands, so
+# there is no offset encoding, no row sums and no running column sum. Basis
+# elements that are absent or not yet computed meet zero weights, so their
+# bytes never count, whatever they are.
+# ---------------------------------------------------------------------------
+
+#: Rounds 0..26 touch at most 32 basis elements, rounds 27..58 at most 64;
+#: each segment's weights are zero-padded to the segment's width.
+HYB_SEG1_ROUNDS = 27
+HYB_SEG1_ELEMS = 32
+HYB_SEG2_ELEMS = 64
+HYB_N_BASIS = 1 + WIDTH + PARTIAL_ROUNDS  # 65
+#: Bytes of one state's basis buffer in the CUDA kernels: 65 elements of 32
+#: bytes and one of padding, so that every K is a multiple of 64.
+HYB_KERNEL_K_OUT = 32 * (HYB_N_BASIS + 1)
+
+
+def _coeff_row_block(coeffs, n_elems: int) -> np.ndarray:
+    """One weight block (63, 32 n_elems) uint8: per basis element j the
+    Toeplitz byte block of its Montgomery-form coefficient, zero where the
+    coefficient is absent or zero."""
+    w = np.zeros((63, 32 * n_elems), np.uint8)
+    for j, c in enumerate(coeffs):
+        if c:
+            w[:, 32 * j : 32 * (j + 1)] = _toeplitz_rows(_to_mont(c), 63)
+    return w
+
+
+def _chain_extras() -> dict[str, np.ndarray]:
+    return {
+        "pmul17": np.stack([int_to_digits(k * P, N_DIGITS + 1) for k in (16, 8, 4, 2, 1)]),
+        "one_mont": int_to_digits(R_MOD_P),
+    }
+
+
+@functools.cache
+def hyb_weights_np() -> dict[str, np.ndarray]:
+    """The hyb schedule's weights in the JAX layout (K axis: low bytes of
+    the 16 digits, then high bytes, per element), as unsigned bytes: each
+    equals `hades252_tpu.params.hyb_weights_np()`'s int8 array plus 128.
+
+    w_seg1 (27, 63, 32*32): rounds 0..26; w_seg2 (32, 63, 32*64): rounds
+    27..58; w_out (5*63, 32*65): the chain's exit map omega, word k in rows
+    63k..63k+62; pmul17 (5, 17) uint32: 16p, 8p, 4p, 2p, p as 17 digits,
+    the conditional-subtract ladder of the big REDC (t < 31p); one_mont
+    (N_DIGITS,) uint32: basis element 0, R mod p.
+    """
+    d = dot_schedule_int()
+    alpha, omega = d["alpha"], d["omega"]
+    return {
+        "w_seg1": np.stack([_coeff_row_block(alpha[r], HYB_SEG1_ELEMS)
+                            for r in range(HYB_SEG1_ROUNDS)]),
+        "w_seg2": np.stack([_coeff_row_block(alpha[r], HYB_SEG2_ELEMS)
+                            for r in range(HYB_SEG1_ROUNDS, PARTIAL_ROUNDS)]),
+        "w_out": np.concatenate([_coeff_row_block(row, HYB_N_BASIS) for row in omega]),
+        **_chain_extras(),
+    }
+
+
+@functools.cache
+def hybp_weights_np() -> dict[str, np.ndarray]:
+    """The hybp schedule's weights, unsigned, in the JAX layout: round r's
+    dot splits into the big one over the older elements (wo_seg1, wo_seg2:
+    as hyb's with the newest element's block zeroed, round 0 kept whole) and
+    a small one of the newest element s_{r-1} alone (w_new (59, 63, 32), row
+    0 unused and zero). w_out, pmul17 and one_mont are hyb's."""
+    alpha = dot_schedule_int()["alpha"]
+
+    def older(r, n_pad):
+        coeffs = list(alpha[r])
+        if r > 0:
+            coeffs[-1] = 0
+        return _coeff_row_block(coeffs, n_pad)
+
+    base = hyb_weights_np()
+    return {
+        "wo_seg1": np.stack([older(r, HYB_SEG1_ELEMS) for r in range(HYB_SEG1_ROUNDS)]),
+        "wo_seg2": np.stack([older(r, HYB_SEG2_ELEMS)
+                             for r in range(HYB_SEG1_ROUNDS, PARTIAL_ROUNDS)]),
+        "w_new": np.stack([_coeff_row_block(alpha[r][-1:] if r > 0 else (), 1)
+                           for r in range(PARTIAL_ROUNDS)]),
+        **{k: base[k] for k in ("w_out", "pmul17", "one_mont")},
+    }
+
+
+_HYB_WEIGHT_KEYS = ("w_seg1", "w_seg2", "w_out")
+_HYBP_WEIGHT_KEYS = ("wo_seg1", "wo_seg2", "w_new", "w_out")
+
+
+def _chain_tables(weights: dict, keys) -> dict[str, np.ndarray]:
+    """Chain weights in the JAX layout -> the CUDA kernels': the K axis of
+    every 32-byte element block in natural byte order, every 63-row block
+    padded to 64, and w_out's K axis padded with one zero element block to
+    HYB_KERNEL_K_OUT (the kernels' dot over the basis steps 64 bytes of K at
+    a time); one_mont rides along."""
+    out = {k: _pad_blocks(_natural_k(weights[k])) for k in keys}
+    out["w_out"] = np.pad(out["w_out"], ((0, 0), (0, HYB_KERNEL_K_OUT - out["w_out"].shape[1])))
+    out["one_mont"] = np.asarray(weights["one_mont"], np.uint32)
+    return out
+
+
+@functools.cache
+def hyb_tables() -> dict[str, np.ndarray]:
+    """The CUDA hyb kernel's chain tables (`ops/csrc/perm_hyb.cu`): w_seg1
+    (27, 64, 1024), w_seg2 (32, 64, 2048), w_out (320, 2112) uint8 and
+    one_mont (N_DIGITS,) uint32. Its full rounds and REDCs use
+    `mxu8_tables()`."""
+    return _chain_tables(hyb_weights_np(), _HYB_WEIGHT_KEYS)
+
+
+@functools.cache
+def hybp_tables() -> dict[str, np.ndarray]:
+    """The CUDA hybp kernel's chain tables: wo_seg1 (27, 64, 1024), wo_seg2
+    (32, 64, 2048), w_new (59, 64, 32), w_out (320, 2112) uint8 and
+    one_mont."""
+    return _chain_tables(hybp_weights_np(), _HYBP_WEIGHT_KEYS)
+
+
+def _from_jax_chain(weights: dict, keys) -> dict[str, np.ndarray]:
+    """Carry one of the JAX package's chain dictionaries across: int8
+    weights offset by -128 under `keys`, their int32 row sums under the
+    same names with "rs" for the leading "w", pmul17 and one_mont. Checks
+    every row sum, the ladder and R mod p."""
+    extras = _chain_extras()
+    for key, want in extras.items():
+        if not np.array_equal(np.asarray(weights[key]), want):
+            raise ValueError(f"{key} does not match the modulus")
+    unsigned = dict(extras)
+    for key in keys:
+        w_s8 = np.asarray(weights[key])
+        if w_s8.dtype != np.int8:
+            raise ValueError(f"{key} is not int8")
+        rowsum = np.asarray(weights["rs" + key[1:]])
+        if not np.array_equal(w_s8.sum(axis=-1, keepdims=True, dtype=np.int32), rowsum):
+            raise ValueError(f"{key}: row sums do not match the weights")
+        unsigned[key] = (w_s8.astype(np.int32) + 128).astype(np.uint8)
+    return _chain_tables(unsigned, keys)
+
+
+def from_jax_hyb_tables(weights: dict) -> dict[str, np.ndarray]:
+    """`hades252_tpu.params.hyb_weights_np()`, as numpy arrays, -> the
+    tables of `hyb_tables()`."""
+    return _from_jax_chain(weights, _HYB_WEIGHT_KEYS)
+
+
+def from_jax_hybp_tables(weights: dict) -> dict[str, np.ndarray]:
+    """`hades252_tpu.params.hybp_weights_np()`, as numpy arrays, -> the
+    tables of `hybp_tables()`."""
+    return _from_jax_chain(weights, _HYBP_WEIGHT_KEYS)
 
 
 def digits_to_limbs(digits: np.ndarray) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""The kernels' build helpers, the per-state code of `perm.cuh` and
-`perm_mxu8.cuh` compiled for the host, and the independent oracles of
+"""The kernels' build helpers, the per-state code of `perm.cuh`,
+`perm_mxu8.cuh` and `perm_hyb.cuh` compiled for the host, and the independent oracles of
 `chip_smoke.py`, all on the CPU."""
 
 import shutil
@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import chip_smoke
-from hades252_tpu_torch import selftest
+from hades252_tpu_torch import field, selftest
 from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import _build, perm_cuda
 from hades252_tpu_torch.params import digits_to_limbs
@@ -19,9 +19,10 @@ from hades252_tpu_torch.utils.encoding import digits_to_ints
 torch.set_num_threads(1)
 
 # Runs the per-state permutation over states given as 32-bit limbs:
-# harness TABLES STATES SCHEDULE(0 naive, 1 opt, 2 mxu8) CONVERT MXU8_CONSTS
-# MXU8_WEIGHTS -> limbs on stdout. mxu8 runs perm_mxu8.cuh with its host
-# dot, a plain loop over the kernel's byte weights in the MMA's place.
+# harness TABLES STATES SCHEDULE(0 naive, 1 opt, 2 mxu8, 3 hyb, 4 hybp) CONVERT
+# CONSTS WEIGHTS [CHAIN] -> limbs on stdout. mxu8 runs perm_mxu8.cuh and hyb,
+# hybp run perm_hyb.cuh with their host dots, plain loops over the kernels'
+# byte weights in the MMA's place.
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
@@ -29,6 +30,7 @@ HARNESS = r"""
 #include <vector>
 #include "perm.cuh"
 #include "perm_mxu8.cuh"
+#include "perm_hyb.cuh"
 using namespace hades;
 template <typename T>
 static std::vector<T> read_file(const char* path) {
@@ -46,10 +48,14 @@ int main(int argc, char** argv) {
   const int schedule = atoi(argv[3]), convert = atoi(argv[4]);
   std::vector<uint32_t> consts = read_words(argv[5]);
   std::vector<uint8_t> weights = read_file<uint8_t>(argv[6]);
-  if ((int)consts.size() != mxu8::kConstWords || (int)weights.size() != mxu8::kWeightBytes)
+  std::vector<uint8_t> chain;
+  if (schedule >= 3) chain = read_file<uint8_t>(argv[7]);
+  if ((int)consts.size() != (schedule >= 3 ? hyb::kConstWords : mxu8::kConstWords) ||
+      (int)weights.size() != mxu8::kWeightBytes ||
+      (schedule >= 3 && (int)chain.size() != hyb::chain_bytes(schedule == 4)))
     return 4;
-  mxu8::HostDot dot{weights.data(), weights.data() + mxu8::kLinBytes,
-                    weights.data() + mxu8::kLinBytes + mxu8::kPpBytes, {}, {}};
+  hyb::HostDot dot{{weights.data(), weights.data() + mxu8::kLinBytes,
+                    weights.data() + mxu8::kLinBytes + mxu8::kPpBytes, {}, {}}, {}};
   const uint32_t* src = tables.data();
   for (int j = 0; j < kLimbs; ++j) if (src[j] != p_limb(j)) return 2;
   src += kLimbs;
@@ -59,7 +65,9 @@ int main(int argc, char** argv) {
   for (size_t b = 0; b * 40 < states.size(); ++b) {
     uint32_t s[kWidth][kLimbs];
     memcpy(s, &states[b * 40], sizeof(s));
-    if (schedule == 2) mxu8::perm(dot, s, consts.data(), convert != 0);
+    if (schedule == 4) hyb::perm<true>(dot, s, consts.data(), chain.data(), convert != 0);
+    else if (schedule == 3) hyb::perm<false>(dot, s, consts.data(), chain.data(), convert != 0);
+    else if (schedule == 2) mxu8::perm(dot, s, consts.data(), convert != 0);
     else if (schedule == 1) perm_opt(s, convert != 0);
     else perm_naive(s, convert != 0);
     memcpy(&states[b * 40], s, sizeof(s));
@@ -83,19 +91,25 @@ def harness(tmp_path_factory):
     consts, weights = perm_cuda.mxu8_kernel_tables()
     consts.astype("<u4").tofile(d / "mxu8_consts.bin")
     weights.tofile(d / "mxu8_weights.bin")
+    for schedule in ("hyb", "hybp"):
+        consts, _, chain = perm_cuda.hyb_kernel_tables(schedule)
+        consts.astype("<u4").tofile(d / f"{schedule}_consts.bin")
+        chain.tofile(d / f"{schedule}_chain.bin")
     return d
 
 
-@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8"])
+@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8", "hyb", "hybp"])
 @pytest.mark.parametrize("convert", [True, False])
 def test_kernel_math_on_host_matches_int_oracle(harness, schedule, convert):
     inputs, expected, inputs_m, expected_m = selftest._vectors()
     x, want = (inputs, expected) if convert else (inputs_m, expected_m)
     digits_to_limbs(x).astype("<u4").tofile(harness / "states.bin")
+    chained = schedule in ("hyb", "hybp")
     out = subprocess.run(
         [str(harness / "harness"), str(harness / "tables.bin"), str(harness / "states.bin"),
          str(perm_cuda.SCHEDULES.index(schedule)), str(int(convert)),
-         str(harness / "mxu8_consts.bin"), str(harness / "mxu8_weights.bin")],
+         str(harness / (f"{schedule}_consts.bin" if chained else "mxu8_consts.bin")),
+         str(harness / "mxu8_weights.bin"), str(harness / f"{schedule}_chain.bin")],
         capture_output=True, check=True, timeout=300,
     ).stdout
     got = np.frombuffer(out, "<u4").reshape(-1, 5, 8)
@@ -106,7 +120,8 @@ def test_source_hash_covers_every_source():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = sorted(p.name for p in _build.CSRC.glob("*.cu*"))
-    assert names == ["field.cuh", "perm.cu", "perm.cuh", "perm_mxu8.cu", "perm_mxu8.cuh"]
+    assert names == ["field.cuh", "mma_tile.cuh", "perm.cu", "perm.cuh", "perm_hyb.cu",
+                     "perm_hyb.cuh", "perm_mxu8.cu", "perm_mxu8.cuh"]
 
 
 def test_ptxas_summary():
@@ -213,3 +228,35 @@ def test_chip_smoke_cipher_oracle_agrees_with_the_port():
                                                   list(digits_to_ints(msgs[i].numpy())))
         assert list(digits_to_ints(ct[i].numpy())) == want_ct
         assert int(digits_to_ints(tag[i].numpy())) == want_tag
+
+
+def test_chip_smoke_path_walk_agrees_with_the_port():
+    rng = np.random.default_rng(6)
+    leaves = torch.from_numpy(chip_smoke.random_elements((50,), rng))
+    levels = merkle.merkle_levels(leaves, chip_smoke.plain_mont_fn("hybp"))
+    root = int(digits_to_ints(field.from_mont(levels[-1][0]).numpy()))
+    assert root == chip_smoke.int_merkle_root(list(digits_to_ints(leaves.numpy())) + [0] * 14)
+    sibs, poss = merkle.merkle_open_batched(levels, [49, 7])
+    for row, leaf in zip(range(2), (49, 7)):
+        siblings = [list(digits_to_ints(g)) for g in field.from_mont(sibs[row]).numpy()]
+        walk = chip_smoke.int_merkle_walk(int(digits_to_ints(leaves[leaf].numpy())), siblings,
+                                          poss[row].tolist())
+        assert walk == root
+        assert chip_smoke.int_merkle_walk(1 + int(digits_to_ints(leaves[leaf].numpy())),
+                                          siblings, poss[row].tolist()) != root
+
+
+@pytest.mark.parametrize("schedule", perm_cuda.SCHEDULES)
+def test_chip_smoke_bound(schedule):
+    one, many = chip_smoke.bound(schedule, 1 << 14), chip_smoke.bound(schedule, 1 << 18)
+    parts = ("tensor_ms", "cores_ms", "bytes_ms")
+    assert one["bound_ms"] == max(one[k] for k in parts) > 0
+    assert one["bound_by"] in ("bytes", "operations")
+    # operations scale with the batch; the tables' bytes do not
+    assert many["cores_ms"] == pytest.approx(16 * one["cores_ms"])
+    assert many["bytes_ms"] < 16 * one["bytes_ms"]
+    assert (one["tensor_ms"] > 0) == (schedule in ("mxu8", "hyb", "hybp"))
+    if schedule in ("hyb", "hybp"):
+        # 401 REDCs against mxu8's 632; the chain's dots outweigh the MDS dots they replace
+        mxu8 = chip_smoke.bound("mxu8", 1 << 14)
+        assert one["cores_ms"] < mxu8["cores_ms"] and one["tensor_ms"] > mxu8["tensor_ms"]

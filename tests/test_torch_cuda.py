@@ -25,6 +25,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
+_NO_LAUNCHES = {s: 0 for s in perm_cuda.SCHEDULES}
+
+
 def _elements(shape, seed: int) -> torch.Tensor:
     """Seeded canonical field elements, (..., 16) int32 on the CPU."""
     x = field.np_random_elements(shape, np.random.default_rng(seed))
@@ -33,7 +36,7 @@ def _elements(shape, seed: int) -> torch.Tensor:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 1000, 4096])
-@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8"])
+@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8", "hyb", "hybp"])
 @pytest.mark.parametrize("convert", [True, False])
 def test_kernel_matches_plain(cuda_device, b, schedule, convert):
     x = _elements((5, b), 20 + b).permute(0, 2, 1).contiguous().to(cuda_device)
@@ -74,7 +77,7 @@ def test_merkle_and_sponge(cuda_device):
     perm_cuda.reset_launches()
     root = merkle.merkle_root(leaves.to(cuda_device))
     digest = sponge.sponge_hash(msgs.to(cuda_device))
-    assert perm_cuda.launches == {"naive": 0, "opt": merkle.tree_levels(256) + 3, "mxu8": 0}
+    assert perm_cuda.launches == {**_NO_LAUNCHES, "opt": merkle.tree_levels(256) + 3}
     naive = merkle.merkle_root(leaves.to(cuda_device), make_perm_mont_fn("cuda", schedule="naive"))
     assert perm_cuda.launches["naive"] == merkle.tree_levels(256)
     assert torch.equal(root.cpu(), merkle.merkle_root(leaves))
@@ -95,6 +98,57 @@ def test_mxu8_dot_matches_float64_matmul(cuda_device, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(64, 1024, 128), (64, 2048, 1000), (320, 2080, 300),
+                                   (45, 70, 129)])
+def test_hyb_dot_matches_float64_matmul(cuda_device, m, k, n):
+    g = torch.Generator().manual_seed(m * k + n)
+    w = torch.randint(0, 256, (m, k), dtype=torch.uint8, generator=g)
+    x = torch.randint(0, 256, (k, n), dtype=torch.uint8, generator=g)
+    got = perm_cuda.hyb_dot(w.to(cuda_device), x.to(cuda_device))
+    want = torch.matmul(w.double(), x.double()).to(cuda_device)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.double(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["hyb", "hybp"])
+def test_merkle_openings_and_batched_verification(cuda_device, schedule):
+    n, k = 1000, 300
+    leaves = _elements((n,), 700).to(cuda_device)
+    fn = make_perm_mont_fn("cuda", schedule=schedule)
+    height = merkle.tree_levels(n)
+    perm_cuda.reset_launches()
+    levels = merkle.merkle_levels(leaves, fn)
+    assert perm_cuda.launches == {**_NO_LAUNCHES, schedule: height}
+    root = field.from_mont(levels[-1][0])
+    assert torch.equal(root, merkle.merkle_root(leaves))  # the default opt kernel
+    idx = torch.from_numpy(np.random.default_rng(701).integers(0, n, k)).to(cuda_device)
+    sibs, poss = merkle.merkle_open_batched(levels, idx)
+    assert sibs.shape == (k, height, 3, 16) and poss.shape == (k, height)
+    for row in (0, 7, k - 1):
+        s, p = merkle.merkle_open_compact(levels, int(idx[row]))
+        assert torch.equal(sibs[row], s) and torch.equal(poss[row], p)
+    perm_cuda.reset_launches()
+    ok = merkle.merkle_verify_batched(root, leaves[idx], sibs, poss, height, fn)
+    assert perm_cuda.launches == {**_NO_LAUNCHES, schedule: height}
+    assert ok.dtype == torch.bool and bool(ok.all())
+    assert torch.equal(ok, merkle.merkle_verify_batched(root, leaves[idx], sibs, poss, height))
+    tampered = sibs.clone()
+    tampered[5, 2, 1, 0] ^= 1
+    bad = merkle.merkle_verify_batched(root, leaves[idx], tampered, poss, height, fn)
+    assert not bool(bad[5]) and int(bad.sum()) == k - 1
+    out_of_range = poss.clone()
+    out_of_range[9, 0] = 4
+    bad = merkle.merkle_verify_batched(root, leaves[idx], sibs, out_of_range, height, fn)
+    assert not bool(bad[9]) and int(bad.sum()) == k - 1
+    # a path of another length than the verifier's height rejects every row
+    assert not bool(merkle.merkle_verify_batched(root, leaves[idx], sibs, poss, height - 1,
+                                                 fn).any())
+    assert merkle.merkle_verify(root, leaves[idx[0]], merkle.merkle_open(levels, int(idx[0])),
+                                height, fn)
+
+
+@pytest.mark.cuda
 def test_cipher_through_mxu8(cuda_device):
     b, l = 1000, 32
     key, nonce, msgs = _elements((b, 2), 600), _elements((b,), 601), _elements((b, l), 602)
@@ -102,7 +156,7 @@ def test_cipher_through_mxu8(cuda_device):
     perm_cuda.reset_launches()
     ct, tag = cipher.encrypt(key, nonce, msgs, make_perm_mont_fn("cuda", schedule="mxu8"))
     torch.cuda.synchronize()
-    assert perm_cuda.launches == {"naive": 0, "opt": 0, "mxu8": 1 + l // cipher.RATE}
+    assert perm_cuda.launches == {**_NO_LAUNCHES, "mxu8": 1 + l // cipher.RATE}
     ct_opt, tag_opt = cipher.encrypt(key, nonce, msgs)  # the default opt kernel
     assert torch.equal(ct, ct_opt) and torch.equal(tag, tag_opt)
     ct_p, tag_p = cipher.encrypt(key[:16], nonce[:16], msgs[:16], _plain_mont_fn("mxu8"))
@@ -120,7 +174,7 @@ def _plain_mont_fn(schedule):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8"])
+@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8", "hyb", "hybp"])
 def test_cuda_tensor_never_takes_the_plain_path(cuda_device, monkeypatch, schedule):
     x = _elements((5, 300), 3).permute(0, 2, 1).contiguous().to(cuda_device)
     want = perm_cuda.permute_planar_plain(x, schedule=schedule)

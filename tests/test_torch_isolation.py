@@ -44,4 +44,4 @@ def test_kat_gate_on_cpu_takes_the_plain_path():
 
     perm_cuda.reset_launches()
     assert selftest.verify_device("cpu") == []
-    assert perm_cuda.launches == {"naive": 0, "opt": 0, "mxu8": 0}
+    assert perm_cuda.launches == {s: 0 for s in perm_cuda.SCHEDULES}

@@ -88,6 +88,112 @@ def test_mxu8_weights_in_natural_byte_order():
     assert value(t["w_p"].astype(np.int64) @ xb) == x * params.P
 
 
+def test_dot_schedule_matches():
+    ours, theirs = params.dot_schedule_int(), jparams.dot_schedule_int()
+    assert ours == theirs
+    assert [len(a) for a in ours["alpha"]] == [6 + r for r in range(59)]
+    assert len(ours["omega"]) == 5 and all(len(row) == 65 for row in ours["omega"])
+    for name in ("HYB_SEG1_ROUNDS", "HYB_SEG1_ELEMS", "HYB_SEG2_ELEMS", "HYB_N_BASIS"):
+        assert getattr(params, name) == getattr(jparams, name), name
+
+
+_CHAIN = {
+    "hyb": (params.hyb_weights_np, params.hyb_tables, params.from_jax_hyb_tables,
+            jparams.hyb_weights_np, ("w_seg1", "w_seg2", "w_out")),
+    "hybp": (params.hybp_weights_np, params.hybp_tables, params.from_jax_hybp_tables,
+             jparams.hybp_weights_np, ("wo_seg1", "wo_seg2", "w_new", "w_out")),
+}
+
+
+@pytest.mark.parametrize("schedule", ["hyb", "hybp"])
+def test_chain_weights_match_jax_offset_weights(schedule):
+    """The port's unsigned weights are the JAX package's int8 weights plus
+    128, key by key; the ladder and R mod p are equal."""
+    ours_fn, _, _, theirs_fn, keys = _CHAIN[schedule]
+    ours, theirs = ours_fn(), theirs_fn()
+    assert sorted(ours) == sorted(k for k in theirs if not k.startswith("rs"))
+    for key in keys:
+        assert ours[key].dtype == np.uint8 and theirs[key].dtype == np.int8, key
+        assert np.array_equal(ours[key].astype(np.int32) - 128, theirs[key].astype(np.int32)), key
+    for key in ("pmul17", "one_mont"):
+        assert ours[key].dtype == theirs[key].dtype == np.uint32, key
+        assert np.array_equal(ours[key], theirs[key]), key
+
+
+@pytest.mark.parametrize("schedule", ["hyb", "hybp"])
+def test_from_jax_chain_tables_reproduce_port_tables(schedule):
+    _, own_fn, carry, theirs_fn, keys = _CHAIN[schedule]
+    carried, ours = carry(theirs_fn()), own_fn()
+    assert sorted(carried) == sorted(ours) == sorted(keys + ("one_mont",))
+    for key, t in ours.items():
+        assert t.dtype == carried[key].dtype, key
+        assert np.array_equal(t, carried[key]), key  # byte for byte
+    assert ours[keys[0]].shape == (27, 64, 1024) and ours[keys[1]].shape == (32, 64, 2048)
+    assert ours["w_out"].shape == (320, 2112)  # K padded by one zero element block
+    if schedule == "hybp":
+        assert ours["w_new"].shape == (59, 64, 32) and not ours["w_new"][0].any()
+
+
+@pytest.mark.parametrize("schedule", ["hyb", "hybp"])
+def test_chain_tables_padding_absent_coefficients_and_bounds(schedule):
+    _, own_fn, _, _, keys = _CHAIN[schedule]
+    t = own_fn()
+    seg1, seg2 = t[keys[0]], t[keys[1]]
+    w_out = t["w_out"].reshape(5, 64, 2112)
+    assert not w_out[:, :, 2080:].any() and w_out[:, :63, 2048:2080].any()
+    # every padding row of the 64-row blocks is zero
+    assert not seg1[:, 63].any() and not seg2[:, 63].any() and not w_out[:, 63].any()
+    # round r uses basis elements [:6 + r] (hybp: without the newest, which
+    # w_new carries): every block beyond them is zero
+    for r in range(59):
+        w = seg1[r] if r < 27 else seg2[r - 27]
+        used = 6 + r - (1 if schedule == "hybp" and r > 0 else 0)
+        assert not w[:, 32 * used :].any(), r
+        assert w[:, : 32 * used].any(), r
+    # a column sum is at most the row's weight sum times 255: below 2^27,
+    # so int32 sums and the 64-bit recombine are exact
+    for key in keys:
+        assert int(t[key].sum(axis=-1, dtype=np.int64).max()) * 255 < 1 << 27, key
+    if schedule == "hybp":  # the two dots of a round are summed before the REDC
+        both = seg2.sum(axis=-1, dtype=np.int64) + t["w_new"][27:].sum(axis=-1, dtype=np.int64)
+        assert int(both.max()) * 255 < 1 << 27
+
+
+@pytest.mark.parametrize("schedule", ["hyb", "hybp"])
+def test_from_jax_chain_tables_check_row_sums_and_ladder(schedule):
+    _, _, carry, theirs_fn, keys = _CHAIN[schedule]
+    theirs = dict(theirs_fn())
+    bad = dict(theirs)
+    bad["rs" + keys[0][1:]] = theirs["rs" + keys[0][1:]] + 1
+    with pytest.raises(ValueError, match="row sums"):
+        carry(bad)
+    bad = dict(theirs)
+    bad["pmul17"] = theirs["pmul17"][::-1]
+    with pytest.raises(ValueError, match="pmul17"):
+        carry(bad)
+
+
+def test_chain_weights_in_natural_byte_order():
+    """A round's weights times the basis bytes, in natural order, give the
+    base-256 columns of sum_j alpha[r][j] R e_j: the lazy sum whose REDC is
+    the S-box input."""
+    r = 30
+    alpha = params.dot_schedule_int()["alpha"][r]
+    rng = np.random.default_rng(15)
+    basis = [int.from_bytes(rng.bytes(40), "little") % params.P for _ in range(6 + r)]
+    yb = np.zeros(2048, np.int64)
+    for j, e in enumerate(basis):
+        yb[32 * j : 32 * (j + 1)] = np.frombuffer(e.to_bytes(32, "little"), np.uint8)
+    cols = params.hyb_tables()["w_seg2"][r - 27].astype(np.int64) @ yb
+    value = sum(int(c) << (8 * i) for i, c in enumerate(cols))
+    assert value == sum(a * params.R_MOD_P % params.P * e for a, e in zip(alpha, basis))
+    # hybp: the older elements' dot plus the newest element's gives the same
+    tp = params.hybp_tables()
+    cols_p = tp["wo_seg2"][r - 27].astype(np.int64) @ yb
+    cols_p += tp["w_new"][r].astype(np.int64) @ yb[32 * (5 + r) : 32 * (6 + r)]
+    assert np.array_equal(cols_p, cols)
+
+
 def test_word_level_montgomery_constant():
     limbs = params.digits_to_limbs(params.perm_constants_np()["p"])
     assert int(limbs[0]) == 1

@@ -71,6 +71,68 @@ def test_plain_mxu8_matches_jax_kernel_harness_ragged(convert):
     assert np.array_equal(ours.numpy().astype(np.uint32), theirs)
 
 
+@pytest.mark.parametrize("b", [8, 5])
+@pytest.mark.parametrize("schedule", ["hyb", "hybp"])
+@pytest.mark.parametrize("convert", [True, False])
+def test_plain_chain_kernel_matches_jax_harness_and_oracles(schedule, convert, b):
+    """Plain hyb and hybp against the JAX package's numpy harness for the
+    same kernel bodies, the torch oracle and the int oracle, with the edge
+    words 0 and p - 1; tolerance 0."""
+    x = _states(b, 40 + b)
+    x[0] = ints_to_digits([[0, P - 1, 0, P - 1, 1]], shape=(1, 5))[0]
+    x[1] = ints_to_digits([[P - 1] * 5], shape=(1, 5))[0]
+    if not convert:
+        x = field.to_mont(_t(x)).numpy().astype(np.uint32)
+    planar = np.ascontiguousarray(x.transpose(1, 2, 0))
+    ours = perm_cuda.permute_planar_plain(_t(planar), convert=convert, schedule=schedule)
+    assert ours.dtype == torch.int32 and ours.shape == (5, 16, b)
+    theirs = permute_planar_emulated(planar, convert=convert, schedule=schedule)
+    assert np.array_equal(ours.numpy().astype(np.uint32), theirs)
+    batch_major = ours.permute(2, 0, 1)
+    assert torch.equal(batch_major, (permute if convert else permute_mont)(_t(x)))
+    canonical = batch_major if convert else field.from_mont(batch_major)
+    inputs = _t(x) if convert else field.from_mont(_t(x))
+    strat = ScalarStrategy()
+    for row_in, row_out in zip(inputs.numpy(), canonical.numpy()):
+        assert strat.perm([int(v) for v in digits_to_ints(row_in)]) == [
+            int(v) for v in digits_to_ints(row_out)]
+
+
+@pytest.mark.parametrize("n_subs,k", [(2, 6), (4, 32), (5, 65)])
+def test_redc_wide_big_matches_jax(n_subs, k):
+    """The big REDC of a lazy sum of k products against the JAX package's,
+    on its numpy path, with the ladder depth that k warrants."""
+    b = 24
+    elems = [_states(b, 60 + i)[:, 0].T.copy() for i in range(8)]  # (16, b) digits < p
+    token = perm_pallas._EMULATE.set(True)
+    try:
+        ops = _jax_mxu_ops()
+        one = perm_pallas._mul_cols(elems[0], elems[1], 2 * 16 + 1, None).astype(np.uint64)
+        cols = (one * k).astype(np.uint32)        # k equal products: T < k p^2
+        t33 = perm_pallas._carry_lo(cols)
+        pmul = perm_pallas._const_arrays_hyb()[14]
+        theirs = perm_pallas._redc_wide_big(t33, ops, pmul, n_subs)
+    finally:
+        perm_pallas._EMULATE.reset(token)
+    plain = perm_cuda._chain_plain_tables(torch.device("cpu"), False)
+    ours = perm_cuda._redc_wide_big(torch.from_numpy(t33.T.astype(np.int64)), plain["pmul17"],
+                                    n_subs)
+    assert ours.shape == (b, 16)
+    assert np.array_equal(ours.numpy().T, theirs.astype(np.int64))
+
+
+def test_recombine16_wide_matches_jax():
+    cols = np.random.default_rng(13).integers(0, 1 << 27, (63, 9)).astype(np.uint32)
+    token = perm_pallas._EMULATE.set(True)
+    try:
+        theirs = perm_pallas._recombine16_wide(cols)
+    finally:
+        perm_pallas._EMULATE.reset(token)
+    ours = perm_cuda._recombine16_wide(torch.from_numpy(cols.T.astype(np.int64)))
+    assert ours.shape == (9, 33)
+    assert np.array_equal(ours.numpy().T, theirs.astype(np.int64))
+
+
 def _jax_mxu_ops():
     """The JAX package's mxu8 machinery on its numpy emulation path."""
     ark, fc, w_lin, w_pp, w_p, rs_lin, rs_pp, rs_p = perm_pallas._const_arrays_mxu8()
@@ -127,7 +189,7 @@ def _oracle_outputs(b: int):
 
 
 @pytest.mark.parametrize("b", [1, 5, 130])
-@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8"])
+@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8", "hyb", "hybp"])
 def test_batch_major_wrappers_on_cpu(b, schedule):
     x, want, xm, want_m = _oracle_outputs(b)
     perm_cuda.reset_launches()
@@ -136,7 +198,7 @@ def test_batch_major_wrappers_on_cpu(b, schedule):
     assert torch.equal(out, want)
     assert torch.equal(perm_cuda.permute_cuda_mont(xm, schedule=schedule), want_m)
     # the CPU takes the plain version: no kernel was launched
-    assert perm_cuda.launches == {"naive": 0, "opt": 0, "mxu8": 0}
+    assert perm_cuda.launches == {s: 0 for s in perm_cuda.SCHEDULES}
 
 
 def test_scalar_strategy_batched_ref_backend():
@@ -154,7 +216,7 @@ def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):
         perm_cuda.permute_cuda(x[:, :4])
     with pytest.raises(ValueError):
-        perm_cuda.permute_cuda(x, schedule="hybp")
+        perm_cuda.permute_cuda(x, schedule="hybp13")
     with pytest.raises(ValueError):
         perm_cuda.permute_planar(x.permute(1, 2, 0).to("meta"))
 
@@ -174,6 +236,32 @@ def test_mxu8_kernel_tables_layout():
     w_lin = weights[: 320 * 160].reshape(5, 64, 160)
     assert not w_lin[:, 63].any() and w_lin[:, :63].any()
     assert not weights[-32:].any()
+
+
+def test_hyb_kernel_tables_layout():
+    mxu8_consts, mxu8_weights = perm_cuda.mxu8_kernel_tables()
+    for schedule, new in (("hyb", 0), ("hybp", 59 * 64 * 32)):
+        consts, weights, chain = perm_cuda.hyb_kernel_tables(schedule)
+        assert consts.dtype == np.uint32 and consts.shape == (8 * (67 * 5 + 2),)
+        assert np.array_equal(consts[:-8], mxu8_consts) and np.array_equal(weights, mxu8_weights)
+        # R mod p closes the consts
+        assert sum(int(v) << (32 * i) for i, v in enumerate(consts[-8:])) == (1 << 256) % P
+        assert chain.dtype == np.uint8
+        assert chain.shape == (27 * 64 * 1024 + 32 * 64 * 2048 + new + 320 * 2112,)
+        assert chain.size % 16 == 0
+
+
+def test_hyb_dot_on_cpu():
+    rng = np.random.default_rng(14)
+    w = torch.from_numpy(rng.integers(0, 256, (20, 2080)).astype(np.uint8))
+    x = torch.from_numpy(rng.integers(0, 256, (2080, 7)).astype(np.uint8))
+    got = perm_cuda.hyb_dot(w, x)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), w.numpy().astype(np.int64) @ x.numpy().astype(np.int64))
+    with pytest.raises(ValueError):
+        perm_cuda.hyb_dot(w.to(torch.int32), x)
+    with pytest.raises(ValueError):
+        perm_cuda.hyb_dot(w, x[:100])
 
 
 def test_mxu8_dot_on_cpu():
