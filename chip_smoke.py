@@ -9,15 +9,18 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
   1. prints the card, its power limit and the toolchain;
   2. builds the kernels and prints ptxas's register and spill counts;
   3. runs the KAT gate: the 128 selftest vectors tiled to 2^14 lanes
-     through the `naive`, `opt`, `mxu8`, `hyb` and `hybp` kernels,
-     canonical and Montgomery paths, against the exact int oracle (which
-     is itself held against the four SURVEY known answers);
+     through all eight kernels (`naive`, `opt`, `mxu8`, `hyb`, `hybp`,
+     `mxu`, `hyb13`, `hybp13`), canonical and Montgomery paths, against the
+     exact int oracle (which is itself held against the four SURVEY known
+     answers);
   4. holds each kernel against its plain PyTorch version on the card at
      B = 2^14, 4096 and a ragged 1000, both `convert` values, and `naive`
      and `opt` at the first Merkle level's B = 2^18 on the Montgomery path;
      and holds the tensor-core tile products against a float64 matmul:
-     `mxu8`'s at the shapes of its three dots, and the wide one of `hyb`
-     and `hybp` at K = 1024, 2048 and 2080 with the chain's own weights;
+     `mxu8`'s and `mxu`'s (bf16 with float32 sums) at the shapes of their
+     three dots, `mxu`'s also with all-255 operands at K = 160, the largest
+     sum it can meet, and the wide one of `hyb` and `hybp` at K = 1024,
+     2048 and 2080 with the chain's own weights;
   5. builds the arity-4 Merkle root over 2^20 seeded leaves through
      `merkle_root` (BASELINE config 4) with the default `opt` kernel, and
      over their first 2^16 with the `opt`, `naive` and `mxu8` kernels, and
@@ -40,18 +43,37 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      version, row 0 against the int oracle of the cipher spec, the
      round trip through `decrypt`, and the rejection of a tampered word
      (its row only) and of a truncated ciphertext (every row);
+  7b. builds the same 2^20-leaf tree through `merkle_root_checkpointed`
+     into a fresh temporary directory with the `mxu` kernel (10 launches;
+     the root must be `opt`'s of phase 5), then deletes the level files
+     above level 4 and truncates level 4's, and resumes through `hyb13`,
+     and after the same damage through `hybp13`: the same root, 7 launches
+     each (levels 4 to 10 from level 3: the truncated file is ignored), a
+     directory of other leaves refused with ValueError, and `level_10.bin`
+     decoding to the root. The directory is removed at the end, also on
+     failure;
+  7c. builds the native CPU engine (`native/hades_cpu.cpp`) with the host
+     compiler and holds the port against it: 64 seeded states through
+     `perm_batch_digits` against the `opt` kernel, the 4096-leaf root of
+     phase 5 against `merkle_root_digits`; prints its single-thread
+     rates with the host CPU's model name. An engine that does not build
+     fails the run;
   8. times the kernels, their plain versions, the trees, the openings,
-     the sponge and the cipher with CUDA events (median of 5 after a
-     warm-up), and works out each kernel's bound: the least time the card
-     could take for the same states (`bound`).
+     the sponge, the cipher and the checkpointed build (beside the plain
+     `merkle_root` through the same kernel, so the cost of the ten
+     device-to-host copies and file writes is a number) with CUDA events
+     (median of 5 after a warm-up), and works out each kernel's bound: the
+     least time the card could take for the same states (`bound`).
 
-Each path of phases 5-7 runs with the launch counts set to 0 just before
-it and read just after; the kernels' JSON line reports their sum. No
+Each path of phases 5-7b runs with the launch counts set to 0 just before
+it and read just after; the kernels' JSON line reports their sum. The
+earlier paths run at the depth they had: the `naive` and `mxu8` cross-check
+trees over 2^16 leaves, everything else at full size. No
 single PyTorch call computes a 255-bit modular permutation, so the line's
 `library_ms` is null for every kernel.
 
 With `--profile` it also traces one warm call of each of the openings'
-paths with `torch.profiler` (phase 9) and prints, per path, the span of
+paths and of the checkpointed build with `torch.profiler` (phase 9) and prints, per path, the span of
 its device work, the time the device was busy, the idle share, the
 permutation kernel's share and the plain-torch glue's.
 
@@ -63,10 +85,14 @@ power limit, and the one before that the kernels' JSON summary.
 
 from __future__ import annotations
 
+import itertools
 import json
+import os
+import platform
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -78,6 +104,7 @@ from hades252_tpu_torch.ops import _build, make_perm_mont_fn, perm_cuda
 from hades252_tpu_torch import field
 from hades252_tpu_torch.params import HYB_N_BASIS, P, WIDTH, hyb_tables, mxu8_tables
 from hades252_tpu_torch.strategy import ScalarStrategy
+from hades252_tpu_torch.utils import checkpoint, native
 from hades252_tpu_torch.utils.encoding import digits_to_ints
 
 SEED = 0x5EED
@@ -94,6 +121,9 @@ SOURCES = {
     "mxu8": "hades252_tpu_torch/ops/csrc/perm_mxu8.cu",
     "hyb": "hades252_tpu_torch/ops/csrc/perm_hyb.cu",
     "hybp": "hades252_tpu_torch/ops/csrc/perm_hyb.cu",
+    "mxu": "hades252_tpu_torch/ops/csrc/perm_mxu.cu",
+    "hyb13": "hades252_tpu_torch/ops/csrc/perm_hyb13.cu",
+    "hybp13": "hades252_tpu_torch/ops/csrc/perm_hyb13.cu",
 }
 REPLACES = {
     "naive": "hades252_tpu/ops/perm_pallas.py:330 (_perm_kernel)",
@@ -101,13 +131,18 @@ REPLACES = {
     "mxu8": "hades252_tpu/ops/perm_pallas.py:640 (_perm_kernel_mxu8)",
     "hyb": "hades252_tpu/ops/perm_pallas.py:845 (_perm_kernel_hyb)",
     "hybp": "hades252_tpu/ops/perm_pallas.py:945 (_perm_kernel_hybp)",
+    "mxu": "hades252_tpu/ops/perm_pallas.py:629 (_perm_kernel_mxu)",
+    "hyb13": "hades252_tpu/ops/perm_pallas.py:845 (_perm_kernel_hyb, sbox13=True)",
+    "hybp13": "hades252_tpu/ops/perm_pallas.py:945 (_perm_kernel_hybp, sbox13=True)",
 }
+CKPT_KEEP = 4               # the damage: level files above it go, its own is cut short
 
-# The card's published peaks (NVIDIA H100 SXM data sheet): dense int8 on the
-# tensor cores and device memory. Its 32-bit integer rate is not published:
+# The card's published peaks (NVIDIA H100 SXM data sheet): dense int8 and
+# dense bf16 on the tensor cores, and device memory. Its 32-bit integer rate is not published:
 # 132 SMs x 64 INT32 lanes x the 1.98 GHz boost clock, one multiply-add a
 # lane a clock.
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
@@ -165,7 +200,8 @@ def cuda_ms(fn, reps: int = REPS) -> float:
 def bound(schedule: str, b: int) -> dict:
     """The least time the card could take for b states through `schedule`,
     canonical in and out: the largest of (i) the byte multiply-adds of its
-    dots over the int8 peak, (ii) the 32-bit integer operations of its
+    dots over the int8 peak (for mxu, whose dots are bf16, the bf16 peak),
+    (ii) the 32-bit integer operations of its
     CUDA-core work over the int32 rate, and (iii) its bytes over the memory
     rate. Counted per state from the sources (csrc/field.cuh, perm.cuh,
     perm_mxu8.cuh, perm_hyb.cuh):
@@ -182,6 +218,14 @@ def bound(schedule: str, b: int) -> dict:
       exit (315, 2080), each with 2 adds per recombined column; hybp adds a
       17-limb sum to 58 rounds; the chain's 64 big REDCs end in five 9-limb
       subtracts;
+    - mxu runs mxu8's schedule: the same counts, its dots at the bf16 rate
+      (widening the bytes is the kernel's choice, not work the function
+      needs);
+    - hyb13 and hybp13 run hyb's and hybp's with the base-2^13 S-box, 1,420
+      operations in place of 3 x 64: 2 x 210 + 400 narrow multiply-adds, 2 x
+      39 column doublings, 4 x 20 digit windows of 3 operations (shift,
+      merge, mask), and for each of the 3 products 39 shift-and-adds of two
+      operations into the 64-bit accumulator and 16 limbs written;
     - every state is 320 B read and 320 B written, and the tables are read
       once.
     """
@@ -192,23 +236,27 @@ def bound(schedule: str, b: int) -> dict:
         cores = 136 * products + 16 * adds
         table_bytes = perm_cuda.kernel_tables().nbytes
     else:
-        dense = full + partial if schedule == "mxu8" else full
-        chain = 0 if schedule == "mxu8" else partial
+        base = schedule.removesuffix("13")
+        dense = full + partial if base in ("mxu8", "mxu") else full
+        chain = 0 if base in ("mxu8", "mxu") else partial
         sboxes = 5 * full + partial
+        sbox_ops = 2 * 210 + 400 + 2 * 39 + 4 * 20 * 3 + 3 * (2 * 39 + 16) if base != schedule \
+            else 3 * 64
         redcs = 3 * sboxes + 5 * dense + (chain + 5 if chain else 0)
         dot_cols = 5 * 63 * dense + (63 * (chain + 5) if chain else 0)
         tensor = redcs * (32 * 32 + 63 * 32) + dense * 315 * 160
-        cores = (sboxes * 3 * 64 + 10 * 136 + redcs * (2 * 95 + 16 + 9) + 2 * dot_cols
+        cores = (sboxes * sbox_ops + 10 * 136 + redcs * (2 * 95 + 16 + 9) + 2 * dot_cols
                  + 16 * 5 * dense)
         if chain:
             tensor += sum(63 * 32 * (6 + r) for r in range(chain)) + 315 * 2080
             cores += (chain + 5) * 5 * 9
-        if schedule == "hybp":
+        if base == "hybp":
             cores += (chain - 1) * (2 * 63 + 17)
-        tables = (perm_cuda.mxu8_kernel_tables() if schedule == "mxu8"
-                  else perm_cuda.hyb_kernel_tables(schedule))
+        tables = (perm_cuda.hyb_kernel_tables(schedule) if chain
+                  else perm_cuda.mxu8_kernel_tables())
         table_bytes = sum(t.nbytes for t in tables)
-    times = {"tensor_ms": 2 * tensor * b / INT8_OPS_PER_S * 1e3,
+    tensor_rate = BF16_OPS_PER_S if schedule == "mxu" else INT8_OPS_PER_S
+    times = {"tensor_ms": 2 * tensor * b / tensor_rate * 1e3,
              "cores_ms": cores * b / INT32_OPS_PER_S * 1e3,
              "bytes_ms": (2 * WIDTH * 16 * 4 * b + table_bytes) / HBM_BYTES_PER_S * 1e3}
     bound_ms = max(times.values())
@@ -297,9 +345,40 @@ def drive(fn):
     return out, dict(perm_cuda.launches)
 
 
+def cpu_model() -> str:
+    """The host CPU's model name: from /proc/cpuinfo, else from lscpu, else
+    what the platform module knows (the machine type at least)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next(ln.split(":", 1)[1].strip() for ln in f if ln.startswith("model name"))
+    except (OSError, StopIteration):
+        pass
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, check=True).stdout
+        return next(ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                    if ln.lower().startswith("model name"))
+    except (OSError, subprocess.CalledProcessError, StopIteration):
+        return f"{platform.processor() or 'model name not reported'} ({platform.machine()})"
+
+
+def damage(d: str, height: int) -> None:
+    """Delete the level files above CKPT_KEEP and cut CKPT_KEEP's own short,
+    so that the highest whole level is CKPT_KEEP - 1."""
+    for k in range(CKPT_KEEP + 1, height + 1):
+        os.remove(os.path.join(d, f"level_{k}.bin"))
+    with open(os.path.join(d, f"level_{CKPT_KEEP}.bin"), "r+b") as f:
+        f.truncate(31)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
+    # the checkpoints' directory goes with the run, also when a check fails
+    with tempfile.TemporaryDirectory(prefix="hades252_checkpoint_") as ckpt_root:
+        return run(ckpt_root)
+
+
+def run(ckpt_root: str) -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
@@ -359,6 +438,21 @@ def main() -> int:
               f"mxu8 tile product with {key} != float64 matmul")
     log(f"[plain] mxu8 tile product == float64 matmul for w_lin, w_pp, w_p x {PERM_BATCH} columns")
 
+    # the mxu kernel's bf16 tile product the same way, and with all-255
+    # operands at K = 160: the largest sum, 10,404,000, must come out of
+    # the tensor core's f32 accumulation exactly
+    for key in ("w_lin", "w_pp", "w_p"):
+        w = torch.from_numpy(tables[key]).to(dev)
+        xb = torch.from_numpy(rng.integers(0, 256, (w.shape[1], PERM_BATCH), dtype=np.uint8)).to(dev)
+        check(torch.equal(perm_cuda.mxu_dot(w, xb).double(), torch.matmul(w.double(), xb.double())),
+              f"mxu bf16 tile product with {key} != float64 matmul")
+    w = torch.full((320, 160), 255, dtype=torch.uint8, device=dev)
+    xb = torch.full((160, PERM_BATCH), 255, dtype=torch.uint8, device=dev)
+    got = perm_cuda.mxu_dot(w, xb)
+    check(bool((got == 160 * 255 * 255).all()), "mxu bf16 tile product of all-255 operands")
+    log(f"[plain] mxu bf16 tile product == float64 matmul for w_lin, w_pp, w_p x {PERM_BATCH} "
+        f"columns, and all-255 at K = 160 gives {int(got.max())} everywhere")
+
     # the wide tile product of hyb and hybp, whose K loop reads both operands
     # from global memory: the last round of each segment and the exit map
     chain = hyb_tables()
@@ -391,8 +485,10 @@ def main() -> int:
 
     # 5b-7. the main path, one entry point at a time; each path's counts are
     # its own launches
-    mxu8_fn, hyb_fn, hybp_fn = (make_perm_mont_fn("cuda", schedule=s)
-                                for s in ("mxu8", "hyb", "hybp"))
+    mxu8_fn, hyb_fn, hybp_fn, mxu_fn, hyb13_fn, hybp13_fn = (
+        make_perm_mont_fn("cuda", schedule=s)
+        for s in ("mxu8", "hyb", "hybp", "mxu", "hyb13", "hybp13"))
+    ckpt_dir = os.path.join(ckpt_root, "main")
     levels, cross_levels = merkle.tree_levels(MERKLE_LEAVES), merkle.tree_levels(CROSS_LEAVES)
     chunks = 1 + CIPHER_LEN // cipher.RATE
     cross = leaves[:CROSS_LEAVES]
@@ -404,6 +500,16 @@ def main() -> int:
     def verify_many(fn):
         return lambda: merkle.merkle_verify_batched(root, opened, state["sibs"], state["poss"],
                                                     levels, fn)
+
+    def resume(fn):
+        def damaged_then_resumed():
+            damage(ckpt_dir, levels)
+            check(checkpoint.highest_saved_level(ckpt_dir, levels, MERKLE_LEAVES)
+                  == CKPT_KEEP - 1, "a truncated level file must be ignored")
+            return checkpoint.merkle_root_checkpointed(leaves, ckpt_dir, fn)
+        return damaged_then_resumed
+
+    resumed = levels - (CKPT_KEEP - 1)  # levels recomputed after the damage
 
     paths = {
         "merkle (opt)": (lambda: merkle.merkle_root(leaves), {"opt": levels}),
@@ -425,6 +531,10 @@ def main() -> int:
         "cipher (mxu8)": (lambda: cipher.encrypt(keys, nonces, plaintext, mxu8_fn),
                           {"mxu8": chunks}),
         "cipher (opt)": (lambda: cipher.encrypt(keys, nonces, plaintext), {"opt": chunks}),
+        "checkpointed (mxu)": (lambda: checkpoint.merkle_root_checkpointed(
+            leaves, ckpt_dir, mxu_fn), {"mxu": levels}),
+        "resumed (hyb13)": (resume(hyb13_fn), {"hyb13": resumed}),
+        "resumed (hybp13)": (resume(hybp13_fn), {"hybp13": resumed}),
     }
     results, main_launches = {}, {s: 0 for s in perm_cuda.SCHEDULES}
     root = None
@@ -523,6 +633,45 @@ def main() -> int:
     log(f"[cipher] {CIPHER_STREAMS} streams x {CIPHER_LEN}: mxu8 == opt, rows 0..63 == plain, "
         "row 0 == int oracle; decrypt round-trips; tamper fails its row only; truncation "
         "fails every row")
+
+    # 7b. the checkpointed build and its resumes
+    for name in ("checkpointed (mxu)", "resumed (hyb13)", "resumed (hybp13)"):
+        check(torch.equal(results[name], root), f"{name}: root != opt's merkle_root")
+    top = checkpoint.load_level(ckpt_dir, levels, 1)[0]
+    check(np.array_equal(top, root.cpu().numpy()), f"level_{levels}.bin does not decode to the root")
+    check(checkpoint.highest_saved_level(ckpt_dir, levels, MERKLE_LEAVES) == levels,
+          "a resumed directory must be whole again")
+    other = leaves.clone()
+    other[12345, 3] ^= 1
+    perm_cuda.reset_launches()
+    try:
+        checkpoint.merkle_root_checkpointed(other, ckpt_dir, mxu_fn)
+    except ValueError as e:
+        check("different build" in str(e), f"other leaves: unexpected refusal {e}")
+    else:
+        check(False, "a directory built from other leaves must be refused")
+    check(not any(perm_cuda.launches.values()), "a refused build must launch nothing")
+    log(f"[checkpoint] 2^20 leaves through mxu: root == opt's, {levels} level files; levels "
+        f"above {CKPT_KEEP} deleted and level {CKPT_KEEP} truncated, resumed from level "
+        f"{CKPT_KEEP - 1} through hyb13 and through hybp13: same root, {resumed} launches each; "
+        f"level_{levels}.bin decodes to the root; other leaves refused")
+
+    # 7c. the native CPU engine, built here, against the port
+    t0 = time.perf_counter()
+    native._lib()  # raises NativeUnavailable where it cannot be built
+    native_s = time.perf_counter() - t0
+    states = random_elements((64, WIDTH), rng)
+    got = perm_cuda.permute_cuda(torch.from_numpy(states).to(dev)).cpu().numpy()
+    check(np.array_equal(native.perm_batch_digits(states), got),
+          "64 states: native engine != opt kernel")
+    check(np.array_equal(native.merkle_root_digits(small.cpu().numpy()),
+                         merkle.merkle_root(small).cpu().numpy()),
+          "4096-leaf Merkle root: native engine != opt kernel")
+    log(f"[native] built in {native_s:.1f} s; 64 states == opt kernel; 4096-leaf root == opt "
+        f"kernel's; one thread: naive {native.bench_perms_per_sec():,.0f} perms/s, sparse "
+        f"{native.bench_perms_per_sec_opt():,.0f} perms/s, IFMA batch-8 "
+        f"{native.bench_perms_per_sec_opt8():,.0f} perms/s (-1: not compiled in) | "
+        f"{cpu_model()}")
     log(f"[launches] main path, summed: {main_launches}")
 
     # 8. timings at the main path's shapes
@@ -545,6 +694,21 @@ def main() -> int:
     tree_ms = cuda_ms(lambda: merkle.merkle_levels(leaves, hybp_fn))
     log(f"[time] merkle_levels 2^20 leaves (hybp): {tree_ms / 1e3:.6f} s/tree = "
         f"{MERKLE_LEAVES / tree_ms * 1e3:,.0f} leaves/s | {smi}")
+    fresh = itertools.count()  # a directory of its own for every timed build
+
+    def checkpointed_build():
+        return checkpoint.merkle_root_checkpointed(
+            leaves, os.path.join(ckpt_root, f"timed{next(fresh)}"), mxu_fn)
+
+    tree_ms = cuda_ms(lambda: merkle.merkle_root(leaves, mxu_fn))
+    ckpt_ms = cuda_ms(checkpointed_build)
+    log(f"[time] merkle_root 2^20 leaves (mxu): {tree_ms / 1e3:.6f} s/tree; "
+        f"merkle_root_checkpointed into a fresh directory (mxu): {ckpt_ms / 1e3:.6f} s/tree = "
+        f"{MERKLE_LEAVES / ckpt_ms * 1e3:,.0f} leaves/s; the fingerprint, {levels} copies to "
+        f"the host and {levels} files cost {(ckpt_ms - tree_ms) / 1e3:.6f} s | {smi}")
+    resume_ms = cuda_ms(resume(hyb13_fn))
+    log(f"[time] resume from level {CKPT_KEEP - 1} (hyb13, {resumed} launches, damage included): "
+        f"{resume_ms / 1e3:.6f} s | {smi}")
     open_ms = cuda_ms(open_many)
     log(f"[time] merkle_open_batched {OPENINGS} of 2^20: {open_ms:.3f} ms = "
         f"{OPENINGS / open_ms * 1e3:,.0f} openings/s | {smi}")
@@ -568,7 +732,8 @@ def main() -> int:
                          (f"merkle_open_batched {OPENINGS}", open_many),
                          (f"merkle_verify_batched {OPENINGS} (hybp)", verify_many(hybp_fn)),
                          (f"merkle_verify_batched {OPENINGS} (hyb)", verify_many(hyb_fn)),
-                         (f"merkle_verify_batched {OPENINGS} (opt)", verify_many(None))):
+                         (f"merkle_verify_batched {OPENINGS} (opt)", verify_many(None)),
+                         ("merkle_root_checkpointed 2^20 (mxu)", checkpointed_build)):
             profile_path(f"{name} | {smi}", fn)
 
     kernels = [

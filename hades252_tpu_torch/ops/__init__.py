@@ -28,8 +28,9 @@ def make_perm_mont_fn(backend: str = "ref", *, schedule: str = DEFAULT_SCHEDULE)
 
     backend "ref": the torch oracle (dense schedule, any device).
     backend "cuda": the CUDA kernel of `schedule` (perm_cuda.SCHEDULES:
-    "naive", "opt", "mxu8", "hyb" or "hybp", the JAX package's default) for
-    a CUDA tensor; for a CPU tensor, that kernel's plain version.
+    "naive", "opt", "mxu8", "mxu", "hyb", "hybp", the JAX package's default,
+    "hyb13" or "hybp13") for a CUDA tensor; for a CPU tensor, that kernel's
+    plain version.
     """
     if backend == "ref":
         return permute_mont

@@ -109,13 +109,16 @@ def library() -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hades_perm_mxu8_launch.argtypes = [p, p, i64, i32, p, p, p]
-    lib.hades_perm_mxu8_launch.restype = ctypes.c_int
-    for name in ("hades_perm_hyb_launch", "hades_perm_hybp_launch"):
+    for name in ("hades_perm_mxu8_launch", "hades_perm_mxu_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, i64, i32, p, p, p]
+        fn.restype = ctypes.c_int
+    for name in ("hades_perm_hyb_launch", "hades_perm_hybp_launch",
+                 "hades_perm_hyb13_launch", "hades_perm_hybp13_launch"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, i64, i32, p, p, p, p, i64, p]
         fn.restype = ctypes.c_int
-    for name in ("hades_mxu8_dot_launch", "hades_hyb_dot_launch"):
+    for name in ("hades_mxu8_dot_launch", "hades_mxu_dot_launch", "hades_hyb_dot_launch"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, i32, i32, i64, p]
         fn.restype = ctypes.c_int

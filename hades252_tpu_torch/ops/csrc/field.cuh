@@ -1,5 +1,5 @@
 // Field arithmetic on one state per thread, and the planar state layout,
-// shared by the CUDA kernels (perm.cu, perm_mxu8.cu).
+// shared by the CUDA kernels (every .cu file of this directory).
 //
 // A field element is 8 little-endian limbs of 32 bits. The Montgomery
 // radix is R = 2^256, the same as the JAX package's 16 digits of 16 bits,

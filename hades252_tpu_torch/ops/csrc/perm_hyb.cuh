@@ -1,5 +1,6 @@
 // The `hyb` and `hybp` schedules' per-state code: mxu8's full rounds around
-// the full-expansion partial chain, for the kernels in perm_hyb.cu.
+// the full-expansion partial chain, for the kernels in perm_hyb.cu and
+// (with the base-2^13 S-box) perm_hyb13.cu.
 // Counterparts in hades252_tpu/ops/perm_pallas.py: _perm_kernel_hyb (:845),
 // _perm_kernel_hybp (:945), _redc_wide_big (:818); the schedule itself is
 // params.dot_schedule_int.
@@ -91,7 +92,7 @@ HADES_FN void round_dot(Dot& d, uint32_t t[kT], const uint8_t* chain, int r) {
 // before the REDC. The big dot's value waits across the S-box as its 17
 // limbs (recombining is linear, so the sum of the two values is the value
 // of the summed columns), not as 63 column sums.
-template <bool kPipelined, class Dot>
+template <bool kPipelined, bool kSbox13 = false, class Dot>
 HADES_FN void chain(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ one_mont,
                     const uint8_t* chain_w) {
   const uint8_t* w_new = chain_w + kSeg1Bytes + kSeg2Bytes;
@@ -132,7 +133,7 @@ HADES_FN void chain(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restri
       if (r > 0) d.basis_put(kWidth + r, x);  // s_{r-1} enters the basis
       if (r + 1 < kPartialRounds) round_dot(d, older, chain_w, r + 1);
     }
-    mxu8::sbox(d, u);  // s_r
+    mxu8::sbox<kSbox13>(d, u);  // s_r
     if (kPipelined) {
       copy(x, u);
     } else {
@@ -156,18 +157,20 @@ HADES_FN void chain(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restri
 }
 
 // The permutation: full rounds 0..3 as mxu8's, the chain, full rounds
-// 63..66. consts: kConstWords; chain_w: chain_bytes(kPipelined).
-template <bool kPipelined, class Dot>
+// 63..66. consts: kConstWords; chain_w: chain_bytes(kPipelined). kSbox13
+// (hyb13, hybp13) takes every S-box's raw products, in the full rounds and
+// the chain alike, in base-2^13 digits (mxu8::sbox).
+template <bool kPipelined, bool kSbox13 = false, class Dot>
 HADES_FN void perm(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ consts,
                    const uint8_t* chain_w, bool convert) {
   if (convert) mxu8::state_to_mont(s, consts);
 #pragma unroll 1
   for (int r = 0; r < kRounds; ++r) {
     if (r == kHalf) {
-      chain<kPipelined>(d, s, consts + mxu8::kConstWords, chain_w);
+      chain<kPipelined, kSbox13>(d, s, consts + mxu8::kConstWords, chain_w);
       r += kPartialRounds;
     }
-    mxu8::dense_round(d, s, consts, r, true);
+    mxu8::dense_round<kSbox13>(d, s, consts, r, true);
   }
   if (convert) mxu8::state_from_mont(s);
 }

@@ -55,67 +55,16 @@ hades_perm_mxu8(const int32_t* __restrict__ x, int32_t* __restrict__ out, long l
                 int convert, const uint32_t* __restrict__ consts,
                 const uint8_t* __restrict__ weights) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const uint4* src = reinterpret_cast<const uint4*>(weights);
-  for (int i = threadIdx.x; i < kWeightBytes / 16; i += mxu8::kThreads) {
-    reinterpret_cast<uint4*>(smem)[i] = src[i];
-  }
-  __syncthreads();
-  BlockDot d{smem, smem + kLinBytes, smem + kLinBytes + kPpBytes,
-             reinterpret_cast<uint32_t*>(smem + kWeightBytes),
-             reinterpret_cast<int32_t*>(smem + kWeightBytes + kXBytes)};
-  const long long b = (long long)blockIdx.x * mxu8::kThreads + threadIdx.x;
-  const bool live = b < n;
-  uint32_t s[kWidth][kLimbs];
-  if (live) {
-    load_state(s, x, b, n);
-  } else {
-#pragma unroll
-    for (int w = 0; w < kWidth; ++w) {
-#pragma unroll
-      for (int j = 0; j < kLimbs; ++j) s[w][j] = 0;
-    }
-  }
-  mxu8::perm(d, s, consts, convert != 0);
-  if (live) store_state(out, s, b, n);
+  dense_block<BlockDot>(x, out, n, convert, consts, weights, smem);
 }
 
-// The tile product alone, over any u8 (m, k) x (k, n): m a multiple of 16
-// up to 320, k a multiple of 32 up to 160. w is (m, k) row-major, xt the
-// right operand transposed, (n, k) row-major; out is (m, n) int32. Each
-// block takes 128 columns and runs block_dot over 64 rows at a time.
-template <int KS>
-__device__ void dot_tiles(const uint8_t* __restrict__ w, const uint8_t* __restrict__ xt,
-                          int32_t* __restrict__ out, int m, long long n, uint8_t* smem) {
-  constexpr int k = 32 * KS;
-  uint8_t* ws = smem;
-  uint8_t* xs = smem + kLinBytes;
-  int32_t* cs = reinterpret_cast<int32_t*>(smem + kLinBytes + kXBytes);
-  for (int i = threadIdx.x; i < m * k; i += mxu8::kThreads) ws[i] = w[i];
-  const long long col = (long long)blockIdx.x * mxu8::kThreads + threadIdx.x;
-  for (int i = 0; i < k; ++i) xs[threadIdx.x * (k + 16) + i] = col < n ? xt[col * k + i] : 0;
-  __syncthreads();
-  for (int m0 = 0; m0 < m; m0 += kBlockRows) {
-    const int rows = m - m0 < kBlockRows ? m - m0 : kBlockRows;
-    block_dot<KS>(ws + m0 * k, rows / 16, reinterpret_cast<const uint32_t*>(xs), cs);
-    __syncthreads();
-    if (col < n) {
-      for (int r = 0; r < rows; ++r) out[(m0 + r) * n + col] = cs[r * kCStride + threadIdx.x];
-    }
-    __syncthreads();
-  }
-}
-
+// The tile product alone (mma_tile.cuh: dot_tiles), so that the MMA's
+// fragment layout can be held against a matmul.
 __global__ void __launch_bounds__(mxu8::kThreads)
 hades_mxu8_dot(const uint8_t* __restrict__ w, const uint8_t* __restrict__ xt,
                int32_t* __restrict__ out, int m, int k, long long n) {
   extern __shared__ __align__(16) uint8_t smem[];
-  switch (k / 32) {
-    case 1: dot_tiles<1>(w, xt, out, m, n, smem); break;
-    case 2: dot_tiles<2>(w, xt, out, m, n, smem); break;
-    case 3: dot_tiles<3>(w, xt, out, m, n, smem); break;
-    case 4: dot_tiles<4>(w, xt, out, m, n, smem); break;
-    default: dot_tiles<5>(w, xt, out, m, n, smem); break;
-  }
+  dot_tiles_k<false>(w, xt, out, m, k, n, smem);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 // The `mxu8` schedule's per-state code: the dense 67-round permutation
-// with every constant product as a byte dot, for the kernel in
-// perm_mxu8.cu. Counterparts in hades252_tpu/ops/perm_pallas.py:
-// _perm_kernel_mxu_impl (:731), _MxuOps (:653), _redc_words_mxu (:580).
+// with every constant product as a byte dot, for the kernels in
+// perm_mxu8.cu and (the same schedule on another dot) perm_mxu.cu.
+// Counterparts in hades252_tpu/ops/perm_pallas.py: _perm_kernel_mxu_impl
+// (:731), _MxuOps (:653), _redc_words_mxu (:580).
 //
 // The code is written against a "dot" object that multiplies constant byte
 // weights by the byte rows of values, one column per state:
@@ -9,10 +10,11 @@
 //   d.run<M, K>(W)    M x K weights (row-major bytes) times the byte rows;
 //   d.col(i)          this state's column sum i of the last run (< 2^24);
 //   d.done()          the sums have been read and may be overwritten.
-// On the card (perm_mxu8.cu) the dot is a block-wide int8 tensor-core MMA
-// through shared memory. For the host, below, it is a plain loop over the
-// same weights, so the whole schedule compiles with a host C++ compiler and
-// can be checked against the int oracle without a card.
+// On the card the dot is a block-wide tensor-core MMA through shared
+// memory (mma_tile.cuh): 8-bit integer for mxu8, bf16 with f32 sums, which
+// col returns as integers, for mxu. For the host, below, it is a plain
+// loop over the same weights, so the whole schedule compiles with a host
+// C++ compiler and can be checked against the int oracle without a card.
 //
 // The byte rows of a word are its bytes in natural order: row k of a
 // 256-bit value is its byte k, so its 32 rows are its 8 limbs as stored.
@@ -141,16 +143,85 @@ HADES_FN void redc(Dot& d, uint32_t out[kLimbs], const uint32_t t[NT], bool norm
   if (NT <= 2 * kLimbs && normalize) cond_sub_p(out, out);
 }
 
+// The S-box's raw products in base-2^13 digits, for the hyb13 and hybp13
+// kernels (perm_pallas.py: _to13 :181, _mul13_cols :195, _sqr13_cols :208,
+// _cols13_to16 :225). A value below 2^256 is 20 digits of 13 bits; a raw
+// product of two digits is below 2^26, so a column of the schoolbook sums
+// up to 20 of them in 32 bits with no lo/hi split: below 20 * 2^26 < 2^31
+// for a product, and for a square (the off-diagonal sum doubled, plus the
+// diagonal) below 21 * 2^26 < 2^31.
+constexpr int kD13 = 20;
+constexpr uint32_t kMask13 = (1u << 13) - 1;
+
+// d <- the 20 thirteen-bit digits of a (8 limbs): bit windows, each over
+// at most two limbs. a may be un-normalised (< 2p < 2^256).
+HADES_FN void to13(uint32_t d[kD13], const uint32_t a[kLimbs]) {
+#pragma unroll
+  for (int k = 0; k < kD13; ++k) {
+    const int j = (13 * k) / 32, r = (13 * k) % 32;
+    uint32_t v = a[j] >> r;
+    if (r + 13 > 32 && j + 1 < kLimbs) v |= a[j + 1] << (32 - r);
+    d[k] = v & kMask13;
+  }
+}
+
+// t = a b exactly, 16 limbs, from 13-bit digits: 400 raw products (210 for
+// kSquare, whose caller passes a for b), a column at a time. Column k sits at bit
+// 13 k and goes straight into the limbs through a 64-bit accumulator, so
+// the 39 columns are never live together and there is no 16-bit column
+// stage. The accumulator holds the columns so far, shifted down by the
+// limbs already written: below 2^(31 + 13k mod 32 + 1) <= 2^63.
+template <bool kSquare>
+HADES_FN void mul13(uint32_t t[2 * kLimbs], const uint32_t a[kD13], const uint32_t b[kD13]) {
+  uint64_t acc = 0;
+#pragma unroll
+  for (int k = 0; k < 2 * kD13 - 1; ++k) {
+    uint32_t col = 0;
+#pragma unroll
+    for (int i = 0; i < kD13; ++i) {
+      const int j = k - i;
+      if (kSquare ? (i < j && j < kD13) : (j >= 0 && j < kD13)) col += a[i] * b[j];
+    }
+    if (kSquare) {
+      col += col;
+      if (k % 2 == 0) col += a[k / 2] * a[k / 2];
+    }
+    const int limb = (13 * k) / 32, prev = k ? (13 * (k - 1)) / 32 : 0;
+    if (limb != prev) {
+      t[prev] = (uint32_t)acc;
+      acc >>= 32;
+    }
+    acc += (uint64_t)col << ((13 * k) % 32);
+  }
+  t[2 * kLimbs - 1] = (uint32_t)acc;  // column 38 opens limb 15; a b < 2^512
+}
+
 // x <- x^5 = (x^2)^2 x: raw products on the CUDA cores, reductions on the
-// dot (_MxuOps.sbox_words). x < p in and out.
-template <class Dot>
+// dot (_MxuOps.sbox_words). x < p in and out. kSbox13 takes the raw
+// products in base-2^13 digits (sbox13=True, :687-700): the products'
+// values, and so every REDC bound, are the same. The digits of x are
+// worked out again for the last product, not kept across two REDCs.
+template <bool kSbox13 = false, class Dot>
 HADES_FN void sbox(Dot& d, uint32_t x[kLimbs]) {
   uint32_t t[2 * kLimbs], x2[kLimbs], x4[kLimbs];
-  mul_wide(t, x, x);
-  redc<2 * kLimbs>(d, x2, t, false);
-  mul_wide(t, x2, x2);
-  redc<2 * kLimbs>(d, x4, t, false);
-  mul_wide(t, x4, x);
+  if (kSbox13) {
+    uint32_t a[kD13], b[kD13];
+    to13(a, x);
+    mul13<true>(t, a, a);
+    redc<2 * kLimbs>(d, x2, t, false);
+    to13(a, x2);
+    mul13<true>(t, a, a);
+    redc<2 * kLimbs>(d, x4, t, false);
+    to13(a, x4);
+    to13(b, x);
+    mul13<false>(t, a, b);
+  } else {
+    mul_wide(t, x, x);
+    redc<2 * kLimbs>(d, x2, t, false);
+    mul_wide(t, x2, x2);
+    redc<2 * kLimbs>(d, x4, t, false);
+    mul_wide(t, x4, x);
+  }
   redc<2 * kLimbs>(d, x, t, true);
 }
 
@@ -188,7 +259,7 @@ HADES_FN void mds(Dot& d, uint32_t s[kWidth][kLimbs]) {
 // One dense round (_MxuOps.round_fn): ARK by add_mod, x^5 on every word of
 // a full round and on word 4 of a partial one, then the MDS dot. consts
 // opens with the Montgomery ARK (kRounds x kWidth x kLimbs).
-template <class Dot>
+template <bool kSbox13 = false, class Dot>
 HADES_FN void dense_round(Dot& d, uint32_t s[kWidth][kLimbs],
                           const uint32_t* __restrict__ consts, int r, bool full) {
 #pragma unroll
@@ -202,7 +273,7 @@ HADES_FN void dense_round(Dot& d, uint32_t s[kWidth][kLimbs],
   // the state is rotated by a word after each, five times over.
 #pragma unroll 1
   for (int i = 0; i < (full ? kWidth : 1); ++i) {
-    sbox(d, s[kWidth - 1]);
+    sbox<kSbox13>(d, s[kWidth - 1]);
     if (full) {
       uint32_t last[kLimbs];
       copy(last, s[kWidth - 1]);

@@ -1,16 +1,20 @@
 """The fused Hades252 permutation: CUDA kernels, their wrappers and their
 plain PyTorch versions.
 
-Port of the `naive`, `opt`, `mxu8`, `hyb` and `hybp` schedules of
-`hades252_tpu/ops/perm_pallas.py` (`permute_planar` :1270, `_batch_major`
-:1390). The kernels are `hades_perm_naive` (dense rounds, replacing
+Port of the eight schedules of `hades252_tpu/ops/perm_pallas.py`
+(`permute_planar` :1270, `_batch_major` :1390). The kernels are `hades_perm_naive` (dense rounds, replacing
 `_perm_kernel`) and `hades_perm_opt` (sparse-factored partial rounds,
 replacing `_perm_kernel_opt`) in `csrc/perm.cu`, `hades_perm_mxu8`
 (dense rounds with every constant product as an 8-bit integer tensor-core
 MMA, replacing `_perm_kernel_mxu8`) in `csrc/perm_mxu8.cu`, and
 `hades_perm_hyb` and `hades_perm_hybp` (mxu8's full rounds around the
 full-expansion partial chain, replacing `_perm_kernel_hyb` and
-`_perm_kernel_hybp`) in `csrc/perm_hyb.cu`.
+`_perm_kernel_hybp`) in `csrc/perm_hyb.cu`, `hades_perm_mxu` (mxu8's
+schedule with the constant products as bf16 tensor-core MMAs with float32
+sums, replacing `_perm_kernel_mxu`) in `csrc/perm_mxu.cu`, and
+`hades_perm_hyb13` and `hades_perm_hybp13` (hyb and hybp with every S-box
+product as a base-2^13 schoolbook, the JAX bodies' `sbox13=True`) in
+`csrc/perm_hyb13.cu`.
 
 A wrapper launches its kernel for a CUDA tensor and raises where it cannot;
 it takes the plain version only for a tensor on the CPU. The plain versions
@@ -53,7 +57,7 @@ from ..params import (
 )
 from . import _build, perm_ref
 
-SCHEDULES = ("naive", "opt", "mxu8", "hyb", "hybp")
+SCHEDULES = ("naive", "opt", "mxu8", "hyb", "hybp", "mxu", "hyb13", "hybp13")
 DEFAULT_SCHEDULE = "opt"
 
 #: Kernel launches per schedule. A wrapper adds one where it launches its
@@ -96,18 +100,28 @@ def hyb_kernel_tables(schedule: str) -> tuple[np.ndarray, np.ndarray, np.ndarray
     """The hyb or hybp kernel's tables as its launch takes them: mxu8's
     consts with R mod p appended (uint32 limbs), mxu8's weights (for the
     full rounds and every REDC), and the chain's weights as one flat uint8
-    array: segment 1, segment 2, for hybp w_new, then w_out."""
+    array: segment 1, segment 2, for hybp w_new, then w_out. hyb13 and
+    hybp13 take hyb's and hybp's unchanged (perm_pallas.py:1333-1342)."""
     consts, weights = mxu8_kernel_tables()
-    t = hybp_tables() if schedule == "hybp" else hyb_tables()
+    t = hybp_tables() if schedule.startswith("hybp") else hyb_tables()
     consts = np.concatenate([consts, digits_to_limbs(t["one_mont"])])
     chain = np.concatenate([v.reshape(-1) for v in t.values() if v.dtype == np.uint8])
     return consts, weights, chain
 
 
+#: The dense schedules whose constant products are tile products, and the
+#: schedules with the full-expansion chain (which need the scratch tensor).
+_DENSE_DOT = ("mxu8", "mxu")
+_CHAINED = ("hyb", "hybp", "hyb13", "hybp13")
+
+
 @functools.cache
 def _device_tables(schedule: str, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """The tables of a byte-dot kernel (mxu8, hyb, hybp) on the device."""
-    tables = mxu8_kernel_tables() if schedule == "mxu8" else hyb_kernel_tables(schedule)
+    """The tables of a dot kernel (every schedule but naive and opt) on the
+    device. mxu takes mxu8's (params.mxu_tables); hyb13 and hybp13 take
+    hyb's and hybp's."""
+    dense = schedule in _DENSE_DOT
+    tables = mxu8_kernel_tables() if dense else hyb_kernel_tables(schedule.removesuffix("13"))
     return tuple(torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).to(device)
                  for t in tables)
 
@@ -124,7 +138,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, *, convert: bool, schedule: str)
         stream = torch.cuda.current_stream().cuda_stream
         args = (x.data_ptr(), out.data_ptr(), x.shape[2], int(convert))
         fn = getattr(lib, f"hades_perm_{schedule}_launch")
-        if schedule in ("hyb", "hybp"):
+        if schedule in _CHAINED:
             tables = _device_tables(schedule, torch.device("cuda", dev))
             # every block writes the basis of all its states, live or not
             blocks = -(-x.shape[2] // _BLOCK_STATES)
@@ -132,7 +146,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, *, convert: bool, schedule: str)
                                   device=x.device)
             status = fn(*args, *(t.data_ptr() for t in tables), scratch.data_ptr(),
                         scratch.numel(), stream)
-        elif schedule == "mxu8":
+        elif schedule in _DENSE_DOT:
             tables = _device_tables(schedule, torch.device("cuda", dev))
             status = fn(*args, *(t.data_ptr() for t in tables), stream)
         else:
@@ -146,13 +160,11 @@ def _launch(x: torch.Tensor, out: torch.Tensor, *, convert: bool, schedule: str)
     launches[schedule] += 1
 
 
-def mxu8_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(M, K) @ (K, N) over uint8 operands with exact int32 sums: on a CUDA
-    tensor through the mxu8 kernel's own tensor-core tile product
-    (`hades_mxu8_dot`), which exists so that its MMA fragment layout can be
-    checked against a matmul; on the CPU in float64 (exact: sums < 2^53).
-    M <= 320 and K <= 160, the kernel's tile sizes; both are zero-padded to
-    the MMA's 16 rows and 32 bytes."""
+def _small_dot(w: torch.Tensor, x: torch.Tensor, entry: str) -> torch.Tensor:
+    """(M, K) @ (K, N) over uint8 operands through the tile product `entry`
+    of a dense dot kernel (M <= 320 and K <= 160, the kernel's tile sizes;
+    both are zero-padded to the MMA's 16 rows and 32 bytes); on the CPU in
+    float64 (exact: sums < 2^53)."""
     if w.dtype != torch.uint8 or x.dtype != torch.uint8 or w.dim() != 2 or x.dim() != 2:
         raise ValueError("expected two uint8 matrices")
     (m, k), n = w.shape, x.shape[1]
@@ -171,9 +183,28 @@ def mxu8_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     lib = _build.library()
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _check_status(lib, lib.hades_mxu8_dot_launch(wp.data_ptr(), xt.data_ptr(), out.data_ptr(),
-                                                     mp, kp, n, stream), "hades_mxu8_dot")
+        _check_status(lib, getattr(lib, f"{entry}_launch")(wp.data_ptr(), xt.data_ptr(),
+                                                          out.data_ptr(), mp, kp, n, stream), entry)
     return out[:m]
+
+
+def mxu8_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) over uint8 operands with exact int32 sums: on a CUDA
+    tensor through the mxu8 kernel's own tensor-core tile product
+    (`hades_mxu8_dot`), which exists so that its MMA fragment layout can be
+    checked against a matmul; on the CPU in float64 (exact: sums < 2^53).
+    M <= 320 and K <= 160, the kernel's tile sizes; both are zero-padded to
+    the MMA's 16 rows and 32 bytes."""
+    return _small_dot(w, x, "hades_mxu8_dot")
+
+
+def mxu_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """As `mxu8_dot`, through the mxu kernel's tile product
+    (`hades_mxu_dot`): the bytes widened to bf16, bf16 x bf16 MMAs with
+    float32 sums, returned as int32. Exact while every sum is below 2^24,
+    which K <= 160 guarantees (160 * 255^2 = 10,404,000); the card's checks
+    hold it against a float64 matmul, all-255 operands included."""
+    return _small_dot(w, x, "hades_mxu_dot")
 
 
 def hyb_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -317,9 +348,12 @@ def _permute_opt_mont(s: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _mxu8_plain_tables(device: torch.device) -> dict[str, torch.Tensor]:
+def _mxu8_plain_tables(device: torch.device, f32: bool = False) -> dict[str, torch.Tensor]:
+    """The dense dot schedules' plain tables. The weights' dtype chooses the
+    dot's arithmetic (`_dot_bytes`): float64 for mxu8, float32 (f32) for mxu."""
     w = mxu_weights_np()
-    out = {k: torch.from_numpy(w[k].astype(np.float64)).to(device) for k in w}
+    dtype = np.float32 if f32 else np.float64
+    out = {k: torch.from_numpy(w[k].astype(dtype)).to(device) for k in w}
     p17 = int_to_digits(P, N_DIGITS + 1).astype(np.int64)
     out["p17"] = torch.from_numpy(p17).to(device)
     out["twop17"] = torch.from_numpy(int_to_digits(2 * P, N_DIGITS + 1).astype(np.int64)).to(device)
@@ -335,9 +369,19 @@ def _byte_rows(x16: torch.Tensor) -> torch.Tensor:
 
 
 def _dot_bytes(w: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
-    """(M, K) byte weights (float64) times (..., K) byte rows -> (..., M)
-    int64 column sums; the counterpart of `_dot_u32_i8` (perm_pallas.py:524)."""
-    return torch.matmul(xb.to(torch.float64), w.t()).to(torch.int64)
+    """(M, K) byte weights times (..., K) byte rows -> (..., M) int64 column
+    sums. float64 weights: the counterpart of `_dot_u32_i8`
+    (perm_pallas.py:524), exact integer sums. float32 weights: the
+    counterpart of `_dot_u32` (:493), the mxu kernel's arithmetic, byte
+    operands (exact in bf16) with float32 sums, exact while every sum is
+    below 2^24, which is asserted as the JAX body asserts it (:500)."""
+    if w.dtype != torch.float32:
+        return torch.matmul(xb.to(torch.float64), w.t()).to(torch.int64)
+    if xb.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the float32 dot needs full float32 sums: TF32 matmuls are on")
+    acc = torch.matmul(xb.to(torch.float32), w.t())
+    assert float(acc.max()) < float(1 << 24), "f32 matmul exactness bound"
+    return acc.to(torch.int64)
 
 
 def _recombine16(cols: torch.Tensor, n16: int) -> torch.Tensor:
@@ -373,13 +417,15 @@ def _cond_sub(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return torch.where((borrow == 0)[..., None], diff[..., :n].to(torch.int64), a)
 
 
-def _redc_words(t: torch.Tensor, *, wide: bool, normalize: bool = True) -> torch.Tensor:
+def _redc_words(t: torch.Tensor, *, wide: bool, normalize: bool = True,
+                f32: bool = False) -> torch.Tensor:
     """Montgomery REDC of un-carried columns t, both constant products as
     byte dots (`_redc_words_mxu`, perm_pallas.py:580): (..., 33) columns of
     T < 5p^2 when wide, else (..., 32) of T < 2.2p^2. Returns (..., 16)
     int64 digits: < p, or < 2p where normalize is False (the S-box's x^2
-    and x^4, valid under the bounds stated at perm_pallas.py:594-599)."""
-    c = _mxu8_plain_tables(t.device)
+    and x^4, valid under the bounds stated at perm_pallas.py:594-599).
+    f32 takes the dots in float32, as the mxu kernel does."""
+    c = _mxu8_plain_tables(t.device, f32)
     tcat = _carry_lo(t.to(torch.int64))
     m = _carry(_recombine16(_dot_bytes(c["w_pp"], _byte_rows(tcat[..., :N_DIGITS])), N_DIGITS))
     mp = _recombine16(_dot_bytes(c["w_p"], _byte_rows(m)), 2 * N_DIGITS)
@@ -390,41 +436,130 @@ def _redc_words(t: torch.Tensor, *, wide: bool, normalize: bool = True) -> torch
     return field.cond_sub_p(out).to(torch.int64) if normalize else out
 
 
-def _sbox_words(x: torch.Tensor) -> torch.Tensor:
+# The base-2^13 S-box schoolbook of hyb13 and hybp13, after `_to13` :181,
+# `_mul13_cols` :195, `_sqr13_cols` :208 and `_cols13_to16` :225 of
+# perm_pallas.py, on (..., digits) int64 tensors. Every value stays below
+# 2^32, so int64 repeats the JAX bodies' uint32 arithmetic.
+
+_D13 = 20                       # ceil(256 / 13) thirteen-bit digits
+_M13 = (1 << 13) - 1
+
+
+def _to13(a16: torch.Tensor) -> torch.Tensor:
+    """(..., 16) normalized 16-bit digits -> (..., 20) 13-bit digits: bit
+    windows, each over at most two source digits."""
+    a16 = a16.to(torch.int64)
+    out = []
+    for k in range(_D13):
+        j, r = divmod(13 * k, 16)
+        lo = a16[..., j] >> r
+        if r + 13 > 16 and j + 1 < N_DIGITS:
+            lo = lo | (a16[..., j + 1] << (16 - r))
+        out.append(lo & _M13)
+    return torch.stack(out, dim=-1)
+
+
+def _mul13_cols(a13: torch.Tensor, b13: torch.Tensor) -> torch.Tensor:
+    """Un-carried base-2^13 schoolbook columns, (..., 39): 400 products
+    below 2^26, at most 20 a column, summed with no lo/hi split."""
+    shape = torch.broadcast_shapes(a13.shape[:-1], b13.shape[:-1])
+    acc = torch.zeros((*shape, 2 * _D13 - 1), dtype=torch.int64, device=a13.device)
+    for i in range(_D13):
+        acc[..., i : i + _D13] += a13[..., i : i + 1] * b13
+    assert int(acc.max()) < (1 << 31), "base-13 column overflow"
+    return acc
+
+
+def _sqr13_cols(a13: torch.Tensor) -> torch.Tensor:
+    """The symmetric base-2^13 square: the diagonal once, the off-diagonal
+    products doubled; 210 products in place of 400."""
+    acc = torch.zeros((*a13.shape[:-1], 2 * _D13 - 1), dtype=torch.int64, device=a13.device)
+    for i in range(_D13):
+        acc[..., 2 * i] += a13[..., i] * a13[..., i]
+        if i + 1 < _D13:
+            prod = a13[..., i : i + 1] * a13[..., i + 1 :]
+            acc[..., 2 * i + 1 : i + _D13] += prod + prod
+    assert int(acc.max()) < (1 << 31), "base-13 square overflow"
+    return acc
+
+
+def _cols13_to16(cols13: torch.Tensor, n_out: int = 2 * N_DIGITS) -> torch.Tensor:
+    """Base-2^13 column sums (below 2^31, column k at bit 13 k) -> n_out
+    base-2^16 column sums of the same value, carry-free: each source column
+    windows into at most three output columns, and at most four sources
+    meet in one, so the sums stay below 2^18."""
+    acc = torch.zeros((*cols13.shape[:-1], n_out), dtype=torch.int64, device=cols13.device)
+    for k in range(2 * _D13 - 1):
+        v = cols13[..., k]
+        j, r = divmod(13 * k, 16)
+        if r == 0:
+            parts = (v & 0xFFFF, v >> 16)
+        else:
+            parts = ((v & ((1 << (16 - r)) - 1)) << r, (v >> (16 - r)) & 0xFFFF)
+            if r > 1:
+                parts += (v >> (32 - r),)
+        for i, part in enumerate(parts):
+            if j + i < n_out:
+                acc[..., j + i] += part
+    assert int(acc.max()) < (1 << 18), "base-13 repack overflow"
+    return acc
+
+
+def _sbox_words(x: torch.Tensor, *, sbox13: bool = False, f32: bool = False) -> torch.Tensor:
     """x^5 = (x^2)^2 x with the raw products as schoolbook columns and
     every REDC through the dots; x^2 and x^4 stay below 2p
-    (`_MxuOps.sbox_words`, perm_pallas.py:678)."""
-    x2 = _redc_words(field._columns(x, x, 2 * N_DIGITS), wide=False, normalize=False)
-    x4 = _redc_words(field._columns(x2, x2, 2 * N_DIGITS), wide=False, normalize=False)
-    return _redc_words(field._columns(x4, x, 2 * N_DIGITS), wide=False)
+    (`_MxuOps.sbox_words`, perm_pallas.py:678). sbox13 takes the raw
+    products in base-2^13 digits (:687-700): the values, and so every REDC
+    bound, are the same; only the columns' representation changes."""
+    def redc(t, normalize=True):
+        return _redc_words(t, wide=False, normalize=normalize, f32=f32)
+
+    if sbox13:
+        x13 = _to13(x)
+        x2 = redc(_cols13_to16(_sqr13_cols(x13)), normalize=False)
+        x4 = redc(_cols13_to16(_sqr13_cols(_to13(x2))), normalize=False)
+        return redc(_cols13_to16(_mul13_cols(_to13(x4), x13)))
+    x2 = redc(field._columns(x, x, 2 * N_DIGITS), normalize=False)
+    x4 = redc(field._columns(x2, x2, 2 * N_DIGITS), normalize=False)
+    return redc(field._columns(x4, x, 2 * N_DIGITS))
 
 
-def _mds_mxu(s: torch.Tensor) -> torch.Tensor:
+def _mds_mxu(s: torch.Tensor, f32: bool = False) -> torch.Tensor:
     """The MDS layer as one byte dot with w_lin, then one wide REDC per
     word (`_MxuOps.mds_mxu`, perm_pallas.py:707)."""
-    c = _mxu8_plain_tables(s.device)
+    c = _mxu8_plain_tables(s.device, f32)
     by = _byte_rows(s).flatten(-2)                       # (B, 5 * 32)
     cols = _dot_bytes(c["w_lin"], by).unflatten(-1, (WIDTH, 63))
-    return _redc_words(F.pad(_recombine16(cols, 2 * N_DIGITS), (0, 1)), wide=True)
+    return _redc_words(F.pad(_recombine16(cols, 2 * N_DIGITS), (0, 1)), wide=True, f32=f32)
 
 
-def _mxu_round(s: torch.Tensor, ark_r: torch.Tensor, *, full: bool) -> torch.Tensor:
-    """One dense round of the byte-dot schedules (`_MxuOps.round_fn`,
+def _mxu_round(s: torch.Tensor, ark_r: torch.Tensor, *, full: bool, sbox13: bool = False,
+               f32: bool = False) -> torch.Tensor:
+    """One dense round of the dot schedules (`_MxuOps.round_fn`,
     perm_pallas.py:720): ARK (add_mod), x^5 on every word of a full round
     and on word 4 of a partial one, then the MDS dot."""
     s = field.add_mod(s, ark_r).to(torch.int64)
-    s = _sbox_words(s) if full else torch.cat([s[:, :-1], _sbox_words(s[:, -1:])], dim=1)
-    return _mds_mxu(s)
+    sbox = functools.partial(_sbox_words, sbox13=sbox13, f32=f32)
+    s = sbox(s) if full else torch.cat([s[:, :-1], sbox(s[:, -1:])], dim=1)
+    return _mds_mxu(s, f32)
 
 
-def _permute_mxu8_mont(s: torch.Tensor) -> torch.Tensor:
+def _permute_mxu8_mont(s: torch.Tensor, *, f32: bool = False) -> torch.Tensor:
     """The mxu8 schedule on (B, WIDTH, N_DIGITS) Montgomery state: 67
     dense rounds of ARK (add_mod), x^5 and the MDS dot."""
     ark = _mxu8_plain_tables(s.device)["ark"]
     half = TOTAL_FULL_ROUNDS // 2
     for r in range(ROUNDS):
-        s = _mxu_round(s, ark[r], full=not half <= r < half + PARTIAL_ROUNDS)
+        s = _mxu_round(s, ark[r], full=not half <= r < half + PARTIAL_ROUNDS, f32=f32)
     return s.to(torch.int32)
+
+
+def _permute_mxu_mont(s: torch.Tensor) -> torch.Tensor:
+    """The mxu schedule: mxu8's, with every dot as a float32 matmul of byte
+    operands under the asserted bound of 2^24 (`_perm_kernel_mxu`,
+    perm_pallas.py:629), so that the plain version repeats the mxu kernel's
+    arithmetic and not mxu8's."""
+    return _permute_mxu8_mont(s, f32=True)
 
 
 # -- hyb, hybp: mxu8's full rounds around the full-expansion partial chain ----
@@ -469,14 +604,16 @@ def _redc_wide_big(t33: torch.Tensor, pmul17: torch.Tensor, n_subs: int = 5) -> 
     return hi[..., :N_DIGITS]
 
 
-def _permute_chain_mont(s: torch.Tensor, *, pipelined: bool) -> torch.Tensor:
+def _permute_chain_mont(s: torch.Tensor, *, pipelined: bool,
+                        sbox13: bool = False) -> torch.Tensor:
     """The hyb (pipelined=False) or hybp schedule on (B, WIDTH, N_DIGITS)
-    Montgomery state."""
+    Montgomery state; with sbox13 every S-box, in the full rounds and the
+    chain alike, takes its raw products in base-2^13 digits (hyb13, hybp13)."""
     ark = _mxu8_plain_tables(s.device)["ark"]
     c = _chain_plain_tables(s.device, pipelined)
     half = TOTAL_FULL_ROUNDS // 2
     for r in range(half):
-        s = _mxu_round(s, ark[r], full=True)
+        s = _mxu_round(s, ark[r], full=True, sbox13=sbox13)
 
     # the basis buffer: [1_mont, x_0..x_4], then s_0..s_58 as they appear
     y = torch.zeros((s.shape[0], 32 * HYB_N_BASIS), dtype=torch.int64, device=s.device)
@@ -499,14 +636,14 @@ def _permute_chain_mont(s: torch.Tensor, *, pipelined: bool) -> torch.Tensor:
         for r in range(PARTIAL_ROUNDS):
             w = c["w_seg1"][r] if r < first else c["w_seg2"][r - first]
             t = reduce_t(dot(w), 4 if r < first else 5)
-            put_elem(1 + WIDTH + r, _sbox_words(t))
+            put_elem(1 + WIDTH + r, _sbox_words(t, sbox13=sbox13))
     else:
         def older(r):  # round r's big dot, without its newest element
             return dot(c["wo_seg1"][r] if r < first else c["wo_seg2"][r - first])
 
         # round 0: every input is in the basis; round 1's big dot goes with it
         cols0, d_old = older(0), older(1)
-        s_prev = _sbox_words(reduce_t(cols0, 2))                    # s_0 (k = 6)
+        s_prev = _sbox_words(reduce_t(cols0, 2), sbox13=sbox13)     # s_0 (k = 6)
         # rounds 1..58; at 26 the next dot takes segment 2's width, at 58
         # there is none
         for i in range(1, PARTIAL_ROUNDS):
@@ -516,14 +653,14 @@ def _permute_chain_mont(s: torch.Tensor, *, pipelined: bool) -> torch.Tensor:
             y[:, 32 * (WIDTH + i) : 32 * (WIDTH + i + 1)] = sb      # s_{i-1} enters the basis
             if i < last:
                 d_old = older(i + 1)
-            s_prev = _sbox_words(t)
+            s_prev = _sbox_words(t, sbox13=sbox13)
         put_elem(HYB_N_BASIS - 1, s_prev)                           # s_58
 
     # the chain's exit: all 5 words in one dot, one big REDC each
     cols = dot(c["w_out"]).unflatten(-1, (WIDTH, 63))
     s = reduce_t(cols, 5)
     for r in range(half + PARTIAL_ROUNDS, ROUNDS):
-        s = _mxu_round(s, ark[r], full=True)
+        s = _mxu_round(s, ark[r], full=True, sbox13=sbox13)
     return s.to(torch.int32)
 
 
@@ -542,7 +679,10 @@ def _permute_hybp_mont(s: torch.Tensor) -> torch.Tensor:
 
 
 _PLAIN = {"naive": perm_ref.permute_mont, "opt": _permute_opt_mont,
-          "mxu8": _permute_mxu8_mont, "hyb": _permute_hyb_mont, "hybp": _permute_hybp_mont}
+          "mxu8": _permute_mxu8_mont, "hyb": _permute_hyb_mont, "hybp": _permute_hybp_mont,
+          "mxu": _permute_mxu_mont,
+          "hyb13": functools.partial(_permute_chain_mont, pipelined=False, sbox13=True),
+          "hybp13": functools.partial(_permute_chain_mont, pipelined=True, sbox13=True)}
 
 
 def permute_planar_plain(x: torch.Tensor, *, convert: bool = True,
@@ -551,8 +691,10 @@ def permute_planar_plain(x: torch.Tensor, *, convert: bool = True,
     planar (WIDTH, N_DIGITS, B) layout, same `convert`, same outputs.
     `naive` runs the dense rounds of ops/perm_ref.py; `opt` the sparse
     schedule from the port's opt tables; `mxu8` the dense rounds with byte
-    dots; `hyb` and `hybp` mxu8's full rounds around the full-expansion
-    chain of byte dots over the basis."""
+    dots, and `mxu` the same with the dots in float32; `hyb` and `hybp`
+    mxu8's full rounds around the full-expansion chain of byte dots over
+    the basis, and `hyb13` and `hybp13` the same with the S-box products in
+    base-2^13 digits."""
     _check_schedule(schedule)
     if x.dim() != 3 or tuple(x.shape[:2]) != (WIDTH, N_DIGITS):
         raise ValueError(f"expected ({WIDTH}, {N_DIGITS}, B), got {tuple(x.shape)}")

@@ -472,6 +472,38 @@ def from_jax_mxu8_tables(consts) -> dict[str, np.ndarray]:
             **_kernel_weights(*unsigned)}
 
 
+def mxu_tables() -> dict[str, np.ndarray]:
+    """The CUDA mxu kernel's tables (`ops/csrc/perm_mxu.cu`): the keys,
+    shapes and bytes of `mxu8_tables()`. The kernel keeps the weights and
+    the byte rows as bytes in shared memory and widens them to bf16 in
+    registers when it loads an MMA fragment (0..255 are exact in bf16), so
+    it takes mxu8's layout unchanged: uint8, K in natural byte order, every
+    63-row block padded to 64."""
+    return mxu8_tables()
+
+
+def from_jax_mxu_tables(consts) -> dict[str, np.ndarray]:
+    """Carry the JAX package's mxu constants across: `consts` is the tuple
+    of `hades252_tpu/ops/perm_pallas.py:_const_arrays_mxu(as_bf16=False)`,
+    (ark_mont, fc, w_lin, w_pp, w_p with the weights as float32 arrays of
+    bytes). Checks fc's modulus, that every weight is a byte, and that the
+    result equals the port's own `mxu_tables()`, which it returns."""
+    if len(consts) != 5:
+        raise ValueError(f"expected 5 arrays, got {len(consts)}")
+    ark, fc, *weights = consts
+    fc = np.asarray(fc)
+    if not np.array_equal(fc[0], int_to_digits(P)):
+        raise ValueError("fc[0] is not the modulus p")
+    carried = {"ark_mont": np.asarray(ark, np.uint32), "r2": fc[2].astype(np.uint32),
+               **_kernel_weights(*(_as_bytes(w, k)
+                                   for w, k in zip(weights, ("w_lin", "w_pp", "w_p"))))}
+    own = mxu_tables()
+    for key, want in own.items():
+        if carried[key].shape != want.shape or not np.array_equal(carried[key], want):
+            raise ValueError(f"{key} differs from the port's own table")
+    return carried
+
+
 # ---------------------------------------------------------------------------
 # The hyb and hybp schedules' weights (hades252_tpu/params.py:405-522)
 #

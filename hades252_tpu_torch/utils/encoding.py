@@ -1,9 +1,11 @@
-"""Host-side encodings between Python ints and digit arrays.
+"""Host-side encodings between Python ints, 32-byte little-endian scalars
+and digit arrays.
 
-Port of `hades252_tpu/utils/encoding.py:29-81`: the canonical 32-byte
-little-endian scalar format, as numpy uint32 digit arrays of shape
-(..., N_DIGITS), exactly the JAX package's. Callers hand them to torch with
-`torch.from_numpy(a.astype(np.int32))`.
+Port of `hades252_tpu/utils/encoding.py`: the canonical 32-byte
+little-endian scalar format (the reference's `BlsScalar::to_bytes`), as
+numpy uint32 digit arrays of shape (..., N_DIGITS), exactly the JAX
+package's, and byte strings identical to its on every valid input. Callers
+hand digit arrays to torch with `torch.from_numpy(a.astype(np.int32))`.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from itertools import chain
 
 import numpy as np
 
-from ..params import N_DIGITS, P, digits_to_int
+from ..params import DIGIT_MASK, N_DIGITS, P, digits_to_int
 
 
 def _flatten_values(values) -> list:
@@ -84,3 +86,58 @@ def check_canonical_digits(flat: np.ndarray, msg: str) -> None:
         eq &= sub[:, i] == _P_DIGITS[i]
     if bool((ge | eq).any()):
         raise ValueError(msg)
+
+
+def u64_from_buffer(data: bytes, i: int) -> int:
+    """The little-endian u64 at byte offset i (the reference's asset-decode
+    helper)."""
+    return int.from_bytes(data[i : i + 8], "little")
+
+
+def scalar_to_bytes(x: int) -> bytes:
+    """The canonical 32-byte little-endian encoding of a field element."""
+    if not 0 <= x < P:
+        raise ValueError("not a canonical field element")
+    return int(x).to_bytes(32, "little")
+
+
+def scalar_from_bytes(b: bytes) -> int:
+    """Decode a canonical 32-byte little-endian scalar; a value >= p is
+    rejected, as `BlsScalar::from_bytes` returns None for it."""
+    if len(b) != 32:
+        raise ValueError("expected 32 bytes")
+    x = int.from_bytes(b, "little")
+    if x >= P:
+        raise ValueError("non-canonical scalar encoding")
+    return x
+
+
+def digits_to_bytes(digits) -> bytes:
+    """(..., N_DIGITS) digits (numpy array or CPU tensor, any integer type)
+    -> their concatenated 32-byte little-endian scalars.
+
+    The little-endian uint16 buffer of normalized digits is the canonical
+    encoding itself, so one cast serializes the whole array. A digit
+    outside [0, 2^16) raises ValueError: the port's digits are int32, which
+    can hold a negative one, and a cast would wrap it into a valid-looking
+    byte pair. So does a value >= p."""
+    digits = np.asarray(digits)
+    if digits.size == 0:
+        return b""
+    if bool((digits < 0).any()) or bool((digits > DIGIT_MASK).any()):
+        raise ValueError("digit outside [0, 2^16)")
+    if digits.shape[-1] != N_DIGITS:  # another width: through Python ints
+        return b"".join(scalar_to_bytes(v) for v in digits_to_ints(digits).reshape(-1))
+    flat = digits.reshape(-1, N_DIGITS)
+    check_canonical_digits(flat, "not a canonical field element: value >= p")
+    return np.ascontiguousarray(flat).astype("<u2").tobytes()
+
+
+def bytes_to_digits(data: bytes, shape) -> np.ndarray:
+    """Concatenated 32-byte little-endian scalars -> (*shape, N_DIGITS)
+    uint32 digits; a value >= p is rejected, as by `scalar_from_bytes`."""
+    n = len(data) // 32
+    out = np.frombuffer(bytes(data[: n * 32]), dtype="<u2").astype(np.uint32)
+    out = out.reshape(n, N_DIGITS)
+    check_canonical_digits(out, "non-canonical scalar encoding")
+    return out.reshape(tuple(shape) + (N_DIGITS,))

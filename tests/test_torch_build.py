@@ -19,10 +19,14 @@ from hades252_tpu_torch.utils.encoding import digits_to_ints
 torch.set_num_threads(1)
 
 # Runs the per-state permutation over states given as 32-bit limbs:
-# harness TABLES STATES SCHEDULE(0 naive, 1 opt, 2 mxu8, 3 hyb, 4 hybp) CONVERT
-# CONSTS WEIGHTS [CHAIN] -> limbs on stdout. mxu8 runs perm_mxu8.cuh and hyb,
-# hybp run perm_hyb.cuh with their host dots, plain loops over the kernels'
-# byte weights in the MMA's place.
+# harness TABLES STATES SCHEDULE(the index in perm_cuda.SCHEDULES: 0 naive, 1 opt,
+# 2 mxu8, 3 hyb, 4 hybp, 5 mxu, 6 hyb13, 7 hybp13) CONVERT CONSTS WEIGHTS [CHAIN]
+# -> limbs on stdout. mxu8 and mxu run perm_mxu8.cuh and the chained schedules
+# perm_hyb.cuh with their host dots, plain loops over the kernels' byte weights in
+# the MMA's place (so mxu, whose kernel differs from mxu8's only in the MMA, runs
+# mxu8's host code); hyb13 and hybp13 take the base-2^13 S-box.
+# HARNESS13 runs the base-2^13 products alone: to13 and mul13 over pairs of
+# 8-limb values -> the 20 digits of the first, its square and the product.
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
@@ -49,10 +53,12 @@ int main(int argc, char** argv) {
   std::vector<uint32_t> consts = read_words(argv[5]);
   std::vector<uint8_t> weights = read_file<uint8_t>(argv[6]);
   std::vector<uint8_t> chain;
-  if (schedule >= 3) chain = read_file<uint8_t>(argv[7]);
-  if ((int)consts.size() != (schedule >= 3 ? hyb::kConstWords : mxu8::kConstWords) ||
+  const bool chained = schedule == 3 || schedule == 4 || schedule >= 6;
+  const bool pipelined = schedule == 4 || schedule == 7;
+  if (chained) chain = read_file<uint8_t>(argv[7]);
+  if ((int)consts.size() != (chained ? hyb::kConstWords : mxu8::kConstWords) ||
       (int)weights.size() != mxu8::kWeightBytes ||
-      (schedule >= 3 && (int)chain.size() != hyb::chain_bytes(schedule == 4)))
+      (chained && (int)chain.size() != hyb::chain_bytes(pipelined)))
     return 4;
   hyb::HostDot dot{{weights.data(), weights.data() + mxu8::kLinBytes,
                     weights.data() + mxu8::kLinBytes + mxu8::kPpBytes, {}, {}}, {}};
@@ -65,9 +71,11 @@ int main(int argc, char** argv) {
   for (size_t b = 0; b * 40 < states.size(); ++b) {
     uint32_t s[kWidth][kLimbs];
     memcpy(s, &states[b * 40], sizeof(s));
-    if (schedule == 4) hyb::perm<true>(dot, s, consts.data(), chain.data(), convert != 0);
+    if (schedule == 7) hyb::perm<true, true>(dot, s, consts.data(), chain.data(), convert != 0);
+    else if (schedule == 6) hyb::perm<false, true>(dot, s, consts.data(), chain.data(), convert != 0);
+    else if (schedule == 4) hyb::perm<true>(dot, s, consts.data(), chain.data(), convert != 0);
     else if (schedule == 3) hyb::perm<false>(dot, s, consts.data(), chain.data(), convert != 0);
-    else if (schedule == 2) mxu8::perm(dot, s, consts.data(), convert != 0);
+    else if (schedule == 2 || schedule == 5) mxu8::perm(dot, s, consts.data(), convert != 0);
     else if (schedule == 1) perm_opt(s, convert != 0);
     else perm_naive(s, convert != 0);
     memcpy(&states[b * 40], s, sizeof(s));
@@ -78,11 +86,66 @@ int main(int argc, char** argv) {
 """
 
 
-@pytest.fixture(scope="module")
-def harness(tmp_path_factory):
+HARNESS13 = r"""
+#include <cstdio>
+#include <vector>
+#include "perm_mxu8.cuh"
+using namespace hades;
+int main(int argc, char** argv) {
+  FILE* f = fopen(argv[1], "rb");
+  std::vector<uint32_t> v;
+  uint32_t w;
+  while (fread(&w, 4, 1, f) == 1) v.push_back(w);
+  fclose(f);
+  for (size_t i = 0; i + 16 <= v.size(); i += 16) {
+    uint32_t a[mxu8::kD13], b[mxu8::kD13], sq[16], pr[16];
+    mxu8::to13(a, &v[i]);
+    mxu8::to13(b, &v[i + 8]);
+    mxu8::mul13<true>(sq, a, a);
+    mxu8::mul13<false>(pr, a, b);
+    fwrite(a, 4, mxu8::kD13, stdout);
+    fwrite(sq, 4, 16, stdout);
+    fwrite(pr, 4, 16, stdout);
+  }
+  return 0;
+}
+"""
+
+
+def _cxx():
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
+    return cxx
+
+
+def test_base13_products_on_host_are_exact(tmp_path):
+    """to13 and mul13 (the S-box body of hyb13 and hybp13) compiled for the
+    host, on canonical values, on un-normalised ones just below 2p, which
+    the S-box's x^2 and x^4 may be, and on the limits of 256 bits."""
+    from hades252_tpu_torch.params import P
+
+    (tmp_path / "h.cpp").write_text(HARNESS13)
+    subprocess.run([_cxx(), "-O1", "-std=c++17", "-w", f"-I{_build.CSRC}", "-o",
+                    str(tmp_path / "h"), str(tmp_path / "h.cpp")], check=True, timeout=300)
+    rng = np.random.default_rng(9)
+    vals = [0, 1, P - 1, P, 2 * P - 1, 2 * P - 2, (1 << 256) - 1, (1 << 255) + 1]
+    vals += [int.from_bytes(rng.bytes(32), "little") % (2 * P) for _ in range(24)]
+    pairs = list(zip(vals, reversed(vals)))
+    limbs = [[(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for pair in pairs for x in pair]
+    np.asarray(limbs, "<u4").tofile(tmp_path / "in.bin")
+    out = subprocess.run([str(tmp_path / "h"), str(tmp_path / "in.bin")], capture_output=True,
+                         check=True, timeout=60).stdout
+    rows = np.frombuffer(out, "<u4").reshape(len(pairs), 20 + 16 + 16)
+    for (x, y), row in zip(pairs, rows):
+        assert [int(d) for d in row[:20]] == [(x >> (13 * k)) & 0x1FFF for k in range(20)]
+        assert sum(int(v) << (32 * i) for i, v in enumerate(row[20:36])) == x * x
+        assert sum(int(v) << (32 * i) for i, v in enumerate(row[36:])) == x * y
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    cxx = _cxx()
     d = tmp_path_factory.mktemp("harness")
     (d / "harness.cpp").write_text(HARNESS)
     subprocess.run([cxx, "-O1", "-std=c++17", "-w", f"-I{_build.CSRC}", "-o",
@@ -98,18 +161,19 @@ def harness(tmp_path_factory):
     return d
 
 
-@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8", "hyb", "hybp"])
+@pytest.mark.parametrize("schedule", perm_cuda.SCHEDULES)
 @pytest.mark.parametrize("convert", [True, False])
 def test_kernel_math_on_host_matches_int_oracle(harness, schedule, convert):
     inputs, expected, inputs_m, expected_m = selftest._vectors()
     x, want = (inputs, expected) if convert else (inputs_m, expected_m)
     digits_to_limbs(x).astype("<u4").tofile(harness / "states.bin")
-    chained = schedule in ("hyb", "hybp")
+    chained = schedule in perm_cuda._CHAINED
+    tables = schedule.removesuffix("13")
     out = subprocess.run(
         [str(harness / "harness"), str(harness / "tables.bin"), str(harness / "states.bin"),
          str(perm_cuda.SCHEDULES.index(schedule)), str(int(convert)),
-         str(harness / (f"{schedule}_consts.bin" if chained else "mxu8_consts.bin")),
-         str(harness / "mxu8_weights.bin"), str(harness / f"{schedule}_chain.bin")],
+         str(harness / (f"{tables}_consts.bin" if chained else "mxu8_consts.bin")),
+         str(harness / "mxu8_weights.bin"), str(harness / f"{tables}_chain.bin")],
         capture_output=True, check=True, timeout=300,
     ).stdout
     got = np.frombuffer(out, "<u4").reshape(-1, 5, 8)
@@ -121,7 +185,8 @@ def test_source_hash_covers_every_source():
     assert len(h) == 16 and h == _build.source_hash()
     names = sorted(p.name for p in _build.CSRC.glob("*.cu*"))
     assert names == ["field.cuh", "mma_tile.cuh", "perm.cu", "perm.cuh", "perm_hyb.cu",
-                     "perm_hyb.cuh", "perm_mxu8.cu", "perm_mxu8.cuh"]
+                     "perm_hyb.cuh", "perm_hyb13.cu", "perm_hyb_block.cuh", "perm_mxu.cu",
+                     "perm_mxu8.cu", "perm_mxu8.cuh"]
 
 
 def test_ptxas_summary():
@@ -255,8 +320,57 @@ def test_chip_smoke_bound(schedule):
     # operations scale with the batch; the tables' bytes do not
     assert many["cores_ms"] == pytest.approx(16 * one["cores_ms"])
     assert many["bytes_ms"] < 16 * one["bytes_ms"]
-    assert (one["tensor_ms"] > 0) == (schedule in ("mxu8", "hyb", "hybp"))
+    assert (one["tensor_ms"] > 0) == (schedule not in ("naive", "opt"))
+    mxu8 = chip_smoke.bound("mxu8", 1 << 14)
     if schedule in ("hyb", "hybp"):
         # 401 REDCs against mxu8's 632; the chain's dots outweigh the MDS dots they replace
-        mxu8 = chip_smoke.bound("mxu8", 1 << 14)
         assert one["cores_ms"] < mxu8["cores_ms"] and one["tensor_ms"] > mxu8["tensor_ms"]
+    if schedule == "mxu":
+        # mxu8's work, its dots at the bf16 rate, half the int8 one
+        assert one["cores_ms"] == mxu8["cores_ms"] and one["bytes_ms"] == mxu8["bytes_ms"]
+        assert one["tensor_ms"] == pytest.approx(mxu8["tensor_ms"] * 1979 / 989)
+    if schedule.endswith("13"):
+        # the same dots and tables; 99 S-boxes of 1,420 operations in place of 192
+        base = chip_smoke.bound(schedule.removesuffix("13"), 1 << 14)
+        assert one["tensor_ms"] == base["tensor_ms"] and one["bytes_ms"] == base["bytes_ms"]
+        extra = 99 * (1420 - 192) * (1 << 14) / chip_smoke.INT32_OPS_PER_S * 1e3
+        assert one["cores_ms"] - base["cores_ms"] == pytest.approx(extra)
+
+
+def test_chip_smoke_damage_leaves_the_level_below_whole(tmp_path):
+    """The damage chip_smoke does between the resumes: the files above
+    CKPT_KEEP go, CKPT_KEEP's own is cut short and so ignored, and a resume
+    recomputes the levels from CKPT_KEEP - 1 up."""
+    from hades252_tpu_torch.utils import checkpoint
+
+    rng = np.random.default_rng(8)
+    leaves = torch.from_numpy(chip_smoke.random_elements((4 ** 5,), rng))
+    d = str(tmp_path / "ckpt")
+    calls = []
+
+    def fn(x):
+        calls.append(x.shape[0])
+        return chip_smoke.plain_mont_fn("opt")(x)
+
+    root = checkpoint.merkle_root_checkpointed(leaves, d, fn)
+    assert calls == [256, 64, 16, 4, 1]
+    chip_smoke.damage(d, 5)
+    keep = chip_smoke.CKPT_KEEP
+    assert checkpoint.highest_saved_level(d, 5, 4 ** 5) == keep - 1
+    calls.clear()
+    assert torch.equal(checkpoint.merkle_root_checkpointed(leaves, d, fn), root)
+    assert calls == [4 ** (5 - keep), 1] and checkpoint.highest_saved_level(d, 5, 4 ** 5) == 5
+
+
+def test_chip_smoke_names_the_host_cpu():
+    name = chip_smoke.cpu_model()
+    assert isinstance(name, str) and name.strip()
+
+
+def test_chip_smoke_lists_every_kernel():
+    assert set(chip_smoke.SOURCES) == set(chip_smoke.REPLACES) == set(perm_cuda.SCHEDULES)
+    root = _build.CSRC.parents[2]
+    for schedule in perm_cuda.SCHEDULES:
+        src = root / chip_smoke.SOURCES[schedule]
+        assert src.exists() and f"hades_perm_{schedule}_launch" in src.read_text()
+        assert chip_smoke.REPLACES[schedule].startswith("hades252_tpu/ops/perm_pallas.py:")

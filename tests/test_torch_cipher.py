@@ -1,5 +1,6 @@
 """The port's duplex cipher against the JAX package's (`models/cipher.py`)
-and the native engine's (`utils/native.cipher_digits`), bit for bit, and its
+and the native engine's (through the port's own `utils/native.cipher_digits`),
+bit for bit, and its
 authentication behaviour, on the CPU."""
 
 import jax.numpy as jnp
@@ -8,11 +9,10 @@ import pytest
 import torch
 
 from hades252_tpu.models import cipher as jcipher
-from hades252_tpu.utils import native
 from hades252_tpu_torch.models import cipher
 from hades252_tpu_torch.ops import make_perm_mont_fn, perm_cuda
 from hades252_tpu_torch.params import P
-from hades252_tpu_torch.utils import metrics
+from hades252_tpu_torch.utils import metrics, native
 from hades252_tpu_torch.utils.encoding import ints_to_digits
 
 torch.set_num_threads(1)

@@ -8,6 +8,8 @@ the GPU host (which has neither) it runs with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q -m cuda
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from hades252_tpu_torch import field, selftest
 from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import make_perm_mont_fn, perm_cuda, permute
 from hades252_tpu_torch.strategy import ScalarStrategy
+from hades252_tpu_torch.utils import checkpoint
 
 
 @pytest.fixture
@@ -36,7 +39,7 @@ def _elements(shape, seed: int) -> torch.Tensor:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 1000, 4096])
-@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8", "hyb", "hybp"])
+@pytest.mark.parametrize("schedule", perm_cuda.SCHEDULES)
 @pytest.mark.parametrize("convert", [True, False])
 def test_kernel_matches_plain(cuda_device, b, schedule, convert):
     x = _elements((5, b), 20 + b).permute(0, 2, 1).contiguous().to(cuda_device)
@@ -95,6 +98,102 @@ def test_mxu8_dot_matches_float64_matmul(cuda_device, m, k, n):
     want = torch.matmul(w.double(), x.double()).to(cuda_device)
     assert got.dtype == torch.int32 and got.shape == (m, n)
     assert torch.equal(got.double(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(16, 32, 8), (64, 160, 128), (320, 160, 1000), (45, 70, 129)])
+def test_mxu_dot_matches_float64_matmul(cuda_device, m, k, n):
+    g = torch.Generator().manual_seed(m * k + n + 1)
+    w = torch.randint(0, 256, (m, k), dtype=torch.uint8, generator=g)
+    x = torch.randint(0, 256, (k, n), dtype=torch.uint8, generator=g)
+    got = perm_cuda.mxu_dot(w.to(cuda_device), x.to(cuda_device))
+    want = torch.matmul(w.double(), x.double()).to(cuda_device)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.double(), want)
+
+
+@pytest.mark.cuda
+def test_mxu_dot_is_exact_at_its_largest_sum(cuda_device):
+    """All-255 operands at K = 160: every sum is 160 * 255^2 = 10,404,000,
+    the largest the bf16 dot meets, below 2^24 and so exact in its f32
+    accumulation."""
+    w = torch.full((320, 160), 255, dtype=torch.uint8, device=cuda_device)
+    x = torch.full((160, 300), 255, dtype=torch.uint8, device=cuda_device)
+    got = perm_cuda.mxu_dot(w, x)
+    assert got.shape == (320, 300) and bool((got == 160 * 255 * 255).all())
+    # one operand short of the top: the odd sums just below it
+    x[7] = 254
+    assert bool((perm_cuda.mxu_dot(w, x) == 160 * 255 * 255 - 255).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["hyb13", "hybp13"])
+def test_base13_kernels_take_unnormalised_squares(cuda_device, schedule):
+    """States of 0, 1 and p - 1 drive the S-box's x^2 and x^4 to both ends
+    of [0, 2p); the kernel must agree with the opt kernel on them."""
+    from hades252_tpu_torch.params import P
+    from hades252_tpu_torch.utils.encoding import ints_to_digits
+
+    words = [0, 1, 2, P - 1, P - 2, (P + 1) // 2, 3, 1 << 254]
+    states = [[words[(i + j) % len(words)] for j in range(5)] for i in range(len(words))]
+    x = torch.from_numpy(ints_to_digits(states, shape=(len(words), 5)).astype(np.int32))
+    x = x.to(cuda_device)
+    got = perm_cuda.permute_cuda(x, schedule=schedule)
+    assert torch.equal(got, perm_cuda.permute_cuda(x, schedule="opt"))
+    assert torch.equal(got.cpu(), permute(x.cpu()))
+
+
+@pytest.mark.cuda
+def test_checkpointed_build_and_resumes(cuda_device, tmp_path):
+    n, d = 1000, str(tmp_path / "ckpt")
+    leaves = _elements((n,), 800).to(cuda_device)
+    height = merkle.tree_levels(n)  # 5: 1000 leaves pad to 1024
+    want = merkle.merkle_root(leaves)  # the default opt kernel
+    perm_cuda.reset_launches()
+    root = checkpoint.merkle_root_checkpointed(leaves, d, make_perm_mont_fn("cuda", schedule="mxu"))
+    assert perm_cuda.launches == {**_NO_LAUNCHES, "mxu": height}
+    assert root.is_cuda and torch.equal(root, want)
+    assert np.array_equal(checkpoint.load_level(d, height, 1)[0], want.cpu().numpy())
+    whole = {k: open(os.path.join(d, f"level_{k}.bin"), "rb").read() for k in range(1, height + 1)}
+    # the files are what the CPU build (plain versions) writes
+    cpu_dir = str(tmp_path / "cpu")
+    checkpoint.merkle_root_checkpointed(leaves.cpu(), cpu_dir)
+    assert all(open(os.path.join(cpu_dir, f"level_{k}.bin"), "rb").read() == v
+               for k, v in whole.items())
+    assert open(os.path.join(cpu_dir, "meta.json")).read() == open(os.path.join(d, "meta.json")).read()
+    for schedule in ("hyb13", "hybp13"):
+        for k in (4, 5):
+            os.remove(os.path.join(d, f"level_{k}.bin"))
+        with open(os.path.join(d, "level_3.bin"), "r+b") as f:
+            f.truncate(31)
+        assert checkpoint.highest_saved_level(d, height, 1024) == 2
+        perm_cuda.reset_launches()
+        again = checkpoint.merkle_root_checkpointed(
+            leaves, d, make_perm_mont_fn("cuda", schedule=schedule))
+        assert perm_cuda.launches == {**_NO_LAUNCHES, schedule: 3}
+        assert torch.equal(again, want)
+        assert all(open(os.path.join(d, f"level_{k}.bin"), "rb").read() == v
+                   for k, v in whole.items())
+    other = leaves.clone()
+    other[17, 2] ^= 1
+    perm_cuda.reset_launches()
+    with pytest.raises(ValueError, match="different build"):
+        checkpoint.merkle_root_checkpointed(other, d)
+    assert perm_cuda.launches == _NO_LAUNCHES
+
+
+@pytest.mark.cuda
+def test_native_engine_agrees_with_the_kernels(cuda_device):
+    from hades252_tpu_torch.utils import native
+
+    x = _elements((64, 5), 801)
+    want = native.perm_batch_digits(x.numpy())
+    for schedule in ("opt", "mxu", "hyb13", "hybp13"):
+        got = perm_cuda.permute_cuda(x.to(cuda_device), schedule=schedule)
+        assert np.array_equal(got.cpu().numpy(), want), schedule
+    leaves = _elements((256,), 802)
+    assert np.array_equal(native.merkle_root_digits(leaves.numpy()),
+                          merkle.merkle_root(leaves.to(cuda_device)).cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -174,7 +273,7 @@ def _plain_mont_fn(schedule):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8", "hyb", "hybp"])
+@pytest.mark.parametrize("schedule", perm_cuda.SCHEDULES)
 def test_cuda_tensor_never_takes_the_plain_path(cuda_device, monkeypatch, schedule):
     x = _elements((5, 300), 3).permute(0, 2, 1).contiguous().to(cuda_device)
     want = perm_cuda.permute_planar_plain(x, schedule=schedule)

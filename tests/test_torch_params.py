@@ -6,10 +6,11 @@ import pytest
 import torch
 
 from hades252_tpu import params as jparams
-from hades252_tpu.ops.perm_pallas import _const_arrays_mxu8
+from hades252_tpu.ops.perm_pallas import _const_arrays_mxu, _const_arrays_mxu8
 from hades252_tpu import selftest as jselftest
 from hades252_tpu.strategy import ScalarStrategy as JaxScalarStrategy
 from hades252_tpu_torch import params, selftest
+from hades252_tpu_torch.ops import perm_cuda
 from hades252_tpu_torch.ops.perm_cuda import kernel_tables
 from hades252_tpu_torch.strategy import ScalarStrategy
 
@@ -219,3 +220,49 @@ def test_selftest_vectors_match_jax():
     for a, b in zip(selftest._vectors(), jselftest._vectors()):
         assert a.dtype == b.dtype == np.uint32
         assert np.array_equal(a, b)
+
+
+def test_from_jax_mxu_tables_reproduces_port_tables():
+    """The JAX package's mxu constants (float32 byte weights) carried across
+    equal the port's own mxu tables, which are mxu8's: the mxu kernel keeps
+    bytes in shared memory and widens them to bf16 in registers."""
+    consts = tuple(np.asarray(a) for a in _const_arrays_mxu(as_bf16=False))
+    carried, ours = params.from_jax_mxu_tables(consts), params.mxu_tables()
+    assert sorted(carried) == sorted(ours) == sorted(params.mxu8_tables())
+    for key, want in ours.items():
+        assert carried[key].dtype == want.dtype and np.array_equal(carried[key], want), key
+        assert np.array_equal(want, params.mxu8_tables()[key]), key
+    assert ours["w_lin"].dtype == np.uint8 and ours["w_lin"].shape == (320, 160)
+    # every weight is exact in bf16 (8 significant bits) and a column's sum in float32
+    assert int(ours["w_lin"].max()) <= 255 and 160 * 255 * 255 < 1 << 24
+
+
+def test_from_jax_mxu_tables_rejects_other_tables():
+    consts = [np.asarray(a) for a in _const_arrays_mxu(as_bf16=False)]
+    with pytest.raises(ValueError, match="5 arrays"):
+        params.from_jax_mxu_tables(consts[:4])
+    for i, match in ((1, "modulus"), (2, "w_lin"), (4, "w_p")):
+        bad = [a.copy() for a in consts]
+        bad[i][0, 0] += 1
+        with pytest.raises(ValueError, match=match):
+            params.from_jax_mxu_tables(bad)
+    bad = [a.copy() for a in consts]
+    bad[3][0, 0] = 0.5
+    with pytest.raises(ValueError, match="not a table of bytes"):
+        params.from_jax_mxu_tables(bad)
+    bad = [a.copy() for a in consts]
+    bad[0][0, 0, 0] ^= 1
+    with pytest.raises(ValueError, match="ark_mont"):
+        params.from_jax_mxu_tables(bad)
+
+
+@pytest.mark.parametrize("schedule", ["hyb", "hybp"])
+def test_base13_schedules_take_the_chain_tables_unchanged(schedule):
+    """hyb13 and hybp13 have no table of their own: the kernels' and the
+    plain versions' tables are hyb's and hybp's, as the JAX package passes
+    the same constants for sbox13=True (perm_pallas.py:1333-1342)."""
+    for ours, theirs in zip(perm_cuda.hyb_kernel_tables(schedule + "13"),
+                            perm_cuda.hyb_kernel_tables(schedule)):
+        assert ours.dtype == theirs.dtype and np.array_equal(ours, theirs)
+    mxu_consts, mxu_weights = perm_cuda.mxu8_kernel_tables()
+    assert np.array_equal(perm_cuda.hyb_kernel_tables(schedule + "13")[1], mxu_weights)

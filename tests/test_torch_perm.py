@@ -53,7 +53,7 @@ def test_oracle_mont_path():
     assert torch.equal(field.from_mont(permute_mont(field.to_mont(x))), permute(x))
 
 
-@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8"])
+@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8", "mxu"])
 @pytest.mark.parametrize("convert", [True, False])
 def test_plain_kernel_matches_jax_kernel_harness(schedule, convert):
     x = np.ascontiguousarray(_states(128, 3).transpose(1, 2, 0))  # planar (5, 16, B)
@@ -72,10 +72,10 @@ def test_plain_mxu8_matches_jax_kernel_harness_ragged(convert):
 
 
 @pytest.mark.parametrize("b", [8, 5])
-@pytest.mark.parametrize("schedule", ["hyb", "hybp"])
+@pytest.mark.parametrize("schedule", ["hyb", "hybp", "hyb13", "hybp13"])
 @pytest.mark.parametrize("convert", [True, False])
 def test_plain_chain_kernel_matches_jax_harness_and_oracles(schedule, convert, b):
-    """Plain hyb and hybp against the JAX package's numpy harness for the
+    """Plain hyb, hybp, hyb13 and hybp13 against the JAX package's numpy harness for the
     same kernel bodies, the torch oracle and the int oracle, with the edge
     words 0 and p - 1; tolerance 0."""
     x = _states(b, 40 + b)
@@ -140,6 +140,108 @@ def _jax_mxu_ops():
     return perm_pallas._MxuOps(ark, fc, dot(w_lin, rs_lin), dot(w_pp, rs_pp), dot(w_p, rs_p))
 
 
+def _below_2p(b: int, seed: int) -> np.ndarray:
+    """(16, b) digits of values in [p, 2p): the S-box's un-normalised x^2
+    and x^4, with 2p - 1, 2p - 2 and p itself among them."""
+    rng = np.random.default_rng(seed)
+    vals = [2 * P - 1, 2 * P - 2, P] + [P + int.from_bytes(rng.bytes(40), "little") % P
+                                        for _ in range(b - 3)]
+    digits = [[(v >> (16 * i)) & 0xFFFF for i in range(16)] for v in vals]
+    return np.asarray(digits, np.uint32).T.copy()
+
+
+@pytest.mark.parametrize("inputs", ["canonical", "below 2p"])
+def test_base13_products_match_jax(inputs):
+    """_to13, _sqr13_cols, _mul13_cols and _cols13_to16 against the JAX
+    package's on its numpy path, value for value, on canonical inputs and on
+    un-normalised ones just below 2p (which need all 20 digits)."""
+    b = 12
+    if inputs == "canonical":
+        a16, b16 = (_states(b, 70 + i)[:, 0].T.copy() for i in range(2))
+    else:
+        a16, b16 = _below_2p(b, 72), _below_2p(b, 73)[:, ::-1].copy()
+    ta, tb = (torch.from_numpy(v.T.astype(np.int64)) for v in (a16, b16))
+    token = perm_pallas._EMULATE.set(True)
+    try:
+        ja, jb = perm_pallas._to13(a16), perm_pallas._to13(b16)
+        jsq, jmul = perm_pallas._sqr13_cols(ja), perm_pallas._mul13_cols(ja, jb)
+        jsq16, jmul16 = perm_pallas._cols13_to16(jsq), perm_pallas._cols13_to16(jmul)
+    finally:
+        perm_pallas._EMULATE.reset(token)
+    oa, ob = perm_cuda._to13(ta), perm_cuda._to13(tb)
+    assert oa.shape == (b, 20) and oa.dtype == torch.int64
+    assert np.array_equal(oa.numpy().T, ja) and np.array_equal(ob.numpy().T, jb)
+    osq, omul = perm_cuda._sqr13_cols(oa), perm_cuda._mul13_cols(oa, ob)
+    assert osq.shape == omul.shape == (b, 39)
+    assert np.array_equal(osq.numpy().T, jsq) and np.array_equal(omul.numpy().T, jmul)
+    osq16, omul16 = perm_cuda._cols13_to16(osq), perm_cuda._cols13_to16(omul)
+    assert np.array_equal(osq16.numpy().T, jsq16) and np.array_equal(omul16.numpy().T, jmul16)
+    # the columns carry the exact products
+    for row in range(b):
+        x, y = (sum(int(v) << (16 * i) for i, v in enumerate(col)) for col in (a16[:, row],
+                                                                               b16[:, row]))
+        assert sum(int(v) << (16 * i) for i, v in enumerate(osq16[row])) == x * x
+        assert sum(int(v) << (13 * i) for i, v in enumerate(omul[row])) == x * y
+
+
+def test_base13_bounds_are_asserted():
+    """The three bounds of the JAX bodies (columns and squares below 2^31,
+    repacked sums below 2^18) are asserted, not assumed."""
+    big = torch.full((1, 20), (1 << 14) - 1, dtype=torch.int64)
+    with pytest.raises(AssertionError, match="column overflow"):
+        perm_cuda._mul13_cols(big, big)
+    with pytest.raises(AssertionError, match="square overflow"):
+        perm_cuda._sqr13_cols(big)
+    with pytest.raises(AssertionError, match="repack overflow"):
+        perm_cuda._cols13_to16(torch.full((1, 39), 1 << 40, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("sbox13", [False, True])
+def test_sbox_words_matches_jax(sbox13):
+    """x^5 through the dots, with and without the base-2^13 products,
+    against `_MxuOps.sbox_words` on the numpy path, with 0, 1 and p - 1."""
+    b = 16
+    x = _states(b, 80)[:, 0]
+    x[:3] = ints_to_digits([0, 1, P - 1])
+    token = perm_pallas._EMULATE.set(True)
+    try:
+        ops = _jax_mxu_ops()
+        ops.sbox13 = sbox13
+        theirs = ops.sbox_words([x.T.copy()])[0]
+    finally:
+        perm_pallas._EMULATE.reset(token)
+    ours = perm_cuda._sbox_words(torch.from_numpy(x.astype(np.int64)), sbox13=sbox13)
+    assert np.array_equal(ours.numpy().T, theirs.astype(np.int64))
+    ours32 = perm_cuda._sbox_words(torch.from_numpy(x.astype(np.int64)), sbox13=sbox13, f32=True)
+    assert torch.equal(ours, ours32)
+
+
+def test_dot_bytes_f32_matches_jax_f32_dot_and_asserts_its_bound():
+    """The mxu plain dot (float32 weights) against `_dot_u32` on the numpy
+    path, all-255 operands at K = 160 included; a sum of 2^24 trips the
+    bound as it trips the JAX body's."""
+    consts = perm_pallas._const_arrays_mxu(as_bf16=False)
+    plain = perm_cuda._mxu8_plain_tables(torch.device("cpu"), True)
+    rng = np.random.default_rng(15)
+    token = perm_pallas._EMULATE.set(True)
+    try:
+        for key, w in zip(("w_lin", "w_pp", "w_p"), consts[2:]):
+            assert plain[key].dtype == torch.float32
+            xb = rng.integers(0, 256, (w.shape[1], 50)).astype(np.uint32)
+            xb[:, 0] = 255
+            theirs = perm_pallas._dot_u32(w, perm_pallas._bytes_cast(xb))
+            ours = perm_cuda._dot_bytes(plain[key], torch.from_numpy(xb.T.astype(np.int64)))
+            assert ours.dtype == torch.int64
+            assert np.array_equal(ours.numpy().T, theirs.astype(np.int64)), key
+    finally:
+        perm_pallas._EMULATE.reset(token)
+    full = torch.full((4, 160), 255.0, dtype=torch.float32)
+    got = perm_cuda._dot_bytes(full, torch.full((3, 160), 255, dtype=torch.int64))
+    assert got.tolist() == [[160 * 255 * 255] * 4] * 3
+    with pytest.raises(AssertionError, match="exactness bound"):
+        perm_cuda._dot_bytes(torch.full((1, 259), 255.0), torch.full((1, 259), 255))
+
+
 def test_dot_bytes_matches_jax_int8_dot():
     consts = perm_pallas._const_arrays_mxu8()
     plain = perm_cuda._mxu8_plain_tables(torch.device("cpu"))
@@ -189,7 +291,7 @@ def _oracle_outputs(b: int):
 
 
 @pytest.mark.parametrize("b", [1, 5, 130])
-@pytest.mark.parametrize("schedule", ["naive", "opt", "mxu8", "hyb", "hybp"])
+@pytest.mark.parametrize("schedule", perm_cuda.SCHEDULES)
 def test_batch_major_wrappers_on_cpu(b, schedule):
     x, want, xm, want_m = _oracle_outputs(b)
     perm_cuda.reset_launches()
@@ -216,7 +318,7 @@ def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):
         perm_cuda.permute_cuda(x[:, :4])
     with pytest.raises(ValueError):
-        perm_cuda.permute_cuda(x, schedule="hybp13")
+        perm_cuda.permute_cuda(x, schedule="hybp16")
     with pytest.raises(ValueError):
         perm_cuda.permute_planar(x.permute(1, 2, 0).to("meta"))
 
@@ -264,15 +366,27 @@ def test_hyb_dot_on_cpu():
         perm_cuda.hyb_dot(w, x[:100])
 
 
-def test_mxu8_dot_on_cpu():
+@pytest.mark.parametrize("dot", [perm_cuda.mxu8_dot, perm_cuda.mxu_dot])
+def test_mxu8_dot_on_cpu(dot):
     rng = np.random.default_rng(12)
     w = torch.from_numpy(rng.integers(0, 256, (20, 40)).astype(np.uint8))
     x = torch.from_numpy(rng.integers(0, 256, (40, 7)).astype(np.uint8))
-    got = perm_cuda.mxu8_dot(w, x)
+    got = dot(w, x)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), w.numpy().astype(np.int64) @ x.numpy().astype(np.int64))
     with pytest.raises(ValueError):
-        perm_cuda.mxu8_dot(w.to(torch.int32), x)
+        dot(w.to(torch.int32), x)
     with pytest.raises(ValueError):
-        perm_cuda.mxu8_dot(torch.zeros((321, 32), dtype=torch.uint8),
-                           torch.zeros((32, 1), dtype=torch.uint8))
+        dot(torch.zeros((321, 32), dtype=torch.uint8), torch.zeros((32, 1), dtype=torch.uint8))
+
+
+def test_schedules_cover_the_jax_package():
+    """Every schedule that perm_pallas dispatches on has its counterpart."""
+    assert sorted(perm_cuda.SCHEDULES) == sorted(
+        ["naive", "opt", "mxu", "mxu8", "hyb", "hybp", "hyb13", "hybp13"])
+    assert set(perm_cuda._PLAIN) == set(perm_cuda.launches) == set(perm_cuda.SCHEDULES)
+    x = np.zeros((5, 16, 128), np.uint32)
+    for schedule in perm_cuda.SCHEDULES:
+        perm_pallas.default_block(schedule)  # the JAX package knows the name
+    with pytest.raises(ValueError):
+        permute_planar_emulated(x, schedule="hybp16")
