@@ -16,7 +16,10 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
   4. holds each kernel against its plain PyTorch version on the card at
      B = 2^14, 4096 and a ragged 1000, both `convert` values, and `naive`
      and `opt` at the first Merkle level's B = 2^18 on the Montgomery path;
-     and holds the tensor-core tile products against a float64 matmul:
+     `opt` (a group of lanes a state) and `hybp` (64 states a block) also
+     at B = 1, 5, 127, 129 and 2^14 + 1, where `opt` is held against the
+     native engine too (built here: an engine that does not build fails
+     the run); and holds the tensor-core tile products against a float64 matmul:
      `mxu8`'s and `mxu`'s (bf16 with float32 sums) at the shapes of their
      three dots, `mxu`'s also with all-255 operands at K = 160, the largest
      sum it can meet, and the wide one of `hyb` and `hybp` at K = 1024,
@@ -52,18 +55,18 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      directory of other leaves refused with ValueError, and `level_10.bin`
      decoding to the root. The directory is removed at the end, also on
      failure;
-  7c. builds the native CPU engine (`native/hades_cpu.cpp`) with the host
-     compiler and holds the port against it: 64 seeded states through
+  7c. holds the port against the native CPU engine (`native/hades_cpu.cpp`,
+     built with the host compiler in phase 4): 64 seeded states through
      `perm_batch_digits` against the `opt` kernel, the 4096-leaf root of
      phase 5 against `merkle_root_digits`; prints its single-thread
-     rates with the host CPU's model name. An engine that does not build
-     fails the run;
+     rates with the host CPU's model name;
   8. times the kernels, their plain versions, the trees, the openings,
      the sponge, the cipher and the checkpointed build (beside the plain
      `merkle_root` through the same kernel, so the cost of the ten
      device-to-host copies and file writes is a number) with CUDA events
      (median of 5 after a warm-up), and works out each kernel's bound: the
-     least time the card could take for the same states (`bound`).
+     least time the card could take for the same states (`bound`); `opt`
+     and `hybp` also at B = 2^10, 2^16 and 2^18.
 
 Each path of phases 5-7b runs with the launch counts set to 0 just before
 it and read just after; the kernels' JSON line reports their sum. The
@@ -72,8 +75,9 @@ trees over 2^16 leaves, everything else at full size. No
 single PyTorch call computes a 255-bit modular permutation, so the line's
 `library_ms` is null for every kernel.
 
-With `--profile` it also traces one warm call of each of the openings'
-paths and of the checkpointed build with `torch.profiler` (phase 9) and prints, per path, the span of
+With `--profile` it also traces one warm call of the tree, the sponge and
+the cipher through `opt`, of each of the openings' paths and of the
+checkpointed build with `torch.profiler` (phase 9) and prints, per path, the span of
 its device work, the time the device was busy, the idle share, the
 permutation kernel's share and the plain-torch glue's.
 
@@ -98,6 +102,14 @@ import time
 import numpy as np
 import torch
 
+try:
+    import hades252_tpu_torch  # noqa: F401
+except ModuleNotFoundError as e:
+    if e.name != "hades252_tpu_torch":
+        raise
+    sys.exit("chip_smoke: needs the package directory hades252_tpu_torch/ beside it: run it "
+             "from the root of a checkout")
+
 from hades252_tpu_torch import selftest
 from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import _build, make_perm_mont_fn, perm_cuda
@@ -120,7 +132,7 @@ SOURCES = {
     "opt": "hades252_tpu_torch/ops/csrc/perm.cu",
     "mxu8": "hades252_tpu_torch/ops/csrc/perm_mxu8.cu",
     "hyb": "hades252_tpu_torch/ops/csrc/perm_hyb.cu",
-    "hybp": "hades252_tpu_torch/ops/csrc/perm_hyb.cu",
+    "hybp": "hades252_tpu_torch/ops/csrc/perm_hybp.cu",
     "mxu": "hades252_tpu_torch/ops/csrc/perm_mxu.cu",
     "hyb13": "hades252_tpu_torch/ops/csrc/perm_hyb13.cu",
     "hybp13": "hades252_tpu_torch/ops/csrc/perm_hyb13.cu",
@@ -135,6 +147,12 @@ REPLACES = {
     "hyb13": "hades252_tpu/ops/perm_pallas.py:845 (_perm_kernel_hyb, sbox13=True)",
     "hybp13": "hades252_tpu/ops/perm_pallas.py:945 (_perm_kernel_hybp, sbox13=True)",
 }
+# opt runs 4 lanes a state, 32 states a block (one thread a state above
+# 2^14), and hybp 64 states a block: batches that end inside a group, a warp
+# or a block
+RAGGED = (1, 5, 127, 129, PERM_BATCH + 1)
+REDESIGNED = ("opt", "hybp")
+TIMED_SIZES = (1 << 10, 1 << 16, 1 << 18)   # beside PERM_BATCH, for the redesigned kernels
 CKPT_KEEP = 4               # the damage: level files above it go, its own is cut short
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): dense int8 and
@@ -206,23 +224,30 @@ def bound(schedule: str, b: int) -> dict:
     rate. Counted per state from the sources (csrc/field.cuh, perm.cuh,
     perm_mxu8.cuh, perm_hyb.cuh):
 
-    - a CIOS Montgomery product is 136 multiply-adds (8 steps of 8 for a b,
-      1 for m, 8 for m p); naive runs 1,982 and opt 1,054 of them (the 10
-      conversion products included), with 1,675 and 984 modular adds of 16
-      adds and subtracts;
-    - the byte-dot kernels run 99 S-boxes of three 64-multiply-add products
-      and the 10 CIOS conversion products; each REDC (632 in mxu8, 401 in
-      hyb and hybp) is a (32, 32) and a (63, 32) dot, 2 adds for each of
-      their 95 recombined columns, the 16-limb sum and a 9-limb subtract;
-      an MDS dot is (315, 160), round r of the chain (63, 32 (6 + r)), the
-      exit (315, 2080), each with 2 adds per recombined column; hybp adds a
-      17-limb sum to 58 rounds; the chain's 64 big REDCs end in five 9-limb
-      subtracts;
+    - a Montgomery product is 136 multiply-adds: 64 for a b and 72 for the
+      reduction (8 steps of 6 multiply-adds by the limbs of p that are not 1
+      or 2^32 - 1, a negate and two adds for those two); a square needs 36
+      for a^2 (the 28 products above the diagonal once, the 8 on it), so 108.
+      naive runs 1,982 products and opt 1,054 (the 10 conversion products
+      included), 198 of them the squares of the 99 S-boxes, with 1,675 and
+      984 modular adds of 16 adds and subtracts. What opt's lanes compute
+      twice over is the kernel's choice, not work the function needs;
+    - the byte-dot kernels run 99 S-boxes of two 36- and one 64-multiply-add
+      raw product and the 10 conversion products; each REDC (632 in mxu8, 401
+      in the chained kernels) is a (32, 32) and a (63, 32) dot, 2 adds for
+      each of their 95 recombined columns, the 16-limb sum and a 9-limb
+      subtract; an MDS dot is (315, 160), round r of the chain (63, 32 (6 +
+      r)), the exit (315, 2080), each with 2 adds per recombined column;
+      hybp13, in the first port's shape, adds a 17-limb sum to 58 rounds;
+      the chain's 64 big REDCs end in five 9-limb subtracts;
+    - hybp's REDCs run on the CUDA cores: their dots leave the tensor cores'
+      count, and 72 multiply-adds and the 9-limb subtract a REDC enter the
+      cores'; its small dot adds onto the big one's sums in the MMA;
     - mxu runs mxu8's schedule: the same counts, its dots at the bf16 rate
       (widening the bytes is the kernel's choice, not work the function
       needs);
-    - hyb13 and hybp13 run hyb's and hybp's with the base-2^13 S-box, 1,420
-      operations in place of 3 x 64: 2 x 210 + 400 narrow multiply-adds, 2 x
+    - hyb13 and hybp13 run hyb's and hybp's chain with the base-2^13 S-box,
+      1,420 operations in place of 136: 2 x 210 + 400 narrow multiply-adds, 2 x
       39 column doublings, 4 x 20 digit windows of 3 operations (shift,
       merge, mask), and for each of the 3 products 39 shift-and-adds of two
       operations into the 64-bit accumulator and 16 limbs written;
@@ -231,26 +256,28 @@ def bound(schedule: str, b: int) -> dict:
     """
     full, partial = 8, 59
     cores = tensor = 0
+    sboxes = 5 * full + partial
     if schedule in ("naive", "opt"):
         products, adds = (1982, 1675) if schedule == "naive" else (1054, 984)
-        cores = 136 * products + 16 * adds
+        cores = 136 * (products - 2 * sboxes) + 108 * 2 * sboxes + 16 * adds
         table_bytes = perm_cuda.kernel_tables().nbytes
     else:
         base = schedule.removesuffix("13")
         dense = full + partial if base in ("mxu8", "mxu") else full
         chain = 0 if base in ("mxu8", "mxu") else partial
-        sboxes = 5 * full + partial
         sbox_ops = 2 * 210 + 400 + 2 * 39 + 4 * 20 * 3 + 3 * (2 * 39 + 16) if base != schedule \
-            else 3 * 64
+            else 2 * 36 + 64
         redcs = 3 * sboxes + 5 * dense + (chain + 5 if chain else 0)
         dot_cols = 5 * 63 * dense + (63 * (chain + 5) if chain else 0)
-        tensor = redcs * (32 * 32 + 63 * 32) + dense * 315 * 160
-        cores = (sboxes * sbox_ops + 10 * 136 + redcs * (2 * 95 + 16 + 9) + 2 * dot_cols
-                 + 16 * 5 * dense)
+        redc_on_cores = schedule == "hybp"
+        tensor = dense * 315 * 160 + (0 if redc_on_cores else redcs * (32 * 32 + 63 * 32))
+        cores = (sboxes * sbox_ops + 10 * 136
+                 + redcs * (72 + 9 if redc_on_cores else 2 * 95 + 16 + 9)
+                 + 2 * dot_cols + 16 * 5 * dense)
         if chain:
             tensor += sum(63 * 32 * (6 + r) for r in range(chain)) + 315 * 2080
             cores += (chain + 5) * 5 * 9
-        if base == "hybp":
+        if schedule == "hybp13":
             cores += (chain - 1) * (2 * 63 + 17)
         tables = (perm_cuda.hyb_kernel_tables(schedule) if chain
                   else perm_cuda.mxu8_kernel_tables())
@@ -329,8 +356,9 @@ def profile_path(name: str, fn) -> None:
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     span = reach - ops[0][0]
-    perm = [(end - start) for start, end, op in ops if op.startswith("hades_perm")]
-    glue = [(end - start) for start, end, op in ops if not op.startswith("hades_perm")]
+    # a kernel that is a template is listed with its return type in front
+    perm = [(end - start) for start, end, op in ops if "hades_perm" in op]
+    glue = [(end - start) for start, end, op in ops if "hades_perm" not in op]
     log(f"[profile] {name}: span {span / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
         f"{1 - busy / span:.3f}, permutation kernels {sum(perm) / 1e3:.3f} ms in {len(perm)} "
         f"launches, plain-torch glue {sum(glue) / 1e3:.3f} ms in {len(glue)} launches")
@@ -426,6 +454,27 @@ def run(ckpt_root: str) -> int:
                 check(err == 0, f"{schedule} kernel != plain at B={b}, convert={convert}")
         log(f"[plain] {', '.join(schedules)} kernels == plain versions at B = {b}, "
             f"convert in {converts}")
+
+    # the ragged edges of the redesigned kernels, and opt against the native
+    # engine's sparse schedule (the second, independent reference)
+    t0 = time.perf_counter()
+    native._lib()  # raises NativeUnavailable where it cannot be built
+    native_s = time.perf_counter() - t0
+    for b in RAGGED:
+        states = random_elements((b, WIDTH), rng)
+        x = torch.from_numpy(states.transpose(1, 2, 0).copy()).to(dev)
+        for schedule in REDESIGNED:
+            for convert in (True, False):
+                got = perm_cuda.permute_planar(x, convert=convert, schedule=schedule)
+                want = plain_planar(x, convert=convert, schedule=schedule)
+                err = int((got.long() - want.long()).abs().max())
+                max_err[schedule] = max(max_err[schedule], err)
+                check(err == 0, f"{schedule} kernel != plain at B={b}, convert={convert}")
+        got = perm_cuda.permute_planar(x, schedule="opt").permute(2, 0, 1).cpu().numpy()
+        check(np.array_equal(native.perm_batch_digits(states), got),
+              f"opt kernel != native engine at B={b}")
+    log(f"[plain] {', '.join(REDESIGNED)} kernels == plain versions at B in {RAGGED}, both "
+        "convert values; opt kernel == native engine there")
 
     # the mxu8 kernel's tensor-core tile product against a float64 matmul,
     # with its own weights and seeded byte rows at the main path's batch
@@ -656,10 +705,7 @@ def run(ckpt_root: str) -> int:
         f"{CKPT_KEEP - 1} through hyb13 and through hybp13: same root, {resumed} launches each; "
         f"level_{levels}.bin decodes to the root; other leaves refused")
 
-    # 7c. the native CPU engine, built here, against the port
-    t0 = time.perf_counter()
-    native._lib()  # raises NativeUnavailable where it cannot be built
-    native_s = time.perf_counter() - t0
+    # 7c. the native CPU engine (built in phase 4) against the port
     states = random_elements((64, WIDTH), rng)
     got = perm_cuda.permute_cuda(torch.from_numpy(states).to(dev)).cpu().numpy()
     check(np.array_equal(native.perm_batch_digits(states), got),
@@ -688,6 +734,14 @@ def run(ckpt_root: str) -> int:
             + ", ".join(f"{k} {v:.4f}" if k != "bound_by" else f"by {v}"
                         for k, v in bounds[schedule].items())
             + f"; B={PERM_BATCH} | {smi}")
+    for b in TIMED_SIZES:
+        xb = torch.from_numpy(random_elements((WIDTH, b), rng).transpose(0, 2, 1).copy()).to(dev)
+        for schedule in REDESIGNED:
+            t = cuda_ms(lambda: perm_cuda.permute_planar(xb, schedule=schedule))
+            bd = bound(schedule, b)["bound_ms"]
+            log(f"[time] {schedule}: kernel {t:.4f} ms = {b / t * 1e3:,.0f} perms/s, "
+                f"{t / b * PERM_BATCH:.4f} ms a 2^14; bound {bd:.4f} ms ({bd / t:.3f} of the "
+                f"time); B={b} | {smi}")
     tree_ms = cuda_ms(lambda: merkle.merkle_root(leaves))
     log(f"[time] merkle_root 2^20 leaves (opt): {tree_ms / 1e3:.6f} s/tree = "
         f"{MERKLE_LEAVES / tree_ms * 1e3:,.0f} leaves/s | {smi}")
@@ -727,7 +781,12 @@ def run(ckpt_root: str) -> int:
 
     # 9. on request: where the openings' paths spend their device time
     if "--profile" in sys.argv[1:]:
-        for name, fn in (("merkle_levels 2^20 (hybp)",
+        for name, fn in (("merkle_root 2^20 (opt)", lambda: merkle.merkle_root(leaves)),
+                         (f"sponge_hash {SPONGE_STREAMS} x {SPONGE_LEN} (opt)",
+                          lambda: sponge.sponge_hash(msgs)),
+                         (f"cipher.encrypt {CIPHER_STREAMS} x {CIPHER_LEN} (opt)",
+                          lambda: cipher.encrypt(keys, nonces, plaintext)),
+                         ("merkle_levels 2^20 (hybp)",
                           lambda: merkle.merkle_levels(leaves, hybp_fn)),
                          (f"merkle_open_batched {OPENINGS}", open_many),
                          (f"merkle_verify_batched {OPENINGS} (hybp)", verify_many(hybp_fn)),

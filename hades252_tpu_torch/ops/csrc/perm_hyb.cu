@@ -1,17 +1,18 @@
-// The `hyb` and `hybp` schedules of the Hades252 permutation for Hopper
-// (sm_90a).
+// The `hyb` schedule of the Hades252 permutation for Hopper (sm_90a), in the
+// shape of the first port; perm_hyb13.cu runs `hyb13` and `hybp13` on the
+// same block code (perm_hyb_block.cuh). `hybp` has its own design in
+// perm_hybp.cu.
 //
 // hades_perm_hyb replaces _perm_kernel_hyb (hades252_tpu/ops/perm_pallas.py
-// :845) and hades_perm_hybp replaces _perm_kernel_hybp (:945, the JAX
-// package's default schedule): the 8 full rounds as the mxu8 kernel runs
-// them, and the 59 partial rounds as the full-expansion chain
-// (perm_hyb.cuh). Each partial round is one 8-bit integer product of that
-// round's (63, 32 k) weights with the basis [1, x_0..x_4, s_0..s_{r-1}],
-// one big Montgomery REDC and one S-box; the chain's exit is one (315, 2080)
-// product. Every product runs in this kernel's own body on the tensor cores
-// as mma.sync m16n8k32 u8 x u8 -> s32, exact (column sums < 2^28). Same
-// interface as the other kernels: planar (5, 16, B) int32 digits in and
-// out, canonical (convert=1) or Montgomery (convert=0), any B.
+// :845): the 8 full rounds as the mxu8 kernel runs them, and the 59 partial
+// rounds as the full-expansion chain (perm_hyb.cuh). Each partial round is
+// one 8-bit integer product of that round's (63, 32 k) weights with the
+// basis [1, x_0..x_4, s_0..s_{r-1}], one big Montgomery REDC and one S-box;
+// the chain's exit is one (315, 2080) product. Every product runs in this
+// kernel's own body on the tensor cores as mma.sync m16n8k32 u8 x u8 ->
+// s32, exact (column sums < 2^28). Same interface as the other kernels:
+// planar (5, 16, B) int32 digits in and out, canonical (convert=1) or
+// Montgomery (convert=0), any B.
 //
 // What bounds it: the CUDA-core work and the block barriers around the
 // dots, as in the mxu8 kernel, and after them the bytes the chain's dots
@@ -20,39 +21,28 @@
 // exit) against mxu8's 632, each two small dots between six barriers. The
 // chain's dots are 6.6 M byte multiply-adds a state on top of the full
 // rounds' 0.8 M: 1.2e11 for 2^14 states, some 120 us at the card's
-// published int8 peak. But their operands do not fit in shared memory: the
-// weights are 6.6 MB (6.8 MB for hybp) and the basis is 2,080 B a state,
-// 266 KB a block. Both stream from L2: a block reads each round's weights
-// (64 or 128 KB) and its states' basis (128 or 256 KB), 20 MB a
-// permutation, 2.6 GB for 2^14 states.
+// published int8 peak. But their operands do not fit in shared memory at
+// 128 states a block: the weights are 6.6 MB and the basis is 2,080 B a
+// state, 266 KB a block. Both stream from L2.
 //
 // What the design does about it, simply: the block shape, the shared tile
 // and the per-state code are the mxu8 kernel's (128 states a block, one
-// thread a state, 111,616 B of dynamic shared memory and 2,048 B more for
-// hybp, two blocks an SM), and the basis lives in a scratch tensor that the
-// wrapper allocates (2,080 B a state, padded to 2,112, for every state of
-// every block), which the MMA's B fragments read straight from global
-// memory. The other way, 64 states a block with the basis in shared memory
-// (about 215 KB), would leave one block of 2 warps on an SM, too few to
-// hide the latency of the carry chains that bound the kernel, and would
-// need a second shape of the tile code. The chain's weights live in a
-// device tensor, as mxu8's do, and pass through shared memory 512 bytes of
-// K at a time, so that a block pulls them through L2 once and not once per
-// warp; the stage is w_lin's place, idle during the chain, and w_lin is
-// staged again at its end. In the big dot each warp takes the 32 states
-// of its own threads (4 column tiles) and all 64 rows, and keeps the 64 s32
-// sums of each lane in registers over the whole K loop, so that a weight
-// fragment is loaded once for four MMAs. A lane loads 16 bytes at a time
-// and feeds them to two MMAs: the sum over k does not care which byte meets
-// which slot of the MMA as long as both operands agree, so the fragments
-// need not follow the MMA's own stride of 4 bytes in 16. hybp's small dot
-// reads its (64, 32) weights from a 2 KB shared buffer that the block
-// refills each round. hybp runs its split in the JAX order, in sequence:
-// with one thread a state and the MMAs in the same warps, starting the big
-// dot before the S-box overlaps nothing by itself; its big dot's value
-// waits across the S-box as 17 limbs in registers. Tail lanes of the last
-// block run a zero state (every thread must reach the barriers and the
-// warp-wide MMAs), and only their store is masked.
+// thread a state, 111,616 B of dynamic shared memory, two blocks an SM),
+// and the basis lives in a scratch tensor that the wrapper allocates (2,080
+// B a state, padded to 2,112, for every state of every block), which the
+// MMA's B fragments read straight from global memory. The chain's weights
+// live in a device tensor, as mxu8's do, and pass through shared memory 512
+// bytes of K at a time, so that a block pulls them through L2 once and not
+// once per warp; the stage is w_lin's place, idle during the chain, and
+// w_lin is staged again at its end. In the big dot each warp takes the 32
+// states of its own threads (4 column tiles) and all 64 rows, and keeps the
+// 64 s32 sums of each lane in registers over the whole K loop, so that a
+// weight fragment is loaded once for four MMAs. A lane loads 16 bytes at a
+// time and feeds them to two MMAs: the sum over k does not care which byte
+// meets which slot of the MMA as long as both operands agree, so the
+// fragments need not follow the MMA's own stride of 4 bytes in 16. Tail
+// lanes of the last block run a zero state (every thread must reach the
+// barriers and the warp-wide MMAs), and only their store is masked.
 //
 // The block-level code (the wide dot, the dot object, the block's body and
 // the launch) is in perm_hyb_block.cuh, which perm_hyb13.cu shares: the two
@@ -69,15 +59,6 @@ hades_perm_hyb(const int32_t* __restrict__ x, int32_t* __restrict__ out, long lo
                uint4* scratch) {
   extern __shared__ __align__(16) uint8_t smem[];
   hyb::perm_block<false, false>(x, out, n, convert, consts, weights, chain_w, scratch, smem);
-}
-
-__global__ void __launch_bounds__(hyb::kThreads)
-hades_perm_hybp(const int32_t* __restrict__ x, int32_t* __restrict__ out, long long n,
-                int convert, const uint32_t* __restrict__ consts,
-                const uint8_t* __restrict__ weights, const uint8_t* __restrict__ chain_w,
-                uint4* scratch) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  hyb::perm_block<true, false>(x, out, n, convert, consts, weights, chain_w, scratch, smem);
 }
 
 // The wide tile product alone, over any u8 (m, k) x (k, n) with m and k
@@ -120,15 +101,6 @@ int hades_perm_hyb_launch(const void* x, void* out, long long n, int convert,
                           const void* consts, const void* weights, const void* chain_w,
                           void* scratch, long long scratch_bytes, void* stream) {
   return launch_perm(hades_perm_hyb, false, x, out, n, convert, consts, weights, chain_w,
-                     scratch, scratch_bytes, stream);
-}
-
-// As hades_perm_hyb_launch; chain_w: hyb::chain_bytes(true) of wo_seg1,
-// wo_seg2, w_new, w_out (params.hybp_tables).
-int hades_perm_hybp_launch(const void* x, void* out, long long n, int convert,
-                           const void* consts, const void* weights, const void* chain_w,
-                           void* scratch, long long scratch_bytes, void* stream) {
-  return launch_perm(hades_perm_hybp, true, x, out, n, convert, consts, weights, chain_w,
                      scratch, scratch_bytes, stream);
 }
 

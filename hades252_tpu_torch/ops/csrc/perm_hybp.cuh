@@ -1,0 +1,265 @@
+// The `hybp` schedule's per-state code for the kernel in perm_hybp.cu: the
+// consumer's side of a block that is split into a consumer, which walks the
+// states through the rounds, and a producer, which runs the chain's big
+// dots ahead of it (perm_hybp.cu). Counterparts in
+// hades252_tpu/ops/perm_pallas.py: _perm_kernel_hybp (:945),
+// _redc_wide_big (:818); the schedule is params.dot_schedule_int and the
+// weights are params.hybp_tables, as perm_hyb.cuh describes them.
+//
+// What the TPU kernel did and this one does otherwise. There every
+// Montgomery reduction is two more byte dots (with p' and with p), because
+// the TPU's vector unit has no widening multiply and its matrix unit is the
+// only fast multiplier. This card's CUDA cores have a 32-bit multiply-add
+// with carry, so a reduction is 8 steps of 6 multiply-add pairs in a
+// thread's registers (field.cuh: redc_steps), with no shared memory and no
+// barrier, where the dots took six block barriers each. The dots that
+// remain are the ones with constant weights and a long K: the MDS layer of
+// the 8 full rounds, the chain's big dot over the older basis elements, its
+// small dot of the newest element, and the exit map. They all run on the
+// tensor cores.
+//
+// The code is written against a dot object:
+//   d.lin_wait()          the MDS weights are in place (start, and after the chain);
+//   d.mds_put(words)      this state's 160 state bytes, for the MDS dots;
+//   d.mds_run(k)          block k of the MDS weights (64 x 160) times them;
+//   d.mds_done()          the sums have been read;
+//   d.chain_begin()       no state of the block reads the MDS weights any more;
+//   d.basis_put(j, w)     this state's basis element j <- 8 limbs;
+//   d.basis_signal()      the elements put so far may be read by the producer;
+//   d.job_cols(q)         the sums of job q are ready to be read: for q < 59 round
+//                         q's dot (the producer's over the older elements plus,
+//                         for q > 0, the newest element's, which the consumer's
+//                         own warp runs), for q >= 59 word q - 59 of the exit;
+//   d.job_done(q)         they have been read;
+//   d.col(i)              column sum i of the last mds_run or job_cols.
+// On the card these wait on and signal the block's barriers; for the host,
+// below, the producer's jobs run in sequence at the signal that allows them.
+
+#pragma once
+
+#include "perm_hyb.cuh"
+
+namespace hades {
+namespace hybp {
+
+using hyb::kBasis;
+using hyb::kBasisBytes;
+using hyb::kT;
+using mxu8::kBlockRows;
+using mxu8::kLinK;
+
+// The producer's jobs: 59 big dots (round q's, over the older elements) and
+// the 5 blocks of the exit map. Job q multiplies the first job_k(q) bytes
+// of the basis, reads its weights at job_w(q) with rows job_stride(q) apart,
+// and may start after the consumer's signal number job_signal(q).
+constexpr int kJobs = kPartialRounds + kWidth;
+
+// Round 0 takes all its 6 elements; round q > 0 the 5 + q older ones (the
+// weights of the newest are zero in the table). Rounded up to the dot's step
+// of 64 bytes: the element after the last, if any, meets zero weights.
+HADES_HD int job_k(int q) {
+  if (q >= kPartialRounds) return kBasisBytes;
+  const int elems = q == 0 ? 1 + kWidth : kWidth + q;
+  return (32 * elems + 63) & ~63;
+}
+
+HADES_HD int job_stride(int q) {
+  return q < hyb::kSeg1Rounds ? hyb::kSeg1K : q < kPartialRounds ? hyb::kSeg2K : kBasisBytes;
+}
+
+HADES_HD const uint8_t* job_w(const uint8_t* chain_w, int q) {
+  if (q < hyb::kSeg1Rounds) return chain_w + q * (kBlockRows * hyb::kSeg1K);
+  if (q < kPartialRounds) {
+    return chain_w + hyb::kSeg1Bytes + (q - hyb::kSeg1Rounds) * (kBlockRows * hyb::kSeg2K);
+  }
+  return chain_w + hyb::kSeg1Bytes + hyb::kSeg2Bytes + hyb::kNewBytes +
+         (q - kPartialRounds) * (kBlockRows * kBasisBytes);
+}
+
+// Signal 0: elements 0..5 are in; signal r > 0: s_{r-1} is in. Round q's
+// older elements end with s_{q-2}; the exit needs s_58.
+HADES_HD int job_signal(int q) {
+  return q >= kPartialRounds ? kPartialRounds : q > 1 ? q - 1 : 0;
+}
+
+HADES_HD const uint8_t* new_w(const uint8_t* chain_w, int r) {
+  return chain_w + hyb::kSeg1Bytes + hyb::kSeg2Bytes + r * (kBlockRows * 32);
+}
+
+// out <- T R^-1 mod p for a 17-limb T < 2^RUNGS-ish p^2 (the bounds of
+// perm_mxu8.cuh's redc): the reduction on the CUDA cores, then the ladder.
+template <int RUNGS>
+HADES_FN void redc_big(uint32_t out[kLimbs], uint32_t t[kT]) {
+  redc_steps<kT>(t);
+  mxu8::ladder9<RUNGS>(t + kLimbs);
+  copy(out, t + kLimbs);
+}
+
+// s <- MDS s: one dot of the state's 160 bytes per output word, one wide
+// reduction each (T < 5p^2: two rungs).
+template <class Dot>
+HADES_FN void mds(Dot& d, uint32_t s[kWidth][kLimbs]) {
+  uint32_t t[kWidth][kT];
+  d.mds_put(&s[0][0]);
+#pragma unroll
+  for (int k = 0; k < kWidth; ++k) {
+    d.mds_run(k);
+    mxu8::recombine<63, kT>(d, t[k]);
+    d.mds_done();
+  }
+#pragma unroll
+  for (int k = 0; k < kWidth; ++k) redc_big<2>(s[k], t[k]);
+}
+
+// A full round: ARK, x^5 on every word (one copy of the S-box: word 4 is
+// S-boxed and the state rotated, five times over), the MDS dot.
+template <class Dot>
+HADES_FN void full_round(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ consts,
+                         int r) {
+#pragma unroll
+  for (int w = 0; w < kWidth; ++w) {
+    uint32_t a[kLimbs];
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) a[j] = consts[(r * kWidth + w) * kLimbs + j];
+    add_mod(s[w], s[w], a);
+  }
+#pragma unroll 1
+  for (int i = 0; i < kWidth; ++i) {
+    uint32_t last[kLimbs];
+    sbox(last, s[kWidth - 1]);
+#pragma unroll
+    for (int w = kWidth - 1; w > 0; --w) copy(s[w], s[w - 1]);
+    copy(s[0], last);
+  }
+  mds(d, s);
+}
+
+// The 59 partial rounds and the chain's exit. In: the state after full
+// round 3. Out: the state entering full round 63. Round r: s_{r-1} enters
+// the basis and is signalled, which lets the producer start round r + 1's
+// big dot while this thread reduces round r's sums and runs its S-box.
+template <class Dot>
+HADES_FN void chain(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ one_mont) {
+  uint32_t x[kLimbs], t[kT];
+  d.chain_begin();
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) x[j] = one_mont[j];
+  d.basis_put(0, x);
+#pragma unroll
+  for (int i = 0; i < kWidth; ++i) {
+    d.basis_put(1 + i, s[i]);
+    // dead until the exit, which shifts it: no register of it stays live
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) s[i][j] = 0;
+  }
+  d.basis_signal();
+#pragma unroll 1
+  for (int r = 0; r < kPartialRounds; ++r) {
+    if (r > 0) {
+      d.basis_put(kWidth + r, x);  // s_{r-1}
+      d.basis_signal();
+    }
+    d.job_cols(r);
+    mxu8::recombine<63, kT>(d, t);
+    d.job_done(r);
+    redc_big<5>(x, t);  // the S-box's input t_r
+    sbox(x, x);         // s_r
+  }
+  d.basis_put(kBasis - 1, x);  // s_58
+  d.basis_signal();
+#pragma unroll 1
+  for (int k = 0; k < kWidth; ++k) {
+    d.job_cols(kPartialRounds + k);
+    mxu8::recombine<63, kT>(d, t);
+    d.job_done(kPartialRounds + k);
+    redc_big<5>(x, t);
+#pragma unroll
+    for (int i = 0; i + 1 < kWidth; ++i) copy(s[i], s[i + 1]);
+    copy(s[kWidth - 1], x);
+  }
+}
+
+// The permutation. consts: hyb::kConstWords (the dense ARK, R^2, R mod p).
+template <class Dot>
+HADES_FN void perm(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ consts,
+                   bool convert) {
+  if (convert) mxu8::state_to_mont(s, consts);
+  d.lin_wait();
+#pragma unroll 1
+  for (int r = 0; r < kHalf; ++r) full_round(d, s, consts, r);
+  chain(d, s, consts + mxu8::kConstWords);
+  d.lin_wait();
+#pragma unroll 1
+  for (int r = kHalf + kPartialRounds; r < kRounds; ++r) full_round(d, s, consts, r);
+  if (convert) mxu8::state_from_mont(s);
+}
+
+#ifndef __CUDACC__
+// The host's dot: plain loops over the kernel's byte weights, and the
+// producer's jobs run in sequence, each at the signal that allows it, so
+// that a job sees the basis as the card's producer may see it at the
+// earliest: everything it needs and nothing later.
+struct HostDot {
+  const uint8_t* w_lin;
+  const uint8_t* chain_w;
+  uint8_t x[kLinK];
+  uint8_t y[kBasisBytes];
+  int32_t job[kJobs][kBlockRows];
+  int32_t c[kBlockRows];
+  int signals = 0, next_job = 0;
+
+  void lin_wait() {}
+  void mds_put(const uint32_t* words) {
+    for (int i = 0; i < kWidth * kLimbs; ++i) {
+      for (int b = 0; b < 4; ++b) x[4 * i + b] = (uint8_t)(words[i] >> (8 * b));
+    }
+  }
+  void mds_run(int k) {
+    const uint8_t* w = w_lin + k * kBlockRows * kLinK;
+    for (int m = 0; m < kBlockRows; ++m) {
+      int32_t sum = 0;
+      for (int i = 0; i < kLinK; ++i) sum += (int32_t)w[m * kLinK + i] * x[i];
+      c[m] = sum;
+    }
+  }
+  void mds_done() {}
+  void chain_begin() {
+    signals = next_job = 0;
+    for (int i = 0; i < kBasisBytes; ++i) y[i] = 0xA5;  // unwritten elements meet zero weights
+  }
+  void basis_put(int j, const uint32_t* words) {
+    for (int i = 0; i < kLimbs; ++i) {
+      for (int b = 0; b < 4; ++b) y[32 * j + 4 * i + b] = (uint8_t)(words[i] >> (8 * b));
+    }
+  }
+  void basis_signal() {
+    for (; next_job < kJobs && job_signal(next_job) <= signals; ++next_job) {
+      const uint8_t* w = job_w(chain_w, next_job);
+      const int k = job_k(next_job), stride = job_stride(next_job);
+      for (int m = 0; m < kBlockRows; ++m) {
+        int32_t sum = 0;
+        for (int i = 0; i < k; ++i) sum += (int32_t)w[m * stride + i] * y[i];
+        job[next_job][m] = sum;
+      }
+    }
+    ++signals;
+  }
+  bool job_cols(int q) {
+    if (q >= next_job) return false;  // the producer could not have run it yet
+    const uint8_t* w = new_w(chain_w, q);
+    for (int m = 0; m < kBlockRows; ++m) {
+      int32_t sum = job[q][m];
+      if (q > 0 && q < kPartialRounds) {
+        for (int i = 0; i < 32; ++i) sum += (int32_t)w[m * 32 + i] * y[32 * (kWidth + q) + i];
+      }
+      c[m] = sum;
+    }
+    return true;
+  }
+  void job_done(int) {}
+  uint32_t col(int i) const { return (uint32_t)c[i]; }
+};
+#endif
+
+}  // namespace hybp
+}  // namespace hades

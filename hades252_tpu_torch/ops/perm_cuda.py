@@ -3,13 +3,15 @@ plain PyTorch versions.
 
 Port of the eight schedules of `hades252_tpu/ops/perm_pallas.py`
 (`permute_planar` :1270, `_batch_major` :1390). The kernels are `hades_perm_naive` (dense rounds, replacing
-`_perm_kernel`) and `hades_perm_opt` (sparse-factored partial rounds,
-replacing `_perm_kernel_opt`) in `csrc/perm.cu`, `hades_perm_mxu8`
-(dense rounds with every constant product as an 8-bit integer tensor-core
-MMA, replacing `_perm_kernel_mxu8`) in `csrc/perm_mxu8.cu`, and
-`hades_perm_hyb` and `hades_perm_hybp` (mxu8's full rounds around the
-full-expansion partial chain, replacing `_perm_kernel_hyb` and
-`_perm_kernel_hybp`) in `csrc/perm_hyb.cu`, `hades_perm_mxu` (mxu8's
+`_perm_kernel`) and `hades_perm_opt` (sparse-factored partial rounds on a
+group of 4 lanes a state, replacing `_perm_kernel_opt`) in `csrc/perm.cu`,
+`hades_perm_mxu8` (dense rounds with every constant product as an 8-bit
+integer tensor-core MMA, replacing `_perm_kernel_mxu8`) in
+`csrc/perm_mxu8.cu`, `hades_perm_hyb` (mxu8's full rounds around the
+full-expansion partial chain, replacing `_perm_kernel_hyb`) in
+`csrc/perm_hyb.cu`, `hades_perm_hybp` (the chain with each round's dot
+split, the big one run ahead by a producer warpgroup as wgmma, replacing
+`_perm_kernel_hybp`) in `csrc/perm_hybp.cu`, `hades_perm_mxu` (mxu8's
 schedule with the constant products as bf16 tensor-core MMAs with float32
 sums, replacing `_perm_kernel_mxu`) in `csrc/perm_mxu.cu`, and
 `hades_perm_hyb13` and `hades_perm_hybp13` (hyb and hybp with every S-box
@@ -99,9 +101,11 @@ _BLOCK_STATES = 128
 def hyb_kernel_tables(schedule: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The hyb or hybp kernel's tables as its launch takes them: mxu8's
     consts with R mod p appended (uint32 limbs), mxu8's weights (for the
-    full rounds and every REDC), and the chain's weights as one flat uint8
-    array: segment 1, segment 2, for hybp w_new, then w_out. hyb13 and
-    hybp13 take hyb's and hybp's unchanged (perm_pallas.py:1333-1342)."""
+    full rounds and every REDC; hybp's kernel takes the MDS block alone),
+    and the chain's weights as one flat uint8 array: segment 1, segment 2,
+    for hybp w_new, then w_out. hyb13 and hybp13 take hyb's and hybp's
+    unchanged (perm_pallas.py:1333-1342). The hybp kernel also takes
+    `packed_weights`."""
     consts, weights = mxu8_kernel_tables()
     t = hybp_tables() if schedule.startswith("hybp") else hyb_tables()
     consts = np.concatenate([consts, digits_to_limbs(t["one_mont"])])
@@ -109,10 +113,54 @@ def hyb_kernel_tables(schedule: str) -> tuple[np.ndarray, np.ndarray, np.ndarray
     return consts, weights, chain
 
 
-#: The dense schedules whose constant products are tile products, and the
-#: schedules with the full-expansion chain (which need the scratch tensor).
+#: The rows of a job of the hybp kernel's producer and the bytes of K a stage
+#: of its ring holds (csrc/perm_hybp.cu: kBlockRows, kStageK).
+_HYBP_ROWS = 64
+_HYBP_STAGE_K = 256
+
+
+def hybp_job_k(q: int) -> int:
+    """Bytes of the basis that job q of the hybp kernel's producer multiplies
+    (csrc/perm_hybp.cuh: job_k): round q's older elements, rounded up to 64
+    bytes, or the whole padded basis for the exit's five blocks."""
+    if q >= 59:
+        return 2112
+    return (32 * (6 if q == 0 else 5 + q) + 63) & ~63
+
+
+@functools.cache
+def packed_weights() -> np.ndarray:
+    """The weights of the hybp kernel's 64 producer jobs (the 59 rounds' big
+    dots over the older elements, then the exit's 5 blocks), job after job,
+    each job's (64, job_k) block in the order of wgmma's shared-memory
+    operand without swizzle: cut into 16-byte vectors, vector v of row r at
+    v * 1024 + (r // 8) * 128 + (r % 8) * 16, its K filled up with zeros to
+    whole stages of the kernel's ring. A stage is then a contiguous run of
+    a job's bytes, which one bulk copy moves."""
+    t = hybp_tables()
+    jobs = []
+    for q in range(64):
+        if q < 27:
+            w = t["wo_seg1"][q]
+        elif q < 59:
+            w = t["wo_seg2"][q - 27]
+        else:
+            w = t["w_out"].reshape(5, _HYBP_ROWS, -1)[q - 59]
+        k = hybp_job_k(q)
+        assert w.shape[0] == _HYBP_ROWS and not w[:, k:].any()
+        padded = np.zeros((_HYBP_ROWS, -(-k // _HYBP_STAGE_K) * _HYBP_STAGE_K), np.uint8)
+        padded[:, :k] = w[:, :k]
+        # (row group, row, vector, byte) -> (vector, row group, row, byte)
+        jobs.append(padded.reshape(8, 8, -1, 16).transpose(2, 0, 1, 3).reshape(-1))
+    return np.ascontiguousarray(np.concatenate(jobs))
+
+
+#: The dense schedules whose constant products are tile products, the
+#: schedules with the full-expansion chain, and those of them whose kernel
+#: keeps the basis in a scratch tensor (hybp's keeps it in shared memory).
 _DENSE_DOT = ("mxu8", "mxu")
 _CHAINED = ("hyb", "hybp", "hyb13", "hybp13")
+_SCRATCH = ("hyb", "hyb13", "hybp13")
 
 
 @functools.cache
@@ -122,6 +170,8 @@ def _device_tables(schedule: str, device: torch.device) -> tuple[torch.Tensor, .
     hyb's and hybp's."""
     dense = schedule in _DENSE_DOT
     tables = mxu8_kernel_tables() if dense else hyb_kernel_tables(schedule.removesuffix("13"))
+    if schedule == "hybp":
+        tables = (*tables, packed_weights())
     return tuple(torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).to(device)
                  for t in tables)
 
@@ -138,7 +188,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, *, convert: bool, schedule: str)
         stream = torch.cuda.current_stream().cuda_stream
         args = (x.data_ptr(), out.data_ptr(), x.shape[2], int(convert))
         fn = getattr(lib, f"hades_perm_{schedule}_launch")
-        if schedule in _CHAINED:
+        if schedule in _SCRATCH:
             tables = _device_tables(schedule, torch.device("cuda", dev))
             # every block writes the basis of all its states, live or not
             blocks = -(-x.shape[2] // _BLOCK_STATES)
@@ -146,7 +196,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, *, convert: bool, schedule: str)
                                   device=x.device)
             status = fn(*args, *(t.data_ptr() for t in tables), scratch.data_ptr(),
                         scratch.numel(), stream)
-        elif schedule in _DENSE_DOT:
+        elif schedule in _DENSE_DOT or schedule in _CHAINED:
             tables = _device_tables(schedule, torch.device("cuda", dev))
             status = fn(*args, *(t.data_ptr() for t in tables), stream)
         else:

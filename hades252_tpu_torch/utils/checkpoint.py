@@ -106,8 +106,12 @@ def merkle_root_checkpointed(leaves: torch.Tensor, d: str, perm_mont_fn=None,
                 f"checkpoint dir {d} holds a different build: {prior} != {meta}"
             )
     else:
-        with open(_meta_path(d), "w") as f:
+        # through a temporary file, as save_level writes a level: a kill
+        # mid-write leaves no cut-short meta.json to refuse the next resume
+        tmp = _meta_path(d) + ".tmp"
+        with open(tmp, "w") as f:
             json.dump(meta, f)
+        os.replace(tmp, _meta_path(d))
 
     start = highest_saved_level(d, height, n)
     if start is None or (start == 0 and not save_leaves):

@@ -1,5 +1,7 @@
-"""The kernels' build helpers, the per-state code of `perm.cuh`,
-`perm_mxu8.cuh` and `perm_hyb.cuh` compiled for the host, and the independent oracles of
+"""The kernels' build helpers, the carry-chain arithmetic of `field.cuh` and
+the per-state code of `perm.cuh` (a lane group's lanes run in turn),
+`perm_mxu8.cuh`, `perm_hyb.cuh` and `perm_hybp.cuh` (the producer's jobs run
+in sequence) compiled for the host, and the independent oracles of
 `chip_smoke.py`, all on the CPU."""
 
 import shutil
@@ -24,7 +26,10 @@ torch.set_num_threads(1)
 # -> limbs on stdout. mxu8 and mxu run perm_mxu8.cuh and the chained schedules
 # perm_hyb.cuh with their host dots, plain loops over the kernels' byte weights in
 # the MMA's place (so mxu, whose kernel differs from mxu8's only in the MMA, runs
-# mxu8's host code); hyb13 and hybp13 take the base-2^13 S-box.
+# mxu8's host code); hyb13 and hybp13 take the base-2^13 S-box. opt runs a group of
+# HADES_GROUP lanes (default 4; the kernel runs 4, 2 or 1 by the batch) a state, the lanes in turn and the
+# shuffles as array reads; hybp runs perm_hybp.cuh, the consumer's code of its
+# kernel, with each of the producer's jobs run at the signal that allows it.
 # HARNESS13 runs the base-2^13 products alone: to13 and mul13 over pairs of
 # 8-limb values -> the 20 digits of the first, its square and the product.
 HARNESS = r"""
@@ -35,6 +40,7 @@ HARNESS = r"""
 #include "perm.cuh"
 #include "perm_mxu8.cuh"
 #include "perm_hyb.cuh"
+#include "perm_hybp.cuh"
 using namespace hades;
 template <typename T>
 static std::vector<T> read_file(const char* path) {
@@ -65,18 +71,31 @@ int main(int argc, char** argv) {
   const uint32_t* src = tables.data();
   for (int j = 0; j < kLimbs; ++j) if (src[j] != p_limb(j)) return 2;
   src += kLimbs;
-  TAKE(c_r2) TAKE(c_ark) TAKE(c_mds) TAKE(c_ark_fr) TAKE(c_c0) TAKE(c_u) TAKE(c_w)
-  TAKE(c_m) TAKE(c_d) TAKE(c_final)
+  TAKE(c_r2) TAKE(c_ark) TAKE(c_mds) TAKE(g_ark_fr) TAKE(g_c0) TAKE(g_u) TAKE(g_w)
+  TAKE(g_m) TAKE(g_d) TAKE(g_final)
   if (src != tables.data() + tables.size()) return 3;
+  memcpy(g_r2, c_r2, sizeof(g_r2));
+  memcpy(g_mds, c_mds, sizeof(g_mds));
+  const int group = getenv("HADES_GROUP") ? atoi(getenv("HADES_GROUP")) : 4;
   for (size_t b = 0; b * 40 < states.size(); ++b) {
     uint32_t s[kWidth][kLimbs];
     memcpy(s, &states[b * 40], sizeof(s));
     if (schedule == 7) hyb::perm<true, true>(dot, s, consts.data(), chain.data(), convert != 0);
     else if (schedule == 6) hyb::perm<false, true>(dot, s, consts.data(), chain.data(), convert != 0);
-    else if (schedule == 4) hyb::perm<true>(dot, s, consts.data(), chain.data(), convert != 0);
+    else if (schedule == 4) {
+      // the consumer's code, with the producer's jobs run at their signals
+      hybp::HostDot split{weights.data(), chain.data()};
+      hybp::perm(split, s, consts.data(), convert != 0);
+    }
     else if (schedule == 3) hyb::perm<false>(dot, s, consts.data(), chain.data(), convert != 0);
     else if (schedule == 2 || schedule == 5) mxu8::perm(dot, s, consts.data(), convert != 0);
-    else if (schedule == 1) perm_opt(s, convert != 0);
+    else if (schedule == 1) {
+      // the lanes of a group in turn; their copies of word 4 must agree
+      const bool same = group == 4 ? perm_opt_host<4>(s, convert != 0)
+                      : group == 2 ? perm_opt_host<2>(s, convert != 0)
+                                   : perm_opt_host<1>(s, convert != 0);
+      if (!same) return 5;
+    }
     else perm_naive(s, convert != 0);
     memcpy(&states[b * 40], s, sizeof(s));
   }
@@ -112,6 +131,45 @@ int main(int argc, char** argv) {
 """
 
 
+# The carry-chain arithmetic of field.cuh alone, over pairs (a, b) of 8-limb
+# values: mul_wide8 (16 limbs), sqr_wide8 of a (16), redc_steps<16> of a b in
+# place (16), mont_mul (8), mont_sqr of a (8), add_mod (8), and redc_steps<17>
+# of a b with a 17th limb of a's low 6 bits (17).
+HARNESS_FIELD = r"""
+#include <cstdio>
+#include <vector>
+#include "field.cuh"
+using namespace hades;
+int main(int argc, char** argv) {
+  FILE* f = fopen(argv[1], "rb");
+  std::vector<uint32_t> v;
+  uint32_t w;
+  while (fread(&w, 4, 1, f) == 1) v.push_back(w);
+  fclose(f);
+  for (size_t i = 0; i + 16 <= v.size(); i += 16) {
+    uint32_t t[16], s[16], r[16], m[8], q[8], a[8], u[17];
+    mul_wide8(t, &v[i], &v[i + 8]);
+    sqr_wide8(s, &v[i]);
+    for (int j = 0; j < 16; ++j) r[j] = u[j] = t[j];
+    redc_steps<16>(r);
+    mont_mul(m, &v[i], &v[i + 8]);
+    mont_sqr(q, &v[i]);
+    add_mod(a, &v[i], &v[i + 8]);
+    u[16] = v[i] & 63u;
+    redc_steps<17>(u);
+    fwrite(t, 4, 16, stdout);
+    fwrite(s, 4, 16, stdout);
+    fwrite(r, 4, 16, stdout);
+    fwrite(m, 4, 8, stdout);
+    fwrite(q, 4, 8, stdout);
+    fwrite(a, 4, 8, stdout);
+    fwrite(u, 4, 17, stdout);
+  }
+  return 0;
+}
+"""
+
+
 def _cxx():
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
@@ -141,6 +199,47 @@ def test_base13_products_on_host_are_exact(tmp_path):
         assert [int(d) for d in row[:20]] == [(x >> (13 * k)) & 0x1FFF for k in range(20)]
         assert sum(int(v) << (32 * i) for i, v in enumerate(row[20:36])) == x * x
         assert sum(int(v) << (32 * i) for i, v in enumerate(row[36:])) == x * y
+
+
+def test_field_chains_on_host_are_exact(tmp_path):
+    """The product, the squaring and the special-p reduction of field.cuh,
+    whose steps are single PTX instructions on the card and plain C with the
+    carry in a variable here: 0, 1, p - 1, limb edges and random values, and
+    the raw products also on the limits of 256 bits."""
+    from hades252_tpu_torch.params import P
+
+    (tmp_path / "h.cpp").write_text(HARNESS_FIELD)
+    subprocess.run([_cxx(), "-O1", "-std=c++17", "-w", f"-I{_build.CSRC}", "-o",
+                    str(tmp_path / "h"), str(tmp_path / "h.cpp")], check=True, timeout=300)
+    rng = np.random.default_rng(10)
+    r = 1 << 256
+    edge = [0, 1, P - 1, P - 2, 2, (1 << 32) - 1, 1 << 32, 1 << 64]
+    vals = edge + [int.from_bytes(rng.bytes(32), "little") % P for _ in range(120)]
+    canonical = [(a, b) for a in edge for b in edge] + list(zip(vals, reversed(vals)))
+    wide = [r - 1, P, 2 * P - 1, (1 << 255) + 1]
+    pairs = canonical + [(a, b) for a in wide for b in wide + edge[:4]]
+    limbs = [[(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for pair in pairs for x in pair]
+    np.asarray(limbs, "<u4").tofile(tmp_path / "in.bin")
+    out = subprocess.run([str(tmp_path / "h"), str(tmp_path / "in.bin")], capture_output=True,
+                         check=True, timeout=60).stdout
+    rows = np.frombuffer(out, "<u4").reshape(len(pairs), 16 + 16 + 16 + 8 + 8 + 8 + 17)
+
+    def value(limbs):
+        return sum(int(v) << (32 * i) for i, v in enumerate(limbs))
+
+    rinv = pow(r, -1, P)
+    for k, ((a, b), row) in enumerate(zip(pairs, rows)):
+        assert value(row[:16]) == a * b
+        assert value(row[16:32]) == a * a
+        if a * b < r * P:
+            # the quotient q with q R = T + M p for some 0 <= M < R
+            for t, q in ((a * b, value(row[40:48])),
+                         (a * b + ((a & 63) << 512), value(row[80:89]))):
+                assert (q * r - t) % P == 0 and 0 <= (q * r - t) // P < r
+        if k < len(canonical):
+            assert value(row[48:56]) == a * b * rinv % P
+            assert value(row[56:64]) == a * a * rinv % P
+            assert value(row[64:72]) == (a + b) % P
 
 
 @pytest.fixture(scope="module")
@@ -180,13 +279,78 @@ def test_kernel_math_on_host_matches_int_oracle(harness, schedule, convert):
     assert np.array_equal(got, digits_to_limbs(want))
 
 
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("convert", [True, False])
+def test_opt_lane_groups_on_host_match_int_oracle(harness, group, convert):
+    """perm_opt_lanes for every group size the kernel runs (4, 2 or 1 lanes a
+    state, by the batch): the words spread over the lanes, the sum over the group and the
+    all-gathers as array reads, over the 128 KATs; every lane's copy of word
+    4 must agree at the end (the harness returns 5 otherwise)."""
+    inputs, expected, inputs_m, expected_m = selftest._vectors()
+    x, want = (inputs, expected) if convert else (inputs_m, expected_m)
+    states = harness / f"states_g{group}_{int(convert)}.bin"
+    digits_to_limbs(x).astype("<u4").tofile(states)
+    out = subprocess.run(
+        [str(harness / "harness"), str(harness / "tables.bin"), str(states), "1",
+         str(int(convert)), str(harness / "mxu8_consts.bin"), str(harness / "mxu8_weights.bin")],
+        capture_output=True, check=True, timeout=300, env={"HADES_GROUP": str(group)},
+    ).stdout
+    assert np.array_equal(np.frombuffer(out, "<u4").reshape(-1, 5, 8), digits_to_limbs(want))
+
+
+def test_hybp_jobs_cover_their_rounds():
+    """The producer's job table of perm_hybp.cuh, mirrored here: job q stops
+    at the last older element of its round, and everything it leaves out of
+    the table's padded width is zero; w_new holds what it leaves to the
+    consumer's small dot."""
+    from hades252_tpu_torch.params import hybp_tables
+
+    t = hybp_tables()
+    for q in range(59):
+        w = t["wo_seg1"][q] if q < 27 else t["wo_seg2"][q - 27]
+        k = (32 * (6 if q == 0 else 5 + q) + 63) & ~63
+        assert k <= w.shape[1] and not w[:, k:].any()
+        assert w[:, : 32 * (6 if q == 0 else 5 + q)].any()
+        if q:
+            assert not w[:, 32 * (5 + q): 32 * (6 + q)].any() and t["w_new"][q].any()
+    assert not t["w_new"][0].any() and t["w_out"].shape == (320, 2112)
+
+
+def test_hybp_packed_weights_hold_every_job_in_stage_order():
+    """perm_cuda.packed_weights, which the hybp kernel's bulk copies read:
+    job after job, K filled up with zeros to whole stages of 256 bytes, byte
+    k of row r of a job at (k // 16) * 1024 + (r // 8) * 128 + (r % 8) * 16
+    + k % 16 (the operand order of the kernel's wgmma), so a stage's 16,384
+    bytes are contiguous."""
+    from hades252_tpu_torch.params import hybp_tables
+
+    t = hybp_tables()
+    packed = perm_cuda.packed_weights()
+    assert packed.dtype == np.uint8 and packed.flags.c_contiguous
+    at = 0
+    rng = np.random.default_rng(12)
+    for q in range(64):
+        w = (t["wo_seg1"][q] if q < 27 else t["wo_seg2"][q - 27] if q < 59
+             else t["w_out"][64 * (q - 59): 64 * (q - 58)])
+        k = perm_cuda.hybp_job_k(q)
+        assert k == (2112 if q >= 59 else (32 * (6 if q == 0 else 5 + q) + 63) & ~63)
+        padded = -(-k // 256) * 256
+        job = packed[at: at + 64 * padded]
+        for r, kk in zip(rng.integers(0, 64, 200), rng.integers(0, padded, 200)):
+            want = w[r, kk] if kk < k else 0
+            assert job[(kk // 16) * 1024 + (r // 8) * 128 + (r % 8) * 16 + kk % 16] == want
+        assert int(job.astype(np.int64).sum()) == int(w[:, :k].astype(np.int64).sum())
+        at += 64 * padded
+    assert at == packed.size and at % 16384 == 0
+
+
 def test_source_hash_covers_every_source():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = sorted(p.name for p in _build.CSRC.glob("*.cu*"))
     assert names == ["field.cuh", "mma_tile.cuh", "perm.cu", "perm.cuh", "perm_hyb.cu",
-                     "perm_hyb.cuh", "perm_hyb13.cu", "perm_hyb_block.cuh", "perm_mxu.cu",
-                     "perm_mxu8.cu", "perm_mxu8.cuh"]
+                     "perm_hyb.cuh", "perm_hyb13.cu", "perm_hyb_block.cuh", "perm_hybp.cu",
+                     "perm_hybp.cuh", "perm_mxu.cu", "perm_mxu8.cu", "perm_mxu8.cuh"]
 
 
 def test_ptxas_summary():
@@ -322,19 +486,36 @@ def test_chip_smoke_bound(schedule):
     assert many["bytes_ms"] < 16 * one["bytes_ms"]
     assert (one["tensor_ms"] > 0) == (schedule not in ("naive", "opt"))
     mxu8 = chip_smoke.bound("mxu8", 1 << 14)
-    if schedule in ("hyb", "hybp"):
+    if schedule == "hyb":
         # 401 REDCs against mxu8's 632; the chain's dots outweigh the MDS dots they replace
         assert one["cores_ms"] < mxu8["cores_ms"] and one["tensor_ms"] > mxu8["tensor_ms"]
+    if schedule == "hybp":
+        assert one["cores_ms"] < mxu8["cores_ms"]
+        # its 401 REDCs run on the CUDA cores: 3,040 byte multiply-adds each leave the
+        # tensor cores' count, 81 operations in place of 215 stay on the cores'
+        hyb = chip_smoke.bound("hyb", 1 << 14)
+        assert hyb["tensor_ms"] - one["tensor_ms"] == pytest.approx(
+            2 * 401 * 3040 * (1 << 14) / chip_smoke.INT8_OPS_PER_S * 1e3)
+        assert hyb["cores_ms"] - one["cores_ms"] == pytest.approx(
+            401 * (215 - 81) * (1 << 14) / chip_smoke.INT32_OPS_PER_S * 1e3)
+    if schedule in ("naive", "opt"):
+        # 198 of the products are the S-boxes' squares: 36 raw products, not 64
+        products, adds = (1982, 1675) if schedule == "naive" else (1054, 984)
+        ops = 136 * products - 28 * 198 + 16 * adds
+        assert one["cores_ms"] == pytest.approx(ops * (1 << 14) / chip_smoke.INT32_OPS_PER_S * 1e3)
     if schedule == "mxu":
         # mxu8's work, its dots at the bf16 rate, half the int8 one
         assert one["cores_ms"] == mxu8["cores_ms"] and one["bytes_ms"] == mxu8["bytes_ms"]
         assert one["tensor_ms"] == pytest.approx(mxu8["tensor_ms"] * 1979 / 989)
     if schedule.endswith("13"):
-        # the same dots and tables; 99 S-boxes of 1,420 operations in place of 192
-        base = chip_smoke.bound(schedule.removesuffix("13"), 1 << 14)
-        assert one["tensor_ms"] == base["tensor_ms"] and one["bytes_ms"] == base["bytes_ms"]
-        extra = 99 * (1420 - 192) * (1 << 14) / chip_smoke.INT32_OPS_PER_S * 1e3
-        assert one["cores_ms"] - base["cores_ms"] == pytest.approx(extra)
+        # the same tables; 99 S-boxes of 1,420 operations in place of 136. hybp13 keeps the
+        # first port's shape: hyb's dots (REDCs included) and the split's 17-limb sums
+        hyb = chip_smoke.bound("hyb", 1 << 14)
+        assert one["tensor_ms"] == hyb["tensor_ms"]
+        assert one["bytes_ms"] == chip_smoke.bound(schedule.removesuffix("13"), 1 << 14)["bytes_ms"]
+        extra = 99 * (1420 - 136) + (58 * (2 * 63 + 17) if schedule == "hybp13" else 0)
+        assert one["cores_ms"] - hyb["cores_ms"] == pytest.approx(
+            extra * (1 << 14) / chip_smoke.INT32_OPS_PER_S * 1e3)
 
 
 def test_chip_smoke_damage_leaves_the_level_below_whole(tmp_path):

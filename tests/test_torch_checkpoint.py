@@ -208,3 +208,30 @@ def test_single_leaf_and_default_perm(tmp_path):
     root = checkpoint.merkle_root_checkpointed(_t(leaves), str(tmp_path / "d"))  # the CPU oracle
     assert np.array_equal(root.numpy(), np.asarray(jmerkle.merkle_root(jnp.asarray(leaves),
                                                                         _jax_perm())))
+
+
+def test_truncated_temporary_meta_does_not_stop_a_resume(tmp_path):
+    """meta.json is written through a temporary file and a rename, bytes as
+    the JAX package writes them. A kill mid-write leaves a cut-short
+    `meta.json.tmp`: beside a good meta.json it must not stop a resume, and
+    alone (the first build died before the rename) not a fresh build either."""
+    leaves, d = _t(_leaves(64, 11)), str(tmp_path / "c")
+    jd = str(tmp_path / "j")
+    fn = Counted(make_perm_mont_fn("ref"))
+    root = checkpoint.merkle_root_checkpointed(leaves, d, fn)
+    jcheckpoint.merkle_root_checkpointed(jnp.asarray(_leaves(64, 11)), jd, _jax_perm())
+    meta = open(os.path.join(d, "meta.json"), "rb").read()
+    assert meta == open(os.path.join(jd, "meta.json"), "rb").read()
+    assert not os.path.exists(os.path.join(d, "meta.json.tmp"))
+    with open(os.path.join(d, "meta.json.tmp"), "wb") as f:
+        f.write(meta[:7])
+    os.remove(os.path.join(d, "level_3.bin"))
+    fn.calls = 0
+    assert torch.equal(checkpoint.merkle_root_checkpointed(leaves, d, fn), root)
+    assert fn.calls == 1 and open(os.path.join(d, "meta.json"), "rb").read() == meta
+    alone = str(tmp_path / "alone")
+    os.makedirs(alone)
+    with open(os.path.join(alone, "meta.json.tmp"), "wb") as f:
+        f.write(meta[:7])
+    assert torch.equal(checkpoint.merkle_root_checkpointed(leaves, alone, fn), root)
+    assert json.load(open(os.path.join(alone, "meta.json"))) == json.loads(meta)

@@ -52,6 +52,27 @@ def test_kernel_matches_plain(cuda_device, b, schedule, convert):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [5, 63, 65, 127, 129, (1 << 14) + 1])
+@pytest.mark.parametrize("schedule", ["opt", "hybp"])
+@pytest.mark.parametrize("convert", [True, False])
+def test_ragged_edges_of_lane_groups_and_small_blocks(cuda_device, b, schedule, convert):
+    """opt runs 4 lanes a state (32 states a block) at these sizes and one
+    thread a state above 2^14, and hybp 64 states a block: batches that end
+    inside a group, a warp or a block, against the plain version and, for
+    opt, the native engine's sparse schedule."""
+    from hades252_tpu_torch.utils import native
+
+    x = _elements((b, 5), 40 + b)
+    planar = x.permute(1, 2, 0).contiguous().to(cuda_device)
+    got = perm_cuda.permute_planar(planar, convert=convert, schedule=schedule)
+    want = perm_cuda.permute_planar_plain(planar, convert=convert, schedule=schedule)
+    assert torch.equal(got, want)
+    if schedule == "opt" and convert:
+        engine = native.perm_batch_digits(x.numpy())
+        assert np.array_equal(got.permute(2, 0, 1).cpu().numpy(), engine)
+
+
+@pytest.mark.cuda
 def test_kat_gate(cuda_device):
     selftest.assert_device_correct(cuda_device)
 
