@@ -7,23 +7,28 @@ the CUDA toolkit and PyTorch built for CUDA. It builds the permutation
 kernels from `hades252_tpu_torch/ops/csrc/`, then:
 
   1. prints the card, its power limit and the toolchain;
-  2. builds the kernels and prints ptxas's register and spill counts;
+  2. builds the kernels and prints ptxas's register and spill counts (and
+     any warning of ptxas about wgmma), and the dense kernels' shared
+     memory;
   3. runs the KAT gate: the 128 selftest vectors tiled to 2^14 lanes
      through all eight kernels (`naive`, `opt`, `mxu8`, `hyb`, `hybp`,
      `mxu`, `hyb13`, `hybp13`), canonical and Montgomery paths, against the
      exact int oracle (which is itself held against the four SURVEY known
      answers);
   4. holds each kernel against its plain PyTorch version on the card at
-     B = 2^14, 4096 and a ragged 1000, both `convert` values, and `naive`
-     and `opt` at the first Merkle level's B = 2^18 on the Montgomery path;
-     `opt` (a group of lanes a state) and `hybp` (64 states a block) also
-     at B = 1, 5, 127, 129 and 2^14 + 1, where `opt` is held against the
-     native engine too (built here: an engine that does not build fails
-     the run); and holds the tensor-core tile products against a float64 matmul:
-     `mxu8`'s and `mxu`'s (bf16 with float32 sums) at the shapes of their
-     three dots, `mxu`'s also with all-255 operands at K = 160, the largest
-     sum it can meet, and the wide one of `hyb` and `hybp` at K = 1024,
-     2048 and 2080 with the chain's own weights;
+     B = 2^14, 4096 and a ragged 1000, both `convert` values, and `naive`,
+     `opt`, `mxu8` and `mxu` at the first Merkle level's B = 2^18 on the
+     Montgomery path; the redesigned kernels, `opt` (a group of lanes a
+     state), `hybp` (64 states a block), `mxu8` and `mxu` (a warpgroup of
+     128), also at B = 1, 5, 127, 129 and 2^14 + 1, where `opt` is held
+     against the native engine too (built here: an engine that does not
+     build fails the run); and holds every tensor-core tile product a
+     kernel runs against a float64 matmul: the MDS products of `mxu8` (u8
+     wgmma) and `mxu` (bf16 wgmma, float32 sums) with w_lin and with
+     all-255 operands at 320 x 160, the largest sum they can meet, the
+     block tile product of `hyb`, `hyb13` and `hybp13` with w_lin, w_pp and
+     w_p, and the wide one of `hyb` and `hybp` at K = 1024, 2048 and 2080
+     with the chain's own weights;
   5. builds the arity-4 Merkle root over 2^20 seeded leaves through
      `merkle_root` (BASELINE config 4) with the default `opt` kernel, and
      over their first 2^16 with the `opt`, `naive` and `mxu8` kernels, and
@@ -65,8 +70,9 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      `merkle_root` through the same kernel, so the cost of the ten
      device-to-host copies and file writes is a number) with CUDA events
      (median of 5 after a warm-up), and works out each kernel's bound: the
-     least time the card could take for the same states (`bound`); `opt`
-     and `hybp` also at B = 2^10, 2^16 and 2^18.
+     least time the card could take for the same states (`bound`); the
+     redesigned `opt`, `hybp`, `mxu8` and `mxu` also at B = 2^10, 2^16 and
+     2^18.
 
 Each path of phases 5-7b runs with the launch counts set to 0 just before
 it and read just after; the kernels' JSON line reports their sum. The
@@ -76,8 +82,9 @@ single PyTorch call computes a 255-bit modular permutation, so the line's
 `library_ms` is null for every kernel.
 
 With `--profile` it also traces one warm call of the tree, the sponge and
-the cipher through `opt`, of each of the openings' paths and of the
-checkpointed build with `torch.profiler` (phase 9) and prints, per path, the span of
+the cipher through `opt`, of the cipher through `mxu8`, of each of the
+openings' paths and of the checkpointed build (through `mxu`) with
+`torch.profiler` (phase 9) and prints, per path, the span of
 its device work, the time the device was busy, the idle share, the
 permutation kernel's share and the plain-torch glue's.
 
@@ -148,10 +155,10 @@ REPLACES = {
     "hybp13": "hades252_tpu/ops/perm_pallas.py:945 (_perm_kernel_hybp, sbox13=True)",
 }
 # opt runs 4 lanes a state, 32 states a block (one thread a state above
-# 2^14), and hybp 64 states a block: batches that end inside a group, a warp
-# or a block
+# 2^14), hybp 64 states a block, mxu8 and mxu one warpgroup of 128: batches
+# that end inside a group, a warp, a warpgroup or a block
 RAGGED = (1, 5, 127, 129, PERM_BATCH + 1)
-REDESIGNED = ("opt", "hybp")
+REDESIGNED = ("opt", "hybp", "mxu8", "mxu")
 TIMED_SIZES = (1 << 10, 1 << 16, 1 << 18)   # beside PERM_BATCH, for the redesigned kernels
 CKPT_KEEP = 4               # the damage: level files above it go, its own is cut short
 
@@ -240,11 +247,12 @@ def bound(schedule: str, b: int) -> dict:
       r)), the exit (315, 2080), each with 2 adds per recombined column;
       hybp13, in the first port's shape, adds a 17-limb sum to 58 rounds;
       the chain's 64 big REDCs end in five 9-limb subtracts;
-    - hybp's REDCs run on the CUDA cores: their dots leave the tensor cores'
-      count, and 72 multiply-adds and the 9-limb subtract a REDC enter the
-      cores'; its small dot adds onto the big one's sums in the MMA;
-    - mxu runs mxu8's schedule: the same counts, its dots at the bf16 rate
-      (widening the bytes is the kernel's choice, not work the function
+    - the REDCs of hybp, mxu8 and mxu run on the CUDA cores: their dots
+      leave the tensor cores' count, which keeps the MDS dots (and hybp's
+      chain), and 72 multiply-adds and the 9-limb subtract a REDC enter the
+      cores'; hybp's small dot adds onto the big one's sums in the MMA;
+    - mxu runs mxu8's schedule: the same counts, its MDS dots at the bf16
+      rate (widening the bytes is the kernel's choice, not work the function
       needs);
     - hyb13 and hybp13 run hyb's and hybp's chain with the base-2^13 S-box,
       1,420 operations in place of 136: 2 x 210 + 400 narrow multiply-adds, 2 x
@@ -269,7 +277,7 @@ def bound(schedule: str, b: int) -> dict:
             else 2 * 36 + 64
         redcs = 3 * sboxes + 5 * dense + (chain + 5 if chain else 0)
         dot_cols = 5 * 63 * dense + (63 * (chain + 5) if chain else 0)
-        redc_on_cores = schedule == "hybp"
+        redc_on_cores = schedule in ("hybp", "mxu8", "mxu")
         tensor = dense * 315 * 160 + (0 if redc_on_cores else redcs * (32 * 32 + 63 * 32))
         cores = (sboxes * sbox_ops + 10 * 136
                  + redcs * (72 + 9 if redc_on_cores else 2 * 95 + 16 + 9)
@@ -280,7 +288,7 @@ def bound(schedule: str, b: int) -> dict:
         if schedule == "hybp13":
             cores += (chain - 1) * (2 * 63 + 17)
         tables = (perm_cuda.hyb_kernel_tables(schedule) if chain
-                  else perm_cuda.mxu8_kernel_tables())
+                  else perm_cuda.dense_kernel_tables(schedule))
         table_bytes = sum(t.nbytes for t in tables)
     tensor_rate = BF16_OPS_PER_S if schedule == "mxu" else INT8_OPS_PER_S
     times = {"tensor_ms": 2 * tensor * b / tensor_rate * 1e3,
@@ -428,6 +436,9 @@ def run(ckpt_root: str) -> int:
     log(f"[build] {time.perf_counter() - t0:.1f} s (0 when the library was already built)")
     for line in _build.ptxas_summary(report):
         log(f"[build] ptxas {line}")
+    for s in ("mxu8", "mxu"):
+        log(f"[build] hades_perm_{s}: {perm_cuda.dense_smem_bytes(s):,} B of dynamic shared memory "
+            "a block")
 
     # 3. KAT gate on 2^14 lanes, every schedule, both paths
     selftest.assert_device_correct(dev)
@@ -436,10 +447,10 @@ def run(ckpt_root: str) -> int:
 
     # 4. kernel vs plain: the sponge's, cipher's and openings' batch, the
     # first Merkle level's batch on the Montgomery path the models use
-    # (naive and opt; hybp covers it through its own 2^20-leaf tree in phase
-    # 5), 4096 and a ragged 1000 (the tail mask)
+    # (naive, opt, mxu8 and mxu; hybp covers it through its own 2^20-leaf
+    # tree in phase 5), 4096 and a ragged 1000 (the tail mask)
     cases = [(PERM_BATCH, (True, False), perm_cuda.SCHEDULES),
-             (MERKLE_LEAVES // merkle.ARITY, (False,), ("naive", "opt")),
+             (MERKLE_LEAVES // merkle.ARITY, (False,), ("naive", "opt", "mxu8", "mxu")),
              (4096, (True, False), perm_cuda.SCHEDULES),
              (1000, (True, False), perm_cuda.SCHEDULES)]
     max_err = {s: 0 for s in perm_cuda.SCHEDULES}
@@ -476,31 +487,31 @@ def run(ckpt_root: str) -> int:
     log(f"[plain] {', '.join(REDESIGNED)} kernels == plain versions at B in {RAGGED}, both "
         "convert values; opt kernel == native engine there")
 
-    # the mxu8 kernel's tensor-core tile product against a float64 matmul,
-    # with its own weights and seeded byte rows at the main path's batch
+    # the dense kernels' MDS products (warpgroup wgmma, u8 and bf16) against
+    # a float64 matmul with w_lin and seeded byte rows at the main path's
+    # batch, and with all-255 operands at K = 160: the largest sum,
+    # 10,404,000, must come out of the bf16 product's f32 accumulation
+    # exactly; then the block-wide tile product that hyb, hyb13 and hybp13
+    # still run, with w_lin, w_pp and w_p
     tables = mxu8_tables()
+    w = torch.from_numpy(tables["w_lin"]).to(dev)
+    xb = torch.from_numpy(rng.integers(0, 256, (w.shape[1], PERM_BATCH), dtype=np.uint8)).to(dev)
+    ones = torch.full((320, 160), 255, dtype=torch.uint8, device=dev)
+    ones_x = torch.full((160, PERM_BATCH), 255, dtype=torch.uint8, device=dev)
+    for name, dot in (("mxu8", perm_cuda.mxu8_dot), ("mxu", perm_cuda.mxu_dot)):
+        check(torch.equal(dot(w, xb).double(), torch.matmul(w.double(), xb.double())),
+              f"{name} MDS product with w_lin != float64 matmul")
+        check(bool((dot(ones, ones_x) == 160 * 255 * 255).all()),
+              f"{name} MDS product of all-255 operands")
     for key in ("w_lin", "w_pp", "w_p"):
-        w = torch.from_numpy(tables[key]).to(dev)
-        xb = torch.from_numpy(rng.integers(0, 256, (w.shape[1], PERM_BATCH), dtype=np.uint8)).to(dev)
-        got = perm_cuda.mxu8_dot(w, xb)
-        check(torch.equal(got.double(), torch.matmul(w.double(), xb.double())),
-              f"mxu8 tile product with {key} != float64 matmul")
-    log(f"[plain] mxu8 tile product == float64 matmul for w_lin, w_pp, w_p x {PERM_BATCH} columns")
-
-    # the mxu kernel's bf16 tile product the same way, and with all-255
-    # operands at K = 160: the largest sum, 10,404,000, must come out of
-    # the tensor core's f32 accumulation exactly
-    for key in ("w_lin", "w_pp", "w_p"):
-        w = torch.from_numpy(tables[key]).to(dev)
-        xb = torch.from_numpy(rng.integers(0, 256, (w.shape[1], PERM_BATCH), dtype=np.uint8)).to(dev)
-        check(torch.equal(perm_cuda.mxu_dot(w, xb).double(), torch.matmul(w.double(), xb.double())),
-              f"mxu bf16 tile product with {key} != float64 matmul")
-    w = torch.full((320, 160), 255, dtype=torch.uint8, device=dev)
-    xb = torch.full((160, PERM_BATCH), 255, dtype=torch.uint8, device=dev)
-    got = perm_cuda.mxu_dot(w, xb)
-    check(bool((got == 160 * 255 * 255).all()), "mxu bf16 tile product of all-255 operands")
-    log(f"[plain] mxu bf16 tile product == float64 matmul for w_lin, w_pp, w_p x {PERM_BATCH} "
-        f"columns, and all-255 at K = 160 gives {int(got.max())} everywhere")
+        wk = torch.from_numpy(tables[key]).to(dev)
+        xk = torch.from_numpy(rng.integers(0, 256, (wk.shape[1], PERM_BATCH), dtype=np.uint8)).to(dev)
+        check(torch.equal(perm_cuda.block_dot(wk, xk).double(),
+                          torch.matmul(wk.double(), xk.double())),
+              f"block tile product with {key} != float64 matmul")
+    log(f"[plain] mxu8 (u8) and mxu (bf16) MDS products == float64 matmul for w_lin x {PERM_BATCH} "
+        f"columns, and all-255 at 320 x 160 gives {160 * 255 * 255} everywhere; the block tile "
+        f"product of hyb, hyb13, hybp13 == float64 matmul for w_lin, w_pp, w_p")
 
     # the wide tile product of hyb and hybp, whose K loop reads both operands
     # from global memory: the last round of each segment and the exit map
@@ -786,6 +797,8 @@ def run(ckpt_root: str) -> int:
                           lambda: sponge.sponge_hash(msgs)),
                          (f"cipher.encrypt {CIPHER_STREAMS} x {CIPHER_LEN} (opt)",
                           lambda: cipher.encrypt(keys, nonces, plaintext)),
+                         (f"cipher.encrypt {CIPHER_STREAMS} x {CIPHER_LEN} (mxu8)",
+                          lambda: cipher.encrypt(keys, nonces, plaintext, mxu8_fn)),
                          ("merkle_levels 2^20 (hybp)",
                           lambda: merkle.merkle_levels(leaves, hybp_fn)),
                          (f"merkle_open_batched {OPENINGS}", open_many),

@@ -85,13 +85,14 @@ def build() -> tuple[Path, str]:
 
 def ptxas_summary(report: str) -> list[str]:
     """The lines of a build report that give each kernel's registers and
-    spills, with the kernel's name in front."""
+    spills, or warn about its wgmmas (which ptxas may serialise), with the
+    kernel's name in front."""
     out, name = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-        elif name and ("registers" in line or "spill" in line):
+        elif name and ("registers" in line or "spill" in line or "wgmma" in line):
             out.append(f"{name}: {line.split('ptxas info    :')[-1].strip()}")
     return out
 
@@ -122,9 +123,13 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, i64, i32, p, p, p, p, i64, p]
         fn.restype = ctypes.c_int
-    for name in ("hades_mxu8_dot_launch", "hades_mxu_dot_launch", "hades_hyb_dot_launch"):
+    for name in ("hades_block_dot_launch", "hades_hyb_dot_launch"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, i32, i32, i64, p]
+        fn.restype = ctypes.c_int
+    for name in ("hades_mxu8_dot_launch", "hades_mxu_dot_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, i64, p]
         fn.restype = ctypes.c_int
     lib.hades_error_string.argtypes = [ctypes.c_int]
     lib.hades_error_string.restype = ctypes.c_char_p

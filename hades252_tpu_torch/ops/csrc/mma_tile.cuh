@@ -1,7 +1,7 @@
-// The block-wide tensor-core tile products of the dot kernels (perm_mxu8.cu,
-// perm_mxu.cu, perm_hyb.cu, perm_hyb13.cu): the 8-bit integer one and the
-// bf16 one, the dot objects that perm_mxu8.cuh's per-state code is written
-// against, and the block's body of the two dense kernels. Device code only.
+// The block-wide tensor-core tile product of the chained kernels in the
+// first port's shape (perm_hyb.cu, perm_hyb13.cu; perm_hybp.cu takes its
+// fragment order and the MMA), and the dot object that perm_mxu8.cuh's
+// per-state code is written against there. Device code only.
 
 #pragma once
 
@@ -77,85 +77,6 @@ __device__ __forceinline__ void block_dot(const uint8_t* __restrict__ w, int mti
   }
 }
 
-// Bytes 2 kPair and 2 kPair + 1 of w, widened to two bf16 in one register,
-// the lower byte in the lower half. 0x4B000000 | byte is the float 2^23 +
-// byte; less 2^23 it is the byte as a float, whose significand has at most
-// 8 bits, so its low 16 bits are zero and its high half is the same value
-// in bf16, exactly.
-template <int kPair>
-__device__ __forceinline__ uint32_t widen_bf16x2(uint32_t w) {
-  const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 + 2 * kPair)) - 8388608.0f;
-  const float hi = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7441 + 2 * kPair)) - 8388608.0f;
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-
-// c += a b on the tensor cores: a 16 x 16 tile of bf16 weights (row major)
-// times a 16 x 8 tile of bf16 byte rows, f32 sums.
-__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// block_dot with the products as bf16 x bf16 -> f32, for the mxu kernel:
-// the same operands in the same places (W and X stay bytes in shared
-// memory, which keeps mxu8's 111,616 B a block and two blocks an SM), the
-// same sums in C as int32. A lane widens the bytes to bf16 in registers as
-// it loads a fragment: X's once per column tile, W's for every MMA. Every
-// sum is an integer below 160 * 255^2 < 2^24 and so is every partial sum,
-// so the f32 accumulation is exact in any order and rounding mode, and
-// the conversion to int32 is exact.
-// Fragments of m16n8k16 (PTX ISA), each register two bf16, g = lane / 4 and
-// q = lane % 4; a step takes 16 bytes of K:
-//   A: a0 = W[g][2q, 2q+1], a1 = W[g+8][2q, 2q+1], a2 = W[g][2q+8, 2q+9], a3 = W[g+8][2q+8, 2q+9]
-//   B: b0 = X[n=g][2q, 2q+1], b1 = X[n=g][2q+8, 2q+9]
-//   C: c0 = C[g][2q], c1 = C[g][2q+1], c2 = C[g+8][2q], c3 = C[g+8][2q+1]
-// The sum over k does not care which byte meets which slot as long as both
-// operands agree, so a lane loads the step's 32-bit word q of a row (bytes
-// 4q .. 4q+3) and gives bytes 0, 1 to a0 | a1 | b0 and bytes 2, 3 to
-// a2 | a3 | b1: one load a row where the MMA's own order would take two.
-template <int KS>
-__device__ __forceinline__ void block_dot_bf16(const uint8_t* __restrict__ w, int mtiles,
-                                               const uint32_t* __restrict__ x,
-                                               int32_t* __restrict__ c) {
-  constexpr int kw = 8 * KS;     // 32-bit words per row of W
-  constexpr int xs = kw + 4;     // 32-bit words per row of X
-  constexpr int steps = 2 * KS;  // MMAs along K
-  const uint32_t* w32 = reinterpret_cast<const uint32_t*>(w);
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll 1
-  for (int nt = threadIdx.x >> 5; nt < kThreads / 8; nt += kWarps) {
-    uint32_t b[steps][2];
-    const uint32_t* xr = x + (nt * 8 + g) * xs;
-#pragma unroll
-    for (int ks = 0; ks < steps; ++ks) {
-      const uint32_t word = xr[ks * 4 + q];
-      b[ks][0] = widen_bf16x2<0>(word);
-      b[ks][1] = widen_bf16x2<1>(word);
-    }
-#pragma unroll 1
-    for (int mt = 0; mt < mtiles; ++mt) {
-      const uint32_t* w0 = w32 + (mt * 16 + g) * kw;
-      const uint32_t* w1 = w0 + 8 * kw;
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int ks = 0; ks < steps; ++ks) {
-        const uint32_t u0 = w0[ks * 4 + q], u1 = w1[ks * 4 + q];
-        mma_bf16(acc, widen_bf16x2<0>(u0), widen_bf16x2<0>(u1), widen_bf16x2<1>(u0),
-                 widen_bf16x2<1>(u1), b[ks][0], b[ks][1]);
-      }
-      int32_t* cr = c + (mt * 16 + g) * kCStride + nt * 8 + 2 * q;
-      cr[0] = __float2int_rz(acc[0]);
-      cr[1] = __float2int_rz(acc[1]);
-      cr[8 * kCStride] = __float2int_rz(acc[2]);
-      cr[8 * kCStride + 1] = __float2int_rz(acc[3]);
-    }
-  }
-}
-
 // The card's dot (see perm_mxu8.cuh): one column per thread of the block.
 struct BlockDot {
   const uint8_t* w_lin;
@@ -183,58 +104,11 @@ struct BlockDot {
   __device__ __forceinline__ void done() { __syncthreads(); }
 };
 
-// The mxu kernel's dot: BlockDot with the products on the bf16 tensor-core
-// path; col returns the f32 sum as the integer it is.
-struct BlockDotBf16 : BlockDot {
-  template <int M, int K>
-  __device__ __forceinline__ void run(const uint8_t* w) {
-    static_assert(M % 16 == 0 && K % 32 == 0, "MMA tile shape");
-    block_dot_bf16<K / 32>(w, M / 16, x, c);
-    __syncthreads();
-  }
-};
-
-// The body of a dense kernel's block (mxu8 with Dot = BlockDot, mxu with
-// BlockDotBf16): stage the weights into shared memory, run the 67 dense
-// rounds on one state a thread, store. Tail lanes of the last block run a
-// zero state, since every thread must reach the barriers and the warp-wide
-// MMAs; only their store is masked.
-template <class Dot>
-__device__ __forceinline__ void dense_block(const int32_t* __restrict__ x,
-                                            int32_t* __restrict__ out, long long n, int convert,
-                                            const uint32_t* __restrict__ consts,
-                                            const uint8_t* __restrict__ weights, uint8_t* smem) {
-  const uint4* src = reinterpret_cast<const uint4*>(weights);
-  for (int i = threadIdx.x; i < kWeightBytes / 16; i += kThreads) {
-    reinterpret_cast<uint4*>(smem)[i] = src[i];
-  }
-  __syncthreads();
-  const BlockDot places{smem, smem + kLinBytes, smem + kLinBytes + kPpBytes,
-                        reinterpret_cast<uint32_t*>(smem + kWeightBytes),
-                        reinterpret_cast<int32_t*>(smem + kWeightBytes + kXBytes)};
-  Dot d{places};
-  const long long b = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const bool live = b < n;
-  uint32_t s[kWidth][kLimbs];
-  if (live) {
-    load_state(s, x, b, n);
-  } else {
-#pragma unroll
-    for (int w = 0; w < kWidth; ++w) {
-#pragma unroll
-      for (int j = 0; j < kLimbs; ++j) s[w][j] = 0;
-    }
-  }
-  perm(d, s, consts, convert != 0);
-  if (live) store_state(out, s, b, n);
-}
-
-// A tile product alone, over any u8 (m, k) x (k, n): m a multiple of 16 up
+// The tile product alone, over any u8 (m, k) x (k, n): m a multiple of 16 up
 // to 320, k = 32 KS up to 160. w is (m, k) row-major, xt the right operand
 // transposed, (n, k) row-major; out is (m, n) int32. Each block takes 128
-// columns and runs block_dot (or, for kBf16, block_dot_bf16) over 64 rows
-// at a time.
-template <int KS, bool kBf16>
+// columns and runs block_dot over 64 rows at a time.
+template <int KS>
 __device__ void dot_tiles(const uint8_t* __restrict__ w, const uint8_t* __restrict__ xt,
                           int32_t* __restrict__ out, int m, long long n, uint8_t* smem) {
   constexpr int k = 32 * KS;
@@ -247,11 +121,7 @@ __device__ void dot_tiles(const uint8_t* __restrict__ w, const uint8_t* __restri
   __syncthreads();
   for (int m0 = 0; m0 < m; m0 += kBlockRows) {
     const int rows = m - m0 < kBlockRows ? m - m0 : kBlockRows;
-    if (kBf16) {
-      block_dot_bf16<KS>(ws + m0 * k, rows / 16, reinterpret_cast<const uint32_t*>(xs), cs);
-    } else {
-      block_dot<KS>(ws + m0 * k, rows / 16, reinterpret_cast<const uint32_t*>(xs), cs);
-    }
+    block_dot<KS>(ws + m0 * k, rows / 16, reinterpret_cast<const uint32_t*>(xs), cs);
     __syncthreads();
     if (col < n) {
       for (int r = 0; r < rows; ++r) out[(m0 + r) * n + col] = cs[r * kCStride + threadIdx.x];
@@ -260,17 +130,16 @@ __device__ void dot_tiles(const uint8_t* __restrict__ w, const uint8_t* __restri
   }
 }
 
-template <bool kBf16>
 __device__ __forceinline__ void dot_tiles_k(const uint8_t* __restrict__ w,
                                             const uint8_t* __restrict__ xt,
                                             int32_t* __restrict__ out, int m, int k, long long n,
                                             uint8_t* smem) {
   switch (k / 32) {
-    case 1: dot_tiles<1, kBf16>(w, xt, out, m, n, smem); break;
-    case 2: dot_tiles<2, kBf16>(w, xt, out, m, n, smem); break;
-    case 3: dot_tiles<3, kBf16>(w, xt, out, m, n, smem); break;
-    case 4: dot_tiles<4, kBf16>(w, xt, out, m, n, smem); break;
-    default: dot_tiles<5, kBf16>(w, xt, out, m, n, smem); break;
+    case 1: dot_tiles<1>(w, xt, out, m, n, smem); break;
+    case 2: dot_tiles<2>(w, xt, out, m, n, smem); break;
+    case 3: dot_tiles<3>(w, xt, out, m, n, smem); break;
+    case 4: dot_tiles<4>(w, xt, out, m, n, smem); break;
+    default: dot_tiles<5>(w, xt, out, m, n, smem); break;
   }
 }
 

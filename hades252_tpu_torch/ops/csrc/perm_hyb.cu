@@ -85,6 +85,16 @@ hades_hyb_dot(const uint8_t* __restrict__ w, const uint8_t* xt, int32_t* __restr
   }
 }
 
+// The block-wide tile product alone (mma_tile.cuh: dot_tiles), the one that
+// the REDCs and the full rounds of hyb, hyb13 and hybp13 run, so that its
+// MMA fragment layout can be held against a matmul.
+__global__ void __launch_bounds__(hyb::kThreads)
+hades_block_dot(const uint8_t* __restrict__ w, const uint8_t* __restrict__ xt,
+                int32_t* __restrict__ out, int m, int k, long long n) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  mxu8::dot_tiles_k(w, xt, out, m, k, n, smem);
+}
+
 // ---------------------------------------------------------------------------
 // Plain C interface, bound with ctypes (ops/perm_cuda.py)
 // ---------------------------------------------------------------------------
@@ -117,6 +127,21 @@ int hades_hyb_dot_launch(const void* w, const void* xt, void* out, int m, int k,
   cudaError_t err = mxu8::allow_smem(hades_hyb_dot, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   hades_hyb_dot<<<grid, hyb::kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      (const uint8_t*)w, (const uint8_t*)xt, (int32_t*)out, m, k, n);
+  return (int)cudaGetLastError();
+}
+
+int hades_block_dot_launch(const void* w, const void* xt, void* out, int m, int k, long long n,
+                           void* stream) {
+  if (m <= 0 || m % 16 != 0 || m * k > mxu8::kLinBytes || k <= 0 || k % 32 != 0 ||
+      k > mxu8::kLinK) {
+    return kErrShape;
+  }
+  const unsigned grid = grid_for(n, hyb::kThreads);
+  if (grid == 0) return kErrBatch;
+  cudaError_t err = mxu8::allow_smem(hades_block_dot);
+  if (err != cudaSuccess) return (int)err;
+  hades_block_dot<<<grid, hyb::kThreads, mxu8::kSmemBytes, (cudaStream_t)stream>>>(
       (const uint8_t*)w, (const uint8_t*)xt, (int32_t*)out, m, k, n);
   return (int)cudaGetLastError();
 }

@@ -71,6 +71,7 @@
 
 #include "mma_tile.cuh"
 #include "perm_hybp.cuh"
+#include "wgmma.cuh"
 
 namespace hades {
 namespace hybp {
@@ -80,14 +81,7 @@ constexpr int kProducers = 128;                // threads 0..127: one warpgroup,
 constexpr int kConsumers = kStates;            // threads 128..191: one a state
 constexpr int kThreads = kProducers + kConsumers;
 // Both operands of the producer's wgmma lie in shared memory in its
-// core-matrix order without swizzle: a matrix of 64 rows (weight rows, or
-// states) by K bytes is cut into 16-byte vectors, vector v of row r at
-// v * 1024 + (r / 8) * 128 + (r % 8) * 16: 8 rows of one vector are one
-// core matrix of 128 B, the 8 row groups follow each other, then the next
-// vector. The descriptor's leading offset (from a core matrix to the next
-// along K) is then 1,024 B and its stride offset (to the next 8 rows) 128 B.
-constexpr int kVecBytes = 1024;                // 64 rows x 16 B: one vector of every row
-constexpr int kRowGroupBytes = 128;
+// core-matrix order without swizzle (wgmma.cuh).
 constexpr int kStageK = 256;                   // bytes of K a stage of the ring
 constexpr int kStageBytes = kBlockRows * kStageK;           // 16,384 B
 constexpr int kStages = 3;
@@ -120,9 +114,6 @@ static_assert(kSmemBytes <= 232448, "an SM's shared memory");
 // barrier and is awaited with parity (n >> 1) & 1.
 enum { kBarReady = 0, kBarFull = 2, kBarFree = 4, kBarLin = 6, kBarStage = 8 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count));
 }
@@ -148,15 +139,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "memory");
   } while (!done);
 }
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-// Writes to shared memory by ordinary stores become visible to wgmma's
-// reads (the asynchronous proxy) only past this fence, which the writer
-// runs before it signals.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
 // One bulk copy (the TMA engine, no tensor map: the bytes are contiguous on
 // both sides) of `bytes` from global memory into a stage; the stage's
 // barrier is told the count first and completes when they have landed.
@@ -171,45 +153,8 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// wgmma: the warpgroup's asynchronous MMA, m64 n64 k32, u8 x u8 -> s32, both
-// operands from shared memory through descriptors, the 64 x 64 sums in the
-// warpgroup's registers (32 a thread: warp w holds rows 16 w .. 16 w + 15,
-// and within it a lane's registers 4 j .. 4 j + 3 are the m16 n8 fragment of
-// columns 8 j .. 8 j + 7).
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFFu) >> 4) | ((uint64_t)(kVecBytes >> 4) << 16) |
-         ((uint64_t)(kRowGroupBytes >> 4) << 32);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// The accumulators stay where they are while MMAs are in flight.
-__device__ __forceinline__ void pin(int32_t (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-// d <- a b (scale_d = 0) or d + a b.
-__device__ __forceinline__ void wgmma_u8(int32_t (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p;\n}"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
-        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
-        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
-        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
+// wgmma_u8 (wgmma.cuh): the big dot's sums, 64 x 64, in the warpgroup's
+// registers, 32 a thread.
 
 // One MMA of the consumer's, m16 n8 k32, u8 x u8 -> s32, onto c. Not
 // `volatile`, as mma_tile.cuh's is: the value depends on the operands alone,
@@ -456,7 +401,7 @@ __device__ __forceinline__ void produce(uint8_t* smem, uint64_t* bars,
 #pragma unroll
       for (int s = 1; s < kStageK / 32; ++s) {
         // 32 bytes of K on: two vectors
-        wgmma_u8(acc, da + s * (2 * kVecBytes >> 4), db + s * (2 * kVecBytes >> 4), 1);
+        wgmma_u8(acc, da + s * kDescStep, db + s * kDescStep, 1);
       }
       wgmma_commit();
       // the chunk before is done in this warp, then in all four: its stage

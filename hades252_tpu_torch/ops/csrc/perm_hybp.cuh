@@ -37,6 +37,7 @@
 
 #pragma once
 
+#include "perm_dense.cuh"
 #include "perm_hyb.cuh"
 
 namespace hades {
@@ -86,53 +87,8 @@ HADES_HD const uint8_t* new_w(const uint8_t* chain_w, int r) {
   return chain_w + hyb::kSeg1Bytes + hyb::kSeg2Bytes + r * (kBlockRows * 32);
 }
 
-// out <- T R^-1 mod p for a 17-limb T < 2^RUNGS-ish p^2 (the bounds of
-// perm_mxu8.cuh's redc): the reduction on the CUDA cores, then the ladder.
-template <int RUNGS>
-HADES_FN void redc_big(uint32_t out[kLimbs], uint32_t t[kT]) {
-  redc_steps<kT>(t);
-  mxu8::ladder9<RUNGS>(t + kLimbs);
-  copy(out, t + kLimbs);
-}
-
-// s <- MDS s: one dot of the state's 160 bytes per output word, one wide
-// reduction each (T < 5p^2: two rungs).
-template <class Dot>
-HADES_FN void mds(Dot& d, uint32_t s[kWidth][kLimbs]) {
-  uint32_t t[kWidth][kT];
-  d.mds_put(&s[0][0]);
-#pragma unroll
-  for (int k = 0; k < kWidth; ++k) {
-    d.mds_run(k);
-    mxu8::recombine<63, kT>(d, t[k]);
-    d.mds_done();
-  }
-#pragma unroll
-  for (int k = 0; k < kWidth; ++k) redc_big<2>(s[k], t[k]);
-}
-
-// A full round: ARK, x^5 on every word (one copy of the S-box: word 4 is
-// S-boxed and the state rotated, five times over), the MDS dot.
-template <class Dot>
-HADES_FN void full_round(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ consts,
-                         int r) {
-#pragma unroll
-  for (int w = 0; w < kWidth; ++w) {
-    uint32_t a[kLimbs];
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) a[j] = consts[(r * kWidth + w) * kLimbs + j];
-    add_mod(s[w], s[w], a);
-  }
-#pragma unroll 1
-  for (int i = 0; i < kWidth; ++i) {
-    uint32_t last[kLimbs];
-    sbox(last, s[kWidth - 1]);
-#pragma unroll
-    for (int w = kWidth - 1; w > 0; --w) copy(s[w], s[w - 1]);
-    copy(s[0], last);
-  }
-  mds(d, s);
-}
+using dense::full_round;
+using dense::redc_big;
 
 // The 59 partial rounds and the chain's exit. In: the state after full
 // round 3. Out: the state entering full round 63. Round r: s_{r-1} enters
@@ -199,30 +155,13 @@ HADES_FN void perm(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restric
 // producer's jobs run in sequence, each at the signal that allows it, so
 // that a job sees the basis as the card's producer may see it at the
 // earliest: everything it needs and nothing later.
-struct HostDot {
-  const uint8_t* w_lin;
+struct HostDot : dense::HostDot<> {
   const uint8_t* chain_w;
-  uint8_t x[kLinK];
   uint8_t y[kBasisBytes];
   int32_t job[kJobs][kBlockRows];
-  int32_t c[kBlockRows];
   int signals = 0, next_job = 0;
 
   void lin_wait() {}
-  void mds_put(const uint32_t* words) {
-    for (int i = 0; i < kWidth * kLimbs; ++i) {
-      for (int b = 0; b < 4; ++b) x[4 * i + b] = (uint8_t)(words[i] >> (8 * b));
-    }
-  }
-  void mds_run(int k) {
-    const uint8_t* w = w_lin + k * kBlockRows * kLinK;
-    for (int m = 0; m < kBlockRows; ++m) {
-      int32_t sum = 0;
-      for (int i = 0; i < kLinK; ++i) sum += (int32_t)w[m * kLinK + i] * x[i];
-      c[m] = sum;
-    }
-  }
-  void mds_done() {}
   void chain_begin() {
     signals = next_job = 0;
     for (int i = 0; i < kBasisBytes; ++i) y[i] = 0xA5;  // unwritten elements meet zero weights

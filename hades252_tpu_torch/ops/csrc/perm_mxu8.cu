@@ -1,70 +1,74 @@
 // The `mxu8` schedule of the Hades252 permutation for Hopper (sm_90a).
 //
 // Replaces _perm_kernel_mxu8 (hades252_tpu/ops/perm_pallas.py:640, body
-// _perm_kernel_mxu_impl :731): the dense 67-round schedule with every
-// constant product on the matrix unit as an 8-bit integer product with
-// 32-bit sums. Here they run on the tensor cores as mma.sync m16n8k32
-// u8 x u8 -> s32:
-//   - the MDS layer: one dot of the state's 160 byte rows with w_lin
-//     (5 blocks of 63 base-256 columns, each padded to 64 rows);
-//   - every Montgomery REDC: m = T_lo p' mod R with w_pp (32 x 32) and
-//     m p with w_p (63 x 32, padded to 64).
-// The variable x variable S-box products stay on the CUDA cores (32-bit
-// limb schoolbook), as the TPU kernel keeps them on its vector unit. Same
-// interface as perm.cu's kernels: planar (5, 16, B) int32 digits in and
-// out, canonical (convert=1) or Montgomery (convert=0), any B.
+// _perm_kernel_mxu_impl :731, _MxuOps :653, REDCs _redc_words_mxu :580): the
+// dense 67-round schedule, whose MDS layer is an 8-bit integer product with
+// 32-bit sums, the state's 160 byte rows times w_lin (5 blocks of 63
+// base-256 columns, each padded to 64 rows). Here it runs on the tensor
+// cores as wgmma m64n64k32 u8 x u8 -> s32, exact (column sums below 160 *
+// 255^2 < 2^24). Same interface as the other kernels: planar (5, 16, B)
+// int32 digits in and out, canonical (convert=1) or Montgomery (convert=0),
+// any B. perm_mxu.cu runs the same template on bf16.
 //
-// Hopper's integer MMA takes unsigned bytes, so the weights and byte rows
-// enter as they are and the dot is exact (max column sum 160 * 255^2 <
-// 2^24): no offset encoding and none of _dot_u32_i8's corrections.
+// What the TPU kernel did and this one does otherwise. There every
+// Montgomery reduction is two more byte dots (w_pp and w_p), since the TPU's
+// vector unit has no widening multiply: 632 reductions a permutation (5 an
+// MDS layer, 3 an S-box). The first port kept them on the tensor cores as
+// mma.sync between six block barriers each, and a block spent 0.37 of its
+// clocks in those dots, 0.29 in the MDS dots and 0.14 turning their sums
+// back into limbs (tools/probe_chains.py, part 4). This card's CUDA cores
+// have a 32-bit multiply-add with carry, so here every reduction is
+// field.cuh's carry chains in the thread's registers and the S-box is
+// field.cuh's (perm_dense.cuh), with no shared memory and no barrier.
 //
-// What bounds it: not the tensor cores. A permutation needs 632 REDCs
-// (5 per MDS layer, 3 per S-box), each two dots of 32 and 64 rows, plus 67
-// MDS dots of 320 x 160: about 5.4 M byte multiply-adds, or 8.8e10 for
-// 2^14 states, some 90 us at the card's published int8 peak against a
-// kernel time in milliseconds. The time goes to
-// the CUDA-core work around the dots (the S-box schoolbook, the carry
-// chains that turn 63 column sums back into limbs, the conditional
-// subtracts) and to the block-wide barriers: each REDC is two round trips
-// through shared memory, six __syncthreads() in all, and each one
-// serialises the block.
+// What bounds it now: one thread's dependent chain, about 113,600 32-bit
+// operations a state (99 S-boxes, 632 reductions, the ARK, the MDS sums'
+// recombination), against 3.4 M byte multiply-adds of MDS dots on the tensor
+// cores, 0.1113 ms and 0.0559 ms for 2^14 states at the card's rates.
 //
-// What the design does about it, simply: one thread owns one state and
-// does all of its per-state work in registers (perm_mxu8.cuh); a block of
-// 128 states writes its byte rows into a shared tile, the 4 warps run the
-// MMAs over it (each warp 4 of the 16 8-state column tiles), and the int32
-// sums come back through shared memory for each thread to read its own
-// column. The weights (54,272 B) are too large for __constant__ next to
-// perm.cu's tables and live in a device tensor that the wrapper owns; each
-// block stages them into dynamic shared memory. Per block: weights 54,272
-// + byte tile 22,528 + sums 34,816 (64 rows at a time) = 111,616 B, so two
-// blocks fit on an SM. Tail lanes of the last block run a zero state,
-// since every thread must reach the barriers and the warp-wide MMAs; only
-// their store is masked.
+// What the design does about it.
+// - A block is one warpgroup of 128 states, one thread a state
+//   (perm_dense_block.cuh). The only barriers are the warpgroup's own named
+//   barrier around the MDS sums' trip through shared memory (one at the put,
+//   two a block of w_lin); nothing waits on another warpgroup.
+// - The MDS dot is warpgroup-local wgmma, the block's 128 states as N: the
+//   state bytes are put into shared memory in wgmma's core-matrix order
+//   (wgmma.cuh), w_lin lies there packed on the host in the same order, and
+//   each of the 5 blocks is 10 wgmmas (two halves of N = 64, five steps of
+//   32 bytes of K) between one fence and one commit. The MDS tile product
+//   alone ran 2,728 clocks a round on a warpgroup this way against 7,342
+//   for mma.sync m16n8k32 on a warp's 32 states (one warp a scheduler,
+//   part 4), so the warp-local shape of hybp's consumer was not taken.
+// - The wgmmas are asynchronous: block k + 1's run while the threads
+//   recombine block k; the five values are then reduced together, five
+//   independent chains (perm_dense.cuh: mds). Reducing each value under the
+//   next block's wgmmas instead was 1-4% slower (tools/probe_chains.py,
+//   part 6).
+// - Shared memory: w_lin 51,200 B, the states 20,480 B, one block's sums
+//   34,816 B: 106,496 B, two blocks an SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_tile.cuh"
+#include "perm_dense_block.cuh"
 
 using namespace hades;
-using namespace hades::mxu8;
 
-__global__ void __launch_bounds__(mxu8::kThreads)
+__global__ void __launch_bounds__(dense::kThreads)
 hades_perm_mxu8(const int32_t* __restrict__ x, int32_t* __restrict__ out, long long n,
                 int convert, const uint32_t* __restrict__ consts,
                 const uint8_t* __restrict__ weights) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  dense_block<BlockDot>(x, out, n, convert, consts, weights, smem);
+  extern __shared__ __align__(128) uint8_t smem[];
+  dense::perm_block<false>(x, out, n, convert, consts, weights, smem);
 }
 
-// The tile product alone (mma_tile.cuh: dot_tiles), so that the MMA's
-// fragment layout can be held against a matmul.
-__global__ void __launch_bounds__(mxu8::kThreads)
-hades_mxu8_dot(const uint8_t* __restrict__ w, const uint8_t* __restrict__ xt,
-               int32_t* __restrict__ out, int m, int k, long long n) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  dot_tiles_k<false>(w, xt, out, m, k, n, smem);
+// The MDS product alone, through the kernel's own dot, so that its operand
+// order and fragment layout can be held against a matmul.
+__global__ void __launch_bounds__(dense::kThreads)
+hades_mxu8_dot(const uint8_t* __restrict__ weights, const uint8_t* __restrict__ xt,
+               int32_t* __restrict__ out, long long n) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  dense::dot_block<false>(weights, xt, out, n, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -73,34 +77,23 @@ hades_mxu8_dot(const uint8_t* __restrict__ w, const uint8_t* __restrict__ xt,
 
 extern "C" {
 
-// consts: kConstWords uint32 (the dense Montgomery ARK, then R^2, as 32-bit
-// limbs); weights: kWeightBytes of w_lin, w_pp, w_p (params.mxu8_tables),
-// 16-byte aligned. Both are device pointers the caller keeps alive.
+// consts: mxu8::kConstWords uint32 (the dense Montgomery ARK, then R^2, as
+// 32-bit limbs); weights: w_lin packed in wgmma's order, 51,200 B
+// (perm_cuda.dense_kernel_tables), 16-byte aligned. Both are device pointers
+// the caller keeps alive.
 int hades_perm_mxu8_launch(const void* x, void* out, long long n, int convert,
                            const void* consts, const void* weights, void* stream) {
-  const unsigned grid = grid_for(n, mxu8::kThreads);
-  if (grid == 0) return kErrBatch;
-  if (reinterpret_cast<uintptr_t>(weights) % 16 != 0) return kErrShape;
-  cudaError_t err = allow_smem(hades_perm_mxu8);
-  if (err != cudaSuccess) return (int)err;
-  hades_perm_mxu8<<<grid, mxu8::kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const int32_t*)x, (int32_t*)out, n, convert, (const uint32_t*)consts,
-      (const uint8_t*)weights);
-  return (int)cudaGetLastError();
+  return dense::launch_dense<false>(hades_perm_mxu8, n, stream, weights, (const int32_t*)x,
+                                    (int32_t*)out, n, convert, (const uint32_t*)consts,
+                                    (const uint8_t*)weights);
 }
 
-int hades_mxu8_dot_launch(const void* w, const void* xt, void* out, int m, int k,
-                          long long n, void* stream) {
-  if (m <= 0 || m % 16 != 0 || m * k > kLinBytes || k <= 0 || k % 32 != 0 || k > kLinK) {
-    return kErrShape;
-  }
-  const unsigned grid = grid_for(n, mxu8::kThreads);
-  if (grid == 0) return kErrBatch;
-  cudaError_t err = allow_smem(hades_mxu8_dot);
-  if (err != cudaSuccess) return (int)err;
-  hades_mxu8_dot<<<grid, mxu8::kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const uint8_t*)w, (const uint8_t*)xt, (int32_t*)out, m, k, n);
-  return (int)cudaGetLastError();
+// out (320, n) int32 = weights (a packed (320, 160) u8 matrix, as the
+// kernel's) times xt^T, xt (n, 160) u8.
+int hades_mxu8_dot_launch(const void* weights, const void* xt, void* out, long long n,
+                          void* stream) {
+  return dense::launch_dense<false>(hades_mxu8_dot, n, stream, weights, (const uint8_t*)weights,
+                                    (const uint8_t*)xt, (int32_t*)out, n);
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
-// The `mxu8` schedule's per-state code: the dense 67-round permutation
-// with every constant product as a byte dot, for the kernels in
-// perm_mxu8.cu and (the same schedule on another dot) perm_mxu.cu.
-// Counterparts in hades252_tpu/ops/perm_pallas.py: _perm_kernel_mxu_impl
-// (:731), _MxuOps (:653), _redc_words_mxu (:580).
+// The `mxu8` schedule's per-state code in the first port's shape: the dense
+// round with every constant product as a byte dot, the MDS layer and each
+// Montgomery REDC alike, as the TPU kernel runs it. The chained kernels in
+// that shape run their full rounds on it (perm_hyb.cuh: hyb, hyb13,
+// hybp13); the dense kernels themselves now reduce on the CUDA cores
+// (perm_dense.cuh). Counterparts in hades252_tpu/ops/perm_pallas.py:
+// _perm_kernel_mxu_impl (:731), _MxuOps (:653), _redc_words_mxu (:580).
 //
 // The code is written against a "dot" object that multiplies constant byte
 // weights by the byte rows of values, one column per state:
@@ -11,10 +13,9 @@
 //   d.col(i)          this state's column sum i of the last run (< 2^24);
 //   d.done()          the sums have been read and may be overwritten.
 // On the card the dot is a block-wide tensor-core MMA through shared
-// memory (mma_tile.cuh): 8-bit integer for mxu8, bf16 with f32 sums, which
-// col returns as integers, for mxu. For the host, below, it is a plain
-// loop over the same weights, so the whole schedule compiles with a host
-// C++ compiler and can be checked against the int oracle without a card.
+// memory (mma_tile.cuh). For the host, below, it is a plain loop over the
+// same weights, so the whole schedule compiles with a host C++ compiler
+// and can be checked against the int oracle without a card.
 //
 // The byte rows of a word are its bytes in natural order: row k of a
 // 256-bit value is its byte k, so its 32 rows are its 8 limbs as stored.
@@ -300,19 +301,6 @@ HADES_FN void state_from_mont(uint32_t s[kWidth][kLimbs]) {
   const uint32_t one[kLimbs] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
 #pragma unroll
   for (int w = 0; w < kWidth; ++w) mont_mul(s[w], s[w], one);
-}
-
-// The 67 dense rounds (_perm_kernel_mxu_impl). consts: the Montgomery ARK,
-// then R^2.
-template <class Dot>
-HADES_FN void perm(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ consts,
-                   bool convert) {
-  if (convert) state_to_mont(s, consts);
-#pragma unroll 1
-  for (int r = 0; r < kRounds; ++r) {
-    dense_round(d, s, consts, r, r < kHalf || r >= kHalf + kPartialRounds);
-  }
-  if (convert) state_from_mont(s);
 }
 
 #ifndef __CUDACC__

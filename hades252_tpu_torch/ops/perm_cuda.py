@@ -5,15 +5,16 @@ Port of the eight schedules of `hades252_tpu/ops/perm_pallas.py`
 (`permute_planar` :1270, `_batch_major` :1390). The kernels are `hades_perm_naive` (dense rounds, replacing
 `_perm_kernel`) and `hades_perm_opt` (sparse-factored partial rounds on a
 group of 4 lanes a state, replacing `_perm_kernel_opt`) in `csrc/perm.cu`,
-`hades_perm_mxu8` (dense rounds with every constant product as an 8-bit
-integer tensor-core MMA, replacing `_perm_kernel_mxu8`) in
-`csrc/perm_mxu8.cu`, `hades_perm_hyb` (mxu8's full rounds around the
-full-expansion partial chain, replacing `_perm_kernel_hyb`) in
+`hades_perm_mxu8` (dense rounds, the MDS layer as an 8-bit integer
+warpgroup MMA and the reductions on the CUDA cores, replacing
+`_perm_kernel_mxu8`) in `csrc/perm_mxu8.cu`, `hades_perm_hyb` (full rounds
+with every constant product as a byte dot, around the full-expansion partial
+chain, replacing `_perm_kernel_hyb`) in
 `csrc/perm_hyb.cu`, `hades_perm_hybp` (the chain with each round's dot
 split, the big one run ahead by a producer warpgroup as wgmma, replacing
 `_perm_kernel_hybp`) in `csrc/perm_hybp.cu`, `hades_perm_mxu` (mxu8's
-schedule with the constant products as bf16 tensor-core MMAs with float32
-sums, replacing `_perm_kernel_mxu`) in `csrc/perm_mxu.cu`, and
+kernel with the MDS layer as bf16 warpgroup MMAs with float32 sums,
+replacing `_perm_kernel_mxu`) in `csrc/perm_mxu.cu`, and
 `hades_perm_hyb13` and `hades_perm_hybp13` (hyb and hybp with every S-box
 product as a base-2^13 schoolbook, the JAX bodies' `sbox13=True`) in
 `csrc/perm_hyb13.cu`.
@@ -85,17 +86,57 @@ def kernel_tables() -> np.ndarray:
 
 
 def mxu8_kernel_tables() -> tuple[np.ndarray, np.ndarray]:
-    """The mxu8 kernel's tables as `hades_perm_mxu8_launch` takes them: the
-    dense ARK and R^2 as one flat uint32 array of 32-bit limbs, and the
-    weights w_lin, w_pp, w_p as one flat uint8 array (params.mxu8_tables)."""
+    """The mxu8 schedule's tables in the first port's layout, which the
+    chained kernels take (`hyb_kernel_tables`): the dense ARK and R^2 as one
+    flat uint32 array of 32-bit limbs, and the weights w_lin, w_pp, w_p as
+    one flat uint8 array (params.mxu8_tables)."""
     t = mxu8_tables()
     consts = np.concatenate([digits_to_limbs(t[k]).reshape(-1) for k in ("ark_mont", "r2")])
     weights = np.concatenate([t[k].reshape(-1) for k in ("w_lin", "w_pp", "w_p")])
     return consts, weights
 
 
-#: States of one block of the byte-dot kernels (csrc/mma_tile.cuh).
+def core_order(w: torch.Tensor) -> torch.Tensor:
+    """A (64 m, 16 v) byte matrix in wgmma's shared-memory operand order
+    without swizzle (csrc/wgmma.cuh), flat: each 64-row block cut into
+    16-byte vectors, byte j of vector v of row r at v * 1024 + (r // 8) *
+    128 + (r % 8) * 16 + j, the blocks one after the other."""
+    rows, k = w.shape
+    # (block, row group, row, vector, byte) -> (block, vector, row group, row, byte)
+    return w.reshape(rows // 64, 8, 8, k // 16, 16).permute(0, 3, 1, 2, 4).reshape(-1)
+
+
+def widen_bf16(w: torch.Tensor) -> torch.Tensor:
+    """A (m, k) byte matrix as (m, 2 k) bytes of bf16 values, each byte
+    exactly (at most 8 significant bits), little-endian."""
+    return w.to(torch.bfloat16).view(torch.uint8)
+
+
+def dense_kernel_tables(schedule: str) -> tuple[np.ndarray, np.ndarray]:
+    """The mxu8 or mxu kernel's tables as its launch takes them: mxu8's
+    consts (the dense ARK and R^2 as uint32 limbs), and w_lin alone, packed
+    in `core_order`: as bytes for mxu8 (51,200 B), widened once to bf16 for
+    mxu (102,400 B). Their reductions run on the CUDA cores, so w_pp and w_p
+    are not read."""
+    consts, _ = mxu8_kernel_tables()
+    w = torch.from_numpy(mxu8_tables()["w_lin"])
+    if schedule == "mxu":
+        w = widen_bf16(w)
+    return consts, core_order(w).numpy()
+
+
+#: States of one block of the byte-dot kernels (csrc/mma_tile.cuh,
+#: csrc/perm_dense_block.cuh).
 _BLOCK_STATES = 128
+
+
+def dense_smem_bytes(schedule: str) -> int:
+    """The dynamic shared memory of a block of the mxu8 or mxu kernel
+    (csrc/perm_dense_block.cuh: Layout): w_lin, the states' two halves of
+    64 rows (both 160 values a row, a byte or a bf16 each) and one block's
+    sums, 64 rows of 128 + 8 int32."""
+    panel = 64 * 160 * (2 if schedule == "mxu" else 1)
+    return 5 * panel + 2 * panel + 64 * (_BLOCK_STATES + 8) * 4
 
 
 def hyb_kernel_tables(schedule: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -166,10 +207,9 @@ _SCRATCH = ("hyb", "hyb13", "hybp13")
 @functools.cache
 def _device_tables(schedule: str, device: torch.device) -> tuple[torch.Tensor, ...]:
     """The tables of a dot kernel (every schedule but naive and opt) on the
-    device. mxu takes mxu8's (params.mxu_tables); hyb13 and hybp13 take
-    hyb's and hybp's."""
-    dense = schedule in _DENSE_DOT
-    tables = mxu8_kernel_tables() if dense else hyb_kernel_tables(schedule.removesuffix("13"))
+    device. hyb13 and hybp13 take hyb's and hybp's."""
+    tables = (dense_kernel_tables(schedule) if schedule in _DENSE_DOT
+              else hyb_kernel_tables(schedule.removesuffix("13")))
     if schedule == "hybp":
         tables = (*tables, packed_weights())
     return tuple(torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).to(device)
@@ -210,51 +250,77 @@ def _launch(x: torch.Tensor, out: torch.Tensor, *, convert: bool, schedule: str)
     launches[schedule] += 1
 
 
-def _small_dot(w: torch.Tensor, x: torch.Tensor, entry: str) -> torch.Tensor:
-    """(M, K) @ (K, N) over uint8 operands through the tile product `entry`
-    of a dense dot kernel (M <= 320 and K <= 160, the kernel's tile sizes;
-    both are zero-padded to the MMA's 16 rows and 32 bytes); on the CPU in
-    float64 (exact: sums < 2^53)."""
+def _check_dot(w: torch.Tensor, x: torch.Tensor, max_m: int, max_k: int) -> None:
     if w.dtype != torch.uint8 or x.dtype != torch.uint8 or w.dim() != 2 or x.dim() != 2:
         raise ValueError("expected two uint8 matrices")
     (m, k), n = w.shape, x.shape[1]
-    if x.shape[0] != k or not (0 < m <= 5 * MXU8_BLOCK_ROWS and 0 < k <= 160 and n > 0):
+    if x.shape[0] != k or not (0 < m <= max_m and 0 < k <= max_k and n > 0):
         raise ValueError(f"unsupported shapes {tuple(w.shape)} @ {tuple(x.shape)}")
+    if w.device.type not in ("cpu", "cuda") or x.device != w.device:
+        raise ValueError(f"no kernel for devices {w.device}, {x.device}")
+
+
+def _call(entry: str, device: torch.device, *args) -> None:
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _check_status(lib, getattr(lib, f"{entry}_launch")(*args, stream), entry)
+
+
+def _mds_dot(w: torch.Tensor, x: torch.Tensor, schedule: str) -> torch.Tensor:
+    """(M, K) @ (K, N) over uint8 operands with exact int32 sums, M <= 320
+    and K <= 160: on a CUDA tensor through the MDS product of the dense
+    kernel `schedule` (its own dot: w zero-padded to w_lin's (320, 160),
+    packed as `dense_kernel_tables` packs w_lin, and x's columns as the
+    states' byte rows); on the CPU in float64 (exact: sums < 2^53)."""
+    _check_dot(w, x, 5 * MXU8_BLOCK_ROWS, 160)
     if w.device.type == "cpu":
         return torch.matmul(w.double(), x.double()).to(torch.int32)
-    if w.device.type != "cuda" or x.device != w.device:
-        raise ValueError(f"no kernel for devices {w.device}, {x.device}")
+    (m, k), n = w.shape, x.shape[1]
+    wp = torch.zeros((5 * MXU8_BLOCK_ROWS, 160), dtype=torch.uint8, device=w.device)
+    wp[:m, :k] = w
+    packed = core_order(widen_bf16(wp) if schedule == "mxu" else wp).contiguous()
+    xt = torch.zeros((n, 160), dtype=torch.uint8, device=w.device)
+    xt[:, :k] = x.t()
+    out = torch.empty((5 * MXU8_BLOCK_ROWS, n), dtype=torch.int32, device=w.device)
+    _call(f"hades_{schedule}_dot", w.device, packed.data_ptr(), xt.data_ptr(), out.data_ptr(), n)
+    return out[:m]
+
+
+def mxu8_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The mxu8 kernel's MDS product (`hades_mxu8_dot`: warpgroup wgmma, u8 x
+    u8 -> s32), which exists so that its operand order and fragment layout
+    can be checked against a matmul; see `_mds_dot`."""
+    return _mds_dot(w, x, "mxu8")
+
+
+def mxu_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """As `mxu8_dot`, through the mxu kernel's MDS product (`hades_mxu_dot`):
+    the bytes widened to bf16, bf16 x bf16 wgmmas with float32 sums,
+    returned as int32. Exact while every sum is below 2^24, which K <= 160
+    guarantees (160 * 255^2 = 10,404,000); the card's checks hold it against
+    a float64 matmul, all-255 operands included."""
+    return _mds_dot(w, x, "mxu")
+
+
+def block_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) over uint8 operands with exact int32 sums, M <= 320
+    and K <= 160: on a CUDA tensor through the block-wide tile product that
+    the REDCs and full rounds of hyb, hyb13 and hybp13 run
+    (`hades_block_dot`, mma.sync m16n8k32 u8), with both operands zero-padded
+    to the MMA's 16 rows and 32 bytes; on the CPU in float64."""
+    _check_dot(w, x, 5 * MXU8_BLOCK_ROWS, 160)
+    if w.device.type == "cpu":
+        return torch.matmul(w.double(), x.double()).to(torch.int32)
+    (m, k), n = w.shape, x.shape[1]
     mp, kp = -(-m // 16) * 16, -(-k // 32) * 32
     wp = torch.zeros((mp, kp), dtype=torch.uint8, device=w.device)
     wp[:m, :k] = w
     xt = torch.zeros((n, kp), dtype=torch.uint8, device=w.device)
     xt[:, :k] = x.t()
     out = torch.empty((mp, n), dtype=torch.int32, device=w.device)
-    lib = _build.library()
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _check_status(lib, getattr(lib, f"{entry}_launch")(wp.data_ptr(), xt.data_ptr(),
-                                                          out.data_ptr(), mp, kp, n, stream), entry)
+    _call("hades_block_dot", w.device, wp.data_ptr(), xt.data_ptr(), out.data_ptr(), mp, kp, n)
     return out[:m]
-
-
-def mxu8_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(M, K) @ (K, N) over uint8 operands with exact int32 sums: on a CUDA
-    tensor through the mxu8 kernel's own tensor-core tile product
-    (`hades_mxu8_dot`), which exists so that its MMA fragment layout can be
-    checked against a matmul; on the CPU in float64 (exact: sums < 2^53).
-    M <= 320 and K <= 160, the kernel's tile sizes; both are zero-padded to
-    the MMA's 16 rows and 32 bytes."""
-    return _small_dot(w, x, "hades_mxu8_dot")
-
-
-def mxu_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """As `mxu8_dot`, through the mxu kernel's tile product
-    (`hades_mxu_dot`): the bytes widened to bf16, bf16 x bf16 MMAs with
-    float32 sums, returned as int32. Exact while every sum is below 2^24,
-    which K <= 160 guarantees (160 * 255^2 = 10,404,000); the card's checks
-    hold it against a float64 matmul, all-255 operands included."""
-    return _small_dot(w, x, "hades_mxu_dot")
 
 
 def hyb_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -265,26 +331,17 @@ def hyb_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     at the chain's K = 1024, 2048 and 2080; on the CPU in float64. M is
     zero-padded to the tile's 64 rows, K to the loop's step of 64 bytes and
     N to whole blocks of 128 columns."""
-    if w.dtype != torch.uint8 or x.dtype != torch.uint8 or w.dim() != 2 or x.dim() != 2:
-        raise ValueError("expected two uint8 matrices")
-    (m, k), n = w.shape, x.shape[1]
-    if x.shape[0] != k or not (m > 0 and 0 < k <= 33000 and n > 0):
-        raise ValueError(f"unsupported shapes {tuple(w.shape)} @ {tuple(x.shape)}")
+    _check_dot(w, x, 1 << 20, 33000)
     if w.device.type == "cpu":
         return torch.matmul(w.double(), x.double()).to(torch.int32)
-    if w.device.type != "cuda" or x.device != w.device:
-        raise ValueError(f"no kernel for devices {w.device}, {x.device}")
+    (m, k), n = w.shape, x.shape[1]
     mp, kp, np_ = -(-m // 64) * 64, -(-k // 64) * 64, -(-n // _BLOCK_STATES) * _BLOCK_STATES
     wp = torch.zeros((mp, kp), dtype=torch.uint8, device=w.device)
     wp[:m, :k] = w
     xt = torch.zeros((np_, kp), dtype=torch.uint8, device=w.device)
     xt[:n, :k] = x.t()
     out = torch.empty((mp, n), dtype=torch.int32, device=w.device)
-    lib = _build.library()
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _check_status(lib, lib.hades_hyb_dot_launch(wp.data_ptr(), xt.data_ptr(), out.data_ptr(),
-                                                    mp, kp, n, stream), "hades_hyb_dot")
+    _call("hades_hyb_dot", w.device, wp.data_ptr(), xt.data_ptr(), out.data_ptr(), mp, kp, n)
     return out[:m]
 
 

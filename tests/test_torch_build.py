@@ -1,7 +1,7 @@
 """The kernels' build helpers, the carry-chain arithmetic of `field.cuh` and
 the per-state code of `perm.cuh` (a lane group's lanes run in turn),
-`perm_mxu8.cuh`, `perm_hyb.cuh` and `perm_hybp.cuh` (the producer's jobs run
-in sequence) compiled for the host, and the independent oracles of
+`perm_dense.cuh`, `perm_mxu8.cuh`, `perm_hyb.cuh` and `perm_hybp.cuh` (the
+producer's jobs run in sequence) compiled for the host, and the independent oracles of
 `chip_smoke.py`, all on the CPU."""
 
 import shutil
@@ -15,18 +15,20 @@ import chip_smoke
 from hades252_tpu_torch import field, selftest
 from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import _build, perm_cuda
-from hades252_tpu_torch.params import digits_to_limbs
+from hades252_tpu_torch.params import P, digits_to_limbs, mxu8_tables
 from hades252_tpu_torch.utils.encoding import digits_to_ints
 
 torch.set_num_threads(1)
 
 # Runs the per-state permutation over states given as 32-bit limbs:
 # harness TABLES STATES SCHEDULE(the index in perm_cuda.SCHEDULES: 0 naive, 1 opt,
-# 2 mxu8, 3 hyb, 4 hybp, 5 mxu, 6 hyb13, 7 hybp13) CONVERT CONSTS WEIGHTS [CHAIN]
-# -> limbs on stdout. mxu8 and mxu run perm_mxu8.cuh and the chained schedules
-# perm_hyb.cuh with their host dots, plain loops over the kernels' byte weights in
-# the MMA's place (so mxu, whose kernel differs from mxu8's only in the MMA, runs
-# mxu8's host code); hyb13 and hybp13 take the base-2^13 S-box. opt runs a group of
+# 2 mxu8, 3 hyb, 4 hybp, 5 mxu, 6 hyb13, 7 hybp13) CONVERT CONSTS WEIGHTS [CHAIN
+# or, for mxu, W_LIN_BF16] -> limbs on stdout. mxu8 and mxu run perm_dense.cuh
+# (the reductions and the S-box on field.cuh's carry chains) with its host dot, a
+# plain loop over w_lin in the MMA's place: bytes for mxu8, bf16 with float sums
+# for mxu, as their kernels read it. The chained schedules run perm_hyb.cuh with
+# its host dot, plain loops over the kernels' byte weights; hyb13 and hybp13 take
+# the base-2^13 S-box. opt runs a group of
 # HADES_GROUP lanes (default 4; the kernel runs 4, 2 or 1 by the batch) a state, the lanes in turn and the
 # shuffles as array reads; hybp runs perm_hybp.cuh, the consumer's code of its
 # kernel, with each of the producer's jobs run at the signal that allows it.
@@ -41,6 +43,7 @@ HARNESS = r"""
 #include "perm_mxu8.cuh"
 #include "perm_hyb.cuh"
 #include "perm_hybp.cuh"
+#include "perm_dense.cuh"
 using namespace hades;
 template <typename T>
 static std::vector<T> read_file(const char* path) {
@@ -62,6 +65,9 @@ int main(int argc, char** argv) {
   const bool chained = schedule == 3 || schedule == 4 || schedule >= 6;
   const bool pipelined = schedule == 4 || schedule == 7;
   if (chained) chain = read_file<uint8_t>(argv[7]);
+  std::vector<uint16_t> lin_bf16;
+  if (schedule == 5) lin_bf16 = read_file<uint16_t>(argv[7]);
+  if (schedule == 5 && (int)lin_bf16.size() != mxu8::kLinBytes) return 4;
   if ((int)consts.size() != (chained ? hyb::kConstWords : mxu8::kConstWords) ||
       (int)weights.size() != mxu8::kWeightBytes ||
       (chained && (int)chain.size() != hyb::chain_bytes(pipelined)))
@@ -84,11 +90,18 @@ int main(int argc, char** argv) {
     else if (schedule == 6) hyb::perm<false, true>(dot, s, consts.data(), chain.data(), convert != 0);
     else if (schedule == 4) {
       // the consumer's code, with the producer's jobs run at their signals
-      hybp::HostDot split{weights.data(), chain.data()};
+      hybp::HostDot split{{weights.data()}, chain.data()};
       hybp::perm(split, s, consts.data(), convert != 0);
     }
     else if (schedule == 3) hyb::perm<false>(dot, s, consts.data(), chain.data(), convert != 0);
-    else if (schedule == 2 || schedule == 5) mxu8::perm(dot, s, consts.data(), convert != 0);
+    else if (schedule == 2) {
+      dense::HostDot<> lin{weights.data()};
+      dense::perm(lin, s, consts.data(), convert != 0);
+    }
+    else if (schedule == 5) {
+      dense::HostDot<uint16_t> lin{lin_bf16.data()};
+      dense::perm(lin, s, consts.data(), convert != 0);
+    }
     else if (schedule == 1) {
       // the lanes of a group in turn; their copies of word 4 must agree
       const bool same = group == 4 ? perm_opt_host<4>(s, convert != 0)
@@ -253,6 +266,8 @@ def harness(tmp_path_factory):
     consts, weights = perm_cuda.mxu8_kernel_tables()
     consts.astype("<u4").tofile(d / "mxu8_consts.bin")
     weights.tofile(d / "mxu8_weights.bin")
+    w_lin = torch.from_numpy(mxu8_tables()["w_lin"])
+    perm_cuda.widen_bf16(w_lin).numpy().tofile(d / "mxu_chain.bin")  # w_lin as bf16, row-major
     for schedule in ("hyb", "hybp"):
         consts, _, chain = perm_cuda.hyb_kernel_tables(schedule)
         consts.astype("<u4").tofile(d / f"{schedule}_consts.bin")
@@ -277,6 +292,63 @@ def test_kernel_math_on_host_matches_int_oracle(harness, schedule, convert):
     ).stdout
     got = np.frombuffer(out, "<u4").reshape(-1, 5, 8)
     assert np.array_equal(got, digits_to_limbs(want))
+
+
+@pytest.mark.parametrize("schedule", ["mxu8", "mxu"])
+@pytest.mark.parametrize("convert", [True, False])
+def test_dense_math_on_host_takes_edge_states(harness, schedule, convert):
+    """perm_dense.cuh, the per-state code of the mxu8 and mxu kernels, on the
+    states at the ends of the field: all 0, all p - 1, p - 1 beside 0 and 1,
+    and words that drive x^2 and x^4 of the S-box near p, against the int
+    oracle (for convert=False the inputs and outputs are Montgomery-domain)."""
+    from hades252_tpu_torch.strategy import ScalarStrategy
+
+    r = (1 << 256) % P
+    states = [[0] * 5, [P - 1] * 5, [P - 1, 0, 1, P - 1, 0], [1, P - 2, (P + 1) // 2, 2, P - 1],
+              [(1 << 255) % P, P - 1, 0, 0, P - 1]]
+    strat = ScalarStrategy()
+    if convert:
+        want = [strat.perm(list(st)) for st in states]  # perm works in place
+    else:
+        rinv = pow(r, -1, P)
+        want = [[v * r % P for v in strat.perm([w * rinv % P for w in st])] for st in states]
+    limbs = [[(w >> (32 * i)) & 0xFFFFFFFF for w in st for i in range(8)] for st in states]
+    path = harness / f"edge_{schedule}_{int(convert)}.bin"
+    np.asarray(limbs, "<u4").tofile(path)
+    out = subprocess.run(
+        [str(harness / "harness"), str(harness / "tables.bin"), str(path),
+         str(perm_cuda.SCHEDULES.index(schedule)), str(int(convert)),
+         str(harness / "mxu8_consts.bin"), str(harness / "mxu8_weights.bin"),
+         str(harness / f"{schedule}_chain.bin")],
+        capture_output=True, check=True, timeout=300,
+    ).stdout
+    got = np.frombuffer(out, "<u4").reshape(len(states), 5, 8).astype(object)
+    for row, st in zip(got, want):
+        assert [sum(int(v) << (32 * i) for i, v in enumerate(word)) for word in row] == st
+
+
+@pytest.mark.parametrize("schedule", ["mxu8", "mxu"])
+def test_dense_weights_are_w_lin_in_wgmma_order(schedule):
+    """perm_cuda.dense_kernel_tables, which the dense kernels stage into
+    shared memory: w_lin alone, each 64-row block cut into 16-byte vectors,
+    byte j of vector v of row r at v * 1024 + (r // 8) * 128 + (r % 8) * 16 + j
+    (the order of wgmma's operand without swizzle); for mxu every byte widened
+    to the bf16 of its value, little-endian. Unpacked, it is w_lin."""
+    consts, packed = perm_cuda.dense_kernel_tables(schedule)
+    w_lin = mxu8_tables()["w_lin"]
+    assert np.array_equal(consts, perm_cuda.mxu8_kernel_tables()[0])
+    width = 2 * 160 if schedule == "mxu" else 160
+    assert packed.dtype == np.uint8 and packed.size == 320 * width
+    at = np.arange(packed.size)
+    blk, v = at // (64 * width), at % (64 * width) // 1024
+    r, j = at % 1024 // 128 * 8 + at % 128 // 16, at % 16
+    unpacked = np.zeros((320, width), np.uint8)
+    unpacked[64 * blk + r, 16 * v + j] = packed
+    if schedule == "mxu":
+        bits = unpacked.view("<u2").astype(np.uint32) << 16
+        unpacked = bits.view(np.float32)
+        assert np.array_equal(unpacked, unpacked.round())
+    assert np.array_equal(unpacked.astype(np.int64), w_lin.astype(np.int64))
 
 
 @pytest.mark.parametrize("group", [1, 2, 4])
@@ -348,9 +420,10 @@ def test_source_hash_covers_every_source():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = sorted(p.name for p in _build.CSRC.glob("*.cu*"))
-    assert names == ["field.cuh", "mma_tile.cuh", "perm.cu", "perm.cuh", "perm_hyb.cu",
-                     "perm_hyb.cuh", "perm_hyb13.cu", "perm_hyb_block.cuh", "perm_hybp.cu",
-                     "perm_hybp.cuh", "perm_mxu.cu", "perm_mxu8.cu", "perm_mxu8.cuh"]
+    assert names == ["field.cuh", "mma_tile.cuh", "perm.cu", "perm.cuh", "perm_dense.cuh",
+                     "perm_dense_block.cuh", "perm_hyb.cu", "perm_hyb.cuh", "perm_hyb13.cu",
+                     "perm_hyb_block.cuh", "perm_hybp.cu", "perm_hybp.cuh", "perm_mxu.cu",
+                     "perm_mxu8.cu", "perm_mxu8.cuh", "wgmma.cuh"]
 
 
 def test_ptxas_summary():
@@ -486,9 +559,22 @@ def test_chip_smoke_bound(schedule):
     assert many["bytes_ms"] < 16 * one["bytes_ms"]
     assert (one["tensor_ms"] > 0) == (schedule not in ("naive", "opt"))
     mxu8 = chip_smoke.bound("mxu8", 1 << 14)
+
+    def cores_ms(ops):
+        return ops * (1 << 14) / chip_smoke.INT32_OPS_PER_S * 1e3
+
+    if schedule == "mxu8":
+        # 632 REDCs on the CUDA cores (81 operations each), 99 S-boxes of 136, the 10
+        # conversion products, 2 adds a recombined column, the ARK; the tensor cores
+        # keep the 67 MDS dots alone
+        assert one["cores_ms"] == pytest.approx(cores_ms(113_586))
+        assert one["tensor_ms"] == pytest.approx(
+            2 * 67 * 315 * 160 * (1 << 14) / chip_smoke.INT8_OPS_PER_S * 1e3)
     if schedule == "hyb":
-        # 401 REDCs against mxu8's 632; the chain's dots outweigh the MDS dots they replace
-        assert one["cores_ms"] < mxu8["cores_ms"] and one["tensor_ms"] > mxu8["tensor_ms"]
+        # 401 REDCs against mxu8's 632, but as dots with 215 operations of carries each
+        # against mxu8's 81 on the cores; the chain's dots outweigh the MDS dots they replace
+        assert one["cores_ms"] == pytest.approx(cores_ms(117_663)) and one["cores_ms"] > mxu8["cores_ms"]
+        assert one["tensor_ms"] > mxu8["tensor_ms"]
     if schedule == "hybp":
         assert one["cores_ms"] < mxu8["cores_ms"]
         # its 401 REDCs run on the CUDA cores: 3,040 byte multiply-adds each leave the
@@ -504,9 +590,11 @@ def test_chip_smoke_bound(schedule):
         ops = 136 * products - 28 * 198 + 16 * adds
         assert one["cores_ms"] == pytest.approx(ops * (1 << 14) / chip_smoke.INT32_OPS_PER_S * 1e3)
     if schedule == "mxu":
-        # mxu8's work, its dots at the bf16 rate, half the int8 one
-        assert one["cores_ms"] == mxu8["cores_ms"] and one["bytes_ms"] == mxu8["bytes_ms"]
+        # mxu8's work, its dots at the bf16 rate, half the int8 one; w_lin read as bf16
+        assert one["cores_ms"] == mxu8["cores_ms"]
         assert one["tensor_ms"] == pytest.approx(mxu8["tensor_ms"] * 1979 / 989)
+        assert one["bytes_ms"] - mxu8["bytes_ms"] == pytest.approx(
+            320 * 160 / chip_smoke.HBM_BYTES_PER_S * 1e3)
     if schedule.endswith("13"):
         # the same tables; 99 S-boxes of 1,420 operations in place of 136. hybp13 keeps the
         # first port's shape: hyb's dots (REDCs included) and the split's 17-limb sums

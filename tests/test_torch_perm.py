@@ -366,7 +366,7 @@ def test_hyb_dot_on_cpu():
         perm_cuda.hyb_dot(w, x[:100])
 
 
-@pytest.mark.parametrize("dot", [perm_cuda.mxu8_dot, perm_cuda.mxu_dot])
+@pytest.mark.parametrize("dot", [perm_cuda.mxu8_dot, perm_cuda.mxu_dot, perm_cuda.block_dot])
 def test_mxu8_dot_on_cpu(dot):
     rng = np.random.default_rng(12)
     w = torch.from_numpy(rng.integers(0, 256, (20, 40)).astype(np.uint8))

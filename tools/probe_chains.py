@@ -29,9 +29,9 @@ leaves, so they do not overlap; the rest of the kernel's clocks is the
 remainder. Outputs stay right on this build and are checked against the
 uninstrumented `naive` kernel.
 
-Part 3, the redesigned kernels. `perm.cu`: `hades_perm_opt` with its group
-of lanes forced to 4, 2 and 1 at B = 2^10 .. 2^18, which is where the
-thresholds `kGroup4Max` and `kGroup2Max` come from. `perm_hybp.cu`:
+Part 3, `opt` and `hybp`, on this tree's sources. `perm.cu`:
+`hades_perm_opt` with its group of lanes forced to 4, 2 and 1 at B = 2^10 ..
+2^18, which is where the thresholds `kGroup4Max` and `kGroup2Max` come from. `perm_hybp.cu`:
 `clock64()` sums of the first consumer thread and the first producer thread
 of every block, a section at a time (consumer: the wait for a job's sums,
 the small dot, `recombine`, the big reduction, the S-box, the MDS dots;
@@ -39,6 +39,26 @@ producer: the waits for a basis element, for a stage of weights, for the
 MMAs of the chunk before with the warpgroup's barrier, for a free sums
 buffer, and the write of the sums; the rest of the producer's time is the
 issue of its wgmmas), at B = 2^10 (one block an SM, no second wave) and 2^14.
+
+Part 4, the dense kernels `mxu8` and `mxu`: the first port's (the sources
+after `--csrc`; skipped with a note where its patches do not apply) and
+this tree's, by section as in part 2 (first port: the S-box's raw products,
+the REDCs' dots, the MDS dots, the `put` and `done` barriers, `recombine`,
+the ladder; this tree: the S-box, the 17-limb reductions, `recombine`, and
+the dot's `mds_put`, `mds_run` and `mds_done`), at B = 2^14; then the MDS
+tile product alone (67 rounds of 5 blocks of 64 x 160, both operands in
+shared memory) through `mma.sync` m16n8k32 u8 on a warp's 32 states and
+through `wgmma` m64n64k32 u8 and m64n64k16 bf16 on a warpgroup's 128, at 1
+to 4 warps a scheduler.
+
+Part 5: the kernels that a change of the dense pair must not move (`naive`,
+`opt`, `hyb`, `hybp`, `hyb13`, `hybp13`), each built from the sources after
+`--csrc` and from this tree's and timed in turns in one process (parent,
+change, change, parent) at B = 2^14, outputs compared.
+
+Part 6: the dense kernels' variants (`DENSE_VARIANTS`: the MDS layer's five
+values reduced together after the last dot, as the sources do, or each
+under the next block's wgmmas), timed in turns at B = 2^14 and 2^18.
 
 Everything is printed, with the card's name and power limit on every line
 that carries a time, and written to `probe_chains.txt` (and the SASS of one
@@ -182,7 +202,7 @@ HYBP_PATCHES = [
      "      PROF(2);\n      __syncwarp();  // the warp's puts of s_{q-1}"),
     ("perm_mxu8.cuh", "HADES_FN void recombine(const Dot& d, uint32_t out[L]) {\n",
      "HADES_FN void recombine(const Dot& d, uint32_t out[L]) {\n  PROF(3);\n"),
-    ("perm_hybp.cuh", "  redc_steps<kT>(t);\n  mxu8::ladder9<RUNGS>",
+    ("perm_dense.cuh", "  redc_steps<kT>(t);\n  mxu8::ladder9<RUNGS>",
      "  PROF(4);\n  redc_steps<kT>(t);\n  mxu8::ladder9<RUNGS>"),
     ("field.cuh", "  uint32_t x2[kLimbs], x4[kLimbs];\n  mont_sqr(x2, x);",
      "  PROF(5);\n  uint32_t x2[kLimbs], x4[kLimbs];\n  mont_sqr(x2, x);"),
@@ -209,20 +229,251 @@ HYBP_PATCHES = [
 ]
 
 
-def start_variant(name: str, patches, flags, source: str):
-    """Copy csrc, patch, start nvcc on `source`; returns the process and the
-    library's path, or None when a patch does not apply."""
+# Part 4: where the first port's dense kernels (`mxu8`, `mxu`: perm_mxu8.cuh's
+# per-state code on mma_tile.cuh's block dot) spend a block's clocks. Thread
+# 0 of every block sums its clocks by section; the sections are leaves.
+DENSE_SECTIONS = ["kernel", "S-box raw products (mul_wide)",
+                  "REDC dots: MMAs and the barrier after them",
+                  "MDS dots: MMAs and the barrier after them", "put: barrier",
+                  "done: barrier", "recombine", "ladder9"]
+DENSE_PATCHES = [
+    HYB_PATCHES[0],
+    ("mma_tile.cuh", "  perm(d, s, consts, convert != 0);\n  if (live) store_state",
+     "  { PROF(0); perm(d, s, consts, convert != 0); }\n  if (live) store_state"),
+    ("mma_tile.cuh", '"MMA tile shape");\n    block_dot<K / 32>(w',
+     '"MMA tile shape");\n    hades::prof::Tic prof_tic_(K == 32 ? 2 : 3);\n    block_dot<K / 32>(w'),
+    ("mma_tile.cuh", '"MMA tile shape");\n    block_dot_bf16<K / 32>(w',
+     '"MMA tile shape");\n    hades::prof::Tic prof_tic_(K == 32 ? 2 : 3);\n    block_dot_bf16<K / 32>(w'),
+    (HYB_PATCHES[3][0], HYB_PATCHES[3][1], HYB_PATCHES[3][2].replace("PROF(3)", "PROF(4)")),
+    ("mma_tile.cuh", "void done() { __syncthreads(); }", "void done() { PROF(5); __syncthreads(); }"),
+    (HYB_PATCHES[5][0], HYB_PATCHES[5][1], HYB_PATCHES[5][2].replace("PROF(5)", "PROF(6)")),
+    (HYB_PATCHES[6][0], HYB_PATCHES[6][1], HYB_PATCHES[6][2].replace("PROF(6)", "PROF(1)")),
+    HYB_PATCHES[7],
+]
+PROF_READ = ('extern "C" {', 'extern "C" {\nint hades_prof_read(unsigned long long* out) {\n'
+             '  cudaError_t e = cudaMemcpyFromSymbol(out, hades::prof::g_clk, sizeof(hades::prof::g_clk));\n'
+             '  unsigned long long z[8] = {0};\n  if (e == cudaSuccess) e = cudaMemcpyToSymbol(hades::prof::g_clk, z, sizeof(z));\n'
+             '  return (int)e;\n}\n')
+
+# The MDS tile product alone at the dense kernels' shape, 67 rounds of 5
+# blocks of (64 x 160) weights times the state bytes, both operands in
+# shared memory, no reduction around it: each warp's 32 states through
+# mma.sync m16n8k32 u8 (the loop of perm_hybp.cu's mds_run), or each
+# warpgroup's 128 states through wgmma m64n64k32 u8 or m64n64k16 bf16 (two
+# halves of 64 states, 10 or 20 wgmmas a block between one fence and one
+# commit). Blocks of W warpgroups, one block an SM: W warps a scheduler.
+MDS_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "wgmma.cuh"
+using namespace hades;
+constexpr int kR = 67;
+__device__ unsigned long long g_clk[2];  // clocks summed over warps, and warps
+__device__ __forceinline__ void mma(int32_t c[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                    uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void tally(long long t0, int chk, int* sink) {
+  const long long t1 = clock64();
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&g_clk[0], (unsigned long long)(t1 - t0));
+    atomicAdd(&g_clk[1], 1ull);
+  }
+  if (chk == 0x1234567) sink[0] = chk;
+}
+__global__ void probe_mma(int* sink) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint32_t* w32 = reinterpret_cast<uint32_t*>(smem);
+  for (int i = threadIdx.x; i < 51200 / 4; i += blockDim.x) w32[i] = i * 2654435761u;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  uint32_t* xw = w32 + 51200 / 4 + warp * 32 * 44;
+  for (int i = lane; i < 32 * 44; i += 32) xw[i] = i * 40503u + warp;
+  __syncthreads();
+  int chk = 0;
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int r = 0; r < kR; ++r) {
+#pragma unroll 1
+    for (int k = 0; k < 5; ++k) {
+#pragma unroll 1
+      for (int nt = 0; nt < 4; ++nt) {
+        uint32_t b[5][2];
+        const uint32_t* xr = xw + (nt * 8 + g) * 44;
+#pragma unroll
+        for (int ks = 0; ks < 5; ++ks) b[ks][0] = xr[ks * 8 + q], b[ks][1] = xr[ks * 8 + 4 + q];
+        int32_t acc[4][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 5; ++ks) {
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            const uint32_t* w0 = w32 + k * 64 * 40 + (mt * 16 + g) * 40;
+            const uint32_t* w1 = w0 + 8 * 40;
+            mma(acc[mt], w0[ks * 8 + q], w1[ks * 8 + q], w0[ks * 8 + 4 + q], w1[ks * 8 + 4 + q],
+                b[ks][0], b[ks][1]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) chk += acc[mt][0] ^ acc[mt][3];
+      }
+    }
+  }
+  tally(t0, chk, sink);
+}
+template <bool kBf16>
+__global__ void probe_wgmma(int* sink) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int kBlk = (kBf16 ? 20 : 10) * kVecBytes, kSteps = kBf16 ? 10 : 5;
+  uint32_t* w32 = reinterpret_cast<uint32_t*>(smem);
+  for (int i = threadIdx.x; i < 7 * kBlk / 4; i += blockDim.x) {
+    w32[i] = kBf16 ? 0x3F803F80u : (i * 2654435761u) & 0x7F7F7F7Fu;
+  }
+  fence_async_smem();
+  __syncthreads();
+  const uint64_t db0 = smem_desc(smem + 5 * kBlk), db1 = smem_desc(smem + 6 * kBlk);
+  int chk = 0;
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int r = 0; r < kR; ++r) {
+#pragma unroll 1
+    for (int k = 0; k < 5; ++k) {
+      const uint64_t da = smem_desc(smem + k * kBlk);
+      if (kBf16) {
+        float acc[2][32];
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) wgmma_bf16(acc[0], da + s * kDescStep, db0 + s * kDescStep, s);
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) wgmma_bf16(acc[1], da + s * kDescStep, db1 + s * kDescStep, s);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(acc[0]);
+        pin(acc[1]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) chk += __float_as_int(acc[0][i]) ^ __float_as_int(acc[1][i]);
+      } else {
+        int32_t acc[2][32];
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) wgmma_u8(acc[0], da + s * kDescStep, db0 + s * kDescStep, s);
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) wgmma_u8(acc[1], da + s * kDescStep, db1 + s * kDescStep, s);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(acc[0]);
+        pin(acc[1]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) chk += acc[0][i] ^ acc[1][i];
+      }
+    }
+  }
+  tally(t0, chk, sink);
+}
+extern "C" {
+int mds_probe(int which, int warpgroups, int sms, int* sink, unsigned long long* clk) {
+  const int threads = 128 * warpgroups;
+  const int smem = which == 0 ? 51200 + 4 * warpgroups * 32 * 176 : 7 * (which == 2 ? 20 : 10) * 1024;
+  unsigned long long z[2] = {0, 0};
+  cudaMemcpyToSymbol(g_clk, z, sizeof(z));
+  cudaError_t e;
+  if (which == 0) {
+    cudaFuncSetAttribute(probe_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    probe_mma<<<sms, threads, smem>>>(sink);
+  } else if (which == 1) {
+    cudaFuncSetAttribute(probe_wgmma<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    probe_wgmma<false><<<sms, threads, smem>>>(sink);
+  } else {
+    cudaFuncSetAttribute(probe_wgmma<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    probe_wgmma<true><<<sms, threads, smem>>>(sink);
+  }
+  e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(clk, g_clk, sizeof(z));
+  return (int)e;
+}
+}
+"""
+
+
+# The redesigned dense kernels (perm_dense_block.cuh) by section, on this
+# tree's sources.
+NEW_DENSE_SECTIONS = ["kernel", "S-box (field.cuh sbox)", "17-limb reductions (redc_big)",
+                      "recombine", "mds_run: wait for the wgmmas",
+                      "mds_put: put, fence, barrier, first wgmmas", "mds_done: barrier",
+                      "mds_run: issue of the next block's wgmmas"]
+NEW_DENSE_PATCHES = [
+    HYB_PATCHES[0],
+    ("perm_dense_block.cuh", "  perm(d, s, consts, convert != 0);\n  if (live) store_state",
+     "  { PROF(0); perm(d, s, consts, convert != 0); }\n  if (live) store_state"),
+    (HYBP_PATCHES[6][0], HYBP_PATCHES[6][1], HYBP_PATCHES[6][2].replace("PROF(5)", "PROF(1)")),
+    ("perm_dense.cuh", "  redc_steps<kT>(t);\n  mxu8::ladder9<RUNGS>",
+     "  PROF(2);\n  redc_steps<kT>(t);\n  mxu8::ladder9<RUNGS>"),
+    (HYB_PATCHES[5][0], HYB_PATCHES[5][1], HYB_PATCHES[5][2].replace("PROF(5)", "PROF(3)")),
+    ("perm_dense_block.cuh", "  __device__ __forceinline__ void mds_run(int k) {\n    wgmma_wait<0>();",
+     "  __device__ __forceinline__ void mds_run(int k) {\n    { PROF(4); wgmma_wait<0>(); }"),
+    ("perm_dense_block.cuh", "    if (k + 1 < kWidth) issue(k + 1);",
+     "    if (k + 1 < kWidth) { PROF(7); issue(k + 1); }"),
+    ("perm_dense_block.cuh", "  __device__ __forceinline__ void mds_put(const uint32_t* words) {\n",
+     "  __device__ __forceinline__ void mds_put(const uint32_t* words) {\n    PROF(5);\n"),
+    ("perm_dense_block.cuh", "void mds_done() { sync_block(); }",
+     "void mds_done() { PROF(6); sync_block(); }"),
+]
+
+# Part 5: the kernels this tree's change must not move, built from the
+# sources after `--csrc` (the parent's) and from this tree's, timed in turns
+# in one process: parent, change, change, parent.
+# Part 6: the dense kernels' variants on this tree's sources, timed in one
+# process at B = 2^14 and 2^18, outputs held against the plain opt.
+DENSE_VARIANTS = {
+    "after": [],  # the sources: the five MDS values reduced together, after the last dot
+    "each": [("perm_dense.cuh", """#pragma unroll
+  for (int k = 0; k < kWidth; ++k) {
+    d.mds_run(k);
+    mxu8::recombine<63, kT>(d, t[k]);
+    d.mds_done();
+  }
+#pragma unroll
+  for (int k = 0; k < kWidth; ++k) redc_big<2>(s[k], t[k]);""", """#pragma unroll
+  for (int k = 0; k < kWidth; ++k) {
+    d.mds_run(k);
+    mxu8::recombine<63, kT>(d, t[k]);
+    d.mds_done();
+    redc_big<2>(s[k], t[k]);
+  }""")],
+}
+
+COMPARE = {"perm.cu": ("naive", "opt"), "perm_hyb.cu": ("hyb",), "perm_hyb13.cu": ("hyb13", "hybp13"),
+           HYBP: ("hybp",)}
+
+
+def start_variant(name: str, patches, flags, source: str, csrc: Path | None = None):
+    """Copy csrc (`--csrc`, or the one given), patch, start nvcc on `source`;
+    returns the process and the library's path, or None when a patch does
+    not apply."""
     d = OUT / name
     shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(CSRC, d)
+    shutil.copytree(csrc or CSRC, d)
     for fname, old, new in patches:
-        text = (d / fname).read_text()
+        text = (d / fname).read_text() if (d / fname).exists() else ""
         if old not in text:
             say(f"[probe] variant {name}: patch of {fname} does not apply to this tree; skipped")
             return None
         (d / fname).write_text(text.replace(old, new, 1))
     lib = d / f"lib{name}.so"
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", "-o", str(lib), str(d / source)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def start_probe_source(name: str, text: str):
+    """Write a probe's own source beside a copy of this tree's csrc (whose
+    headers it includes) and start nvcc on it."""
+    d = OUT / name
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(_build.CSRC, d)
+    (d / f"{name}.cu").write_text(text)
+    lib = d / f"lib{name}.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib), str(d / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
@@ -414,6 +665,165 @@ def part3(smi: str) -> None:
             say(f"[probe]   {name}: {c:,.0f} clocks a block")
 
 
+def part4(smi: str) -> None:
+    """The first port's mxu8 and mxu by section, then the MDS tile product alone."""
+    dense_sections(smi, "clk", ("mxu8", "mxu"), DENSE_SECTIONS)
+    dense_sections(smi, "new", ("mxu8", "mxu"), NEW_DENSE_SECTIONS)
+    i32 = ctypes.c_int
+    p = ctypes.c_void_p
+    lib, report = finish_variant("mdsdot", STARTED["mdsdot"])
+    if lib is None:
+        return
+    say(f"[probe] mdsdot: ptxas {'; '.join(ln.split(': ', 1)[1] for ln in _build.ptxas_summary(report))}")
+    for line in report.splitlines():
+        if "wgmma" in line and "erializ" in line:
+            say(f"[probe] mdsdot: ptxas {line.strip()}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    lib.mds_probe.argtypes = [i32, i32, i32, p, p]
+    for which, name in enumerate(("mma.sync m16n8k32 u8, a warp's 32 states",
+                                  "wgmma m64n64k32 u8, a warpgroup's 128 states",
+                                  "wgmma m64n64k16 bf16, a warpgroup's 128 states")):
+        for w in (1, 2, 3, 4):
+            clk = (ctypes.c_ulonglong * 2)()
+            status = lib.mds_probe(which, w, sms, sink.data_ptr(), clk)
+            if status != 0:
+                say(f"[probe] mdsdot {name}, {w} warps a scheduler: status {status}")
+                continue
+            a_round = clk[0] / clk[1] / 67
+            say(f"[probe] mdsdot {name}, {w} warps a scheduler: {a_round:,.0f} clocks a warp a "
+                f"round (5 blocks of 64 x 160), {a_round / w:,.0f} an SM's 128 states a round | {smi}")
+
+
+def dense_sections(smi: str, variant: str, kernels, sections) -> None:
+    """A dense kernel's sections, through its launch with this tree's tables."""
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    stream = torch.cuda.current_stream().cuda_stream
+    b = 1 << 14
+    x = states(b, 4)
+    want = perm_cuda.permute_planar_plain(x, convert=False, schedule="opt")
+    for kernel in kernels:
+        lib, report = finish_variant(f"{kernel}{variant}", STARTED[f"{kernel}{variant}"])
+        if lib is None:
+            continue
+        tables = (perm_cuda.mxu8_kernel_tables() if variant == "clk"
+                  else perm_cuda.dense_kernel_tables(kernel))
+        consts, weights = (torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
+                           for t in tables)
+        say(f"[probe] {kernel}{variant}: ptxas {ptxas(report)}")
+        fn = getattr(lib, f"hades_perm_{kernel}_launch")
+        fn.argtypes = [p, p, i64, i32, p, p, p]
+        out = torch.empty_like(x)
+
+        def launch():
+            return fn(x.data_ptr(), out.data_ptr(), b, 0, consts.data_ptr(), weights.data_ptr(),
+                      stream)
+
+        if launch() != 0:
+            say(f"[probe] {kernel}{variant}: the launch failed (another interface?); skipped")
+            continue
+        torch.cuda.synchronize()
+        ok = torch.equal(out, want)
+        clk = (ctypes.c_ulonglong * 8)()
+        lib.hades_prof_read(clk)  # the first launch's
+        ms = cuda_ms(launch, reps=3)
+        lib.hades_prof_read(clk)
+        per = [c / (4 * -(-b // 128)) for c in clk]  # warm-up + 3 timed launches
+        rest = per[0] - sum(per[1:])
+        say(f"[probe] {kernel}{variant} B={b}: outputs {'==' if ok else '!='} plain opt; {ms:.4f} ms "
+            f"instrumented | {smi}")
+        for name, c in zip(sections, per):
+            if name != "unused":
+                say(f"[probe]   {kernel} {name}: {c:,.0f} clocks a block ({c / per[0]:.3f})")
+        say(f"[probe]   {kernel} everything else: {rest:,.0f} clocks a block ({rest / per[0]:.3f})")
+
+
+def part5(smi: str) -> None:
+    """The kernels that must not move: the parent's build and this tree's, in
+    turns, at B = 2^14, outputs compared."""
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    stream = torch.cuda.current_stream().cuda_stream
+    b = 1 << 14
+    x = states(b, 5)
+    tables = perm_cuda.kernel_tables()
+    for source, kernels in COMPARE.items():
+        libs = [finish_variant(f"{tag}_{Path(source).stem}", STARTED[f"{tag}_{Path(source).stem}"])[0]
+                for tag in ("parent", "change")]
+        if None in libs:
+            continue
+        for kernel in kernels:
+            launches, outs = [], []
+            for lib in libs:
+                fn = getattr(lib, f"hades_perm_{kernel}_launch")
+                out = torch.empty_like(x)
+                if kernel in ("naive", "opt"):
+                    lib.hades_init.argtypes = [p, i64]
+                    lib.hades_init(tables.ctypes.data, tables.size)
+                    fn.argtypes = [p, p, i64, i32, p]
+                    args = ()
+                else:
+                    tabs = [torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
+                            for t in perm_cuda.hyb_kernel_tables(kernel.removesuffix("13"))]
+                    if kernel == "hybp":
+                        tabs.append(torch.from_numpy(perm_cuda.packed_weights()).cuda())
+                        fn.argtypes = [p, p, i64, i32, p, p, p, p, p]
+                        args = tuple(t.data_ptr() for t in tabs)
+                    else:
+                        scratch = torch.empty(-(-b // 128) * 128 * 2112, dtype=torch.uint8,
+                                              device="cuda")
+                        tabs.append(scratch)
+                        fn.argtypes = [p, p, i64, i32, p, p, p, p, i64, p]
+                        args = (*(t.data_ptr() for t in tabs), scratch.numel())
+
+                def launch(fn=fn, out=out, args=args):
+                    return fn(x.data_ptr(), out.data_ptr(), b, 0, *args, stream)
+
+                launches.append(launch)
+                outs.append(out)
+            times = {0: [], 1: []}
+            for i in (0, 1, 1, 0):
+                times[i].append(cuda_ms(launches[i]))
+            same = torch.equal(outs[0], outs[1])
+            mean = [statistics.mean(times[i]) for i in (0, 1)]
+            say(f"[probe] compare {kernel} B={b}: parent {times[0][0]:.4f}, {times[0][1]:.4f} ms; "
+                f"change {times[1][0]:.4f}, {times[1][1]:.4f} ms; change / parent "
+                f"{mean[1] / mean[0]:.4f}; outputs {'==' if same else '!='} | {smi}")
+
+
+def part6(smi: str) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    stream = torch.cuda.current_stream().cuda_stream
+    for kernel in ("mxu8", "mxu"):
+        consts, weights = (torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
+                           for t in perm_cuda.dense_kernel_tables(kernel))
+        fns = {}
+        for variant in DENSE_VARIANTS:
+            lib, report = finish_variant(f"{kernel}_{variant}", STARTED[f"{kernel}_{variant}"])
+            if lib is None:
+                continue
+            say(f"[probe] {kernel} {variant}: ptxas {ptxas(report)}")
+            fn = getattr(lib, f"hades_perm_{kernel}_launch")
+            fn.argtypes = [p, p, i64, i32, p, p, p]
+            fns[variant] = fn
+        for b in (1 << 14, 1 << 18):
+            x = states(b, 6)
+            want = perm_cuda.permute_planar_plain(x, convert=False, schedule="opt") if b == 1 << 14 \
+                else None
+            times = {v: [] for v in fns}
+            outs = {}
+            for variant in (*fns, *reversed(fns)):
+                out = torch.empty_like(x)
+                fn = fns[variant]
+                times[variant].append(cuda_ms(lambda: fn(x.data_ptr(), out.data_ptr(), b, 0,
+                                                         consts.data_ptr(), weights.data_ptr(),
+                                                         stream)))
+                outs[variant] = out
+            for variant, ts in times.items():
+                ok = "" if want is None else f"; outputs {'==' if torch.equal(outs[variant], want) else '!='} plain opt"
+                say(f"[probe] {kernel} {variant} B={b}: {', '.join(f'{t:.4f}' for t in ts)} ms, "
+                    f"{statistics.mean(ts) / b * (1 << 14):.4f} ms a 2^14{ok} | {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("probe_chains: no CUDA device")
@@ -421,7 +831,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     OUT.mkdir(parents=True, exist_ok=True)
     parts = sys.argv[sys.argv.index("--parts") + 1].split(",") if "--parts" in sys.argv \
-        else ["1", "2", "3"]
+        else ["1", "2", "3", "4", "5", "6"]
     # every variant's compiler at once: one takes a minute or two
     if "1" in parts or "2" in parts:  # part 2 checks against part 1's naive
         for name, (patches, flags) in PERM_VARIANTS.items():
@@ -430,16 +840,41 @@ def main() -> int:
         STARTED["hybclk"] = start_variant("hybclk", HYB_PATCHES, [], "perm_hyb.cu")
     if "3" in parts:
         for name, patches in GROUP_VARIANTS.items():
-            STARTED[name] = start_variant(name, patches, [], "perm.cu")
-        STARTED["hybpclk"] = start_variant("hybpclk", HYBP_PATCHES, [], HYBP)
+            STARTED[name] = start_variant(name, patches, [], "perm.cu", _build.CSRC)
+        STARTED["hybpclk"] = start_variant("hybpclk", HYBP_PATCHES, [], HYBP, _build.CSRC)
+    if "4" in parts:
+        for kernel in ("mxu8", "mxu"):
+            STARTED[f"{kernel}clk"] = start_variant(
+                f"{kernel}clk", DENSE_PATCHES + [(f"perm_{kernel}.cu", *PROF_READ)], [],
+                f"perm_{kernel}.cu")
+            STARTED[f"{kernel}new"] = start_variant(
+                f"{kernel}new", NEW_DENSE_PATCHES + [(f"perm_{kernel}.cu", *PROF_READ)], [],
+                f"perm_{kernel}.cu", _build.CSRC)
+        STARTED["mdsdot"] = start_probe_source("mdsdot", MDS_PROBE)
+    if "6" in parts:
+        for kernel in ("mxu8", "mxu"):
+            for variant, patches in DENSE_VARIANTS.items():
+                STARTED[f"{kernel}_{variant}"] = start_variant(
+                    f"{kernel}_{variant}", patches, [], f"perm_{kernel}.cu", _build.CSRC)
+    if "5" in parts:
+        for source in COMPARE:
+            for tag, tree in (("parent", CSRC), ("change", _build.CSRC)):
+                STARTED[f"{tag}_{Path(source).stem}"] = start_variant(
+                    f"{tag}_{Path(source).stem}", [], [], source, tree)
     if "1" in parts or "2" in parts:
         part1(smi)
     if "2" in parts:
         part2(smi)
     if "3" in parts:
         part3(smi)
+    if "4" in parts:
+        part4(smi)
+    if "5" in parts:
+        part5(smi)
+    if "6" in parts:
+        part6(smi)
     REPORTS.mkdir(parents=True, exist_ok=True)
-    name = "probe_chains.txt" if len(parts) == 3 else f"probe_chains_{'_'.join(parts)}.txt"
+    name = "probe_chains.txt" if len(parts) == 6 else f"probe_chains_{'_'.join(parts)}.txt"
     (REPORTS / name).write_text("\n".join(LINES) + "\n")
     return 0
 
