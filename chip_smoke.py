@@ -17,18 +17,18 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      answers);
   4. holds each kernel against its plain PyTorch version on the card at
      B = 2^14, 4096 and a ragged 1000, both `convert` values, and `naive`,
-     `opt`, `mxu8` and `mxu` at the first Merkle level's B = 2^18 on the
-     Montgomery path; the redesigned kernels, `opt` (a group of lanes a
-     state), `hybp` (64 states a block), `mxu8` and `mxu` (a warpgroup of
-     128), also at B = 1, 5, 127, 129 and 2^14 + 1, where `opt` is held
-     against the native engine too (built here: an engine that does not
-     build fails the run); and holds every tensor-core tile product a
-     kernel runs against a float64 matmul: the MDS products of `mxu8` (u8
-     wgmma) and `mxu` (bf16 wgmma, float32 sums) with w_lin and with
-     all-255 operands at 320 x 160, the largest sum they can meet, the
-     block tile product of `hyb`, `hyb13` and `hybp13` with w_lin, w_pp and
-     w_p, and the wide one of `hyb` and `hybp` at K = 1024, 2048 and 2080
-     with the chain's own weights;
+     `opt`, `mxu8`, `mxu` and `hyb` at the first Merkle level's B = 2^18 on
+     the Montgomery path; the redesigned kernels, `naive` and `opt` (a
+     group of lanes a state), `hyb` and `hybp` (64 states a block), `mxu8`
+     and `mxu` (a warpgroup of 128), also at B = 1, 5, 127, 129 and 2^14 +
+     1, where `opt` is held against the native engine too (built here: an
+     engine that does not build fails the run); and holds every tensor-core
+     tile product a kernel runs against a float64 matmul: the MDS products
+     of `mxu8` (u8 wgmma) and `mxu` (bf16 wgmma, float32 sums) with w_lin
+     and with all-255 operands at 320 x 160, the largest sum they can meet,
+     the block tile product of `hyb13` and `hybp13` with w_lin, w_pp and
+     w_p, and their wide one at K = 1024, 2048 and 2080 with the chain's
+     own weights;
   5. builds the arity-4 Merkle root over 2^20 seeded leaves through
      `merkle_root` (BASELINE config 4) with the default `opt` kernel, and
      over their first 2^16 with the `opt`, `naive` and `mxu8` kernels, and
@@ -44,7 +44,9 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      own rows only, a height of 9 fails every row;
   6. hashes 2^14 streams of 64 elements through `sponge_hash` (BASELINE
      config 3) and checks the first 64 digests against the plain version
-     and stream 0 against the int oracle;
+     and stream 0 against the int oracle; then streams the same messages
+     through `SpongeState` on its default device (the card), in pieces of
+     12 words, whose digests must equal `sponge_hash`'s;
   7. encrypts 2^14 streams of 32 elements through the duplex cipher
      (`cipher.encrypt`) with the `mxu8` kernel, and checks the ciphertexts
      and tags against the `opt` kernel's, rows 0..63 against the plain
@@ -68,11 +70,12 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
   8. times the kernels, their plain versions, the trees, the openings,
      the sponge, the cipher and the checkpointed build (beside the plain
      `merkle_root` through the same kernel, so the cost of the ten
-     device-to-host copies and file writes is a number) with CUDA events
+     device-to-host copies and file writes is a number), and the `naive`
+     cross-check tree over 2^16 leaves beside `opt`'s, with CUDA events
      (median of 5 after a warm-up), and works out each kernel's bound: the
      least time the card could take for the same states (`bound`); the
-     redesigned `opt`, `hybp`, `mxu8` and `mxu` also at B = 2^10, 2^16 and
-     2^18.
+     redesigned kernels (all but `hyb13` and `hybp13`) also at B = 2^10,
+     2^16 and 2^18.
 
 Each path of phases 5-7b runs with the launch counts set to 0 just before
 it and read just after; the kernels' JSON line reports their sum. The
@@ -82,7 +85,8 @@ single PyTorch call computes a 255-bit modular permutation, so the line's
 `library_ms` is null for every kernel.
 
 With `--profile` it also traces one warm call of the tree, the sponge and
-the cipher through `opt`, of the cipher through `mxu8`, of each of the
+the cipher through `opt`, of the 2^16-leaf tree through `naive` and `opt`,
+of the cipher through `mxu8`, of each of the
 openings' paths and of the checkpointed build (through `mxu`) with
 `torch.profiler` (phase 9) and prints, per path, the span of
 its device work, the time the device was busy, the idle share, the
@@ -138,7 +142,7 @@ SOURCES = {
     "naive": "hades252_tpu_torch/ops/csrc/perm.cu",
     "opt": "hades252_tpu_torch/ops/csrc/perm.cu",
     "mxu8": "hades252_tpu_torch/ops/csrc/perm_mxu8.cu",
-    "hyb": "hades252_tpu_torch/ops/csrc/perm_hyb.cu",
+    "hyb": "hades252_tpu_torch/ops/csrc/perm_hybp.cu",
     "hybp": "hades252_tpu_torch/ops/csrc/perm_hybp.cu",
     "mxu": "hades252_tpu_torch/ops/csrc/perm_mxu.cu",
     "hyb13": "hades252_tpu_torch/ops/csrc/perm_hyb13.cu",
@@ -154,11 +158,11 @@ REPLACES = {
     "hyb13": "hades252_tpu/ops/perm_pallas.py:845 (_perm_kernel_hyb, sbox13=True)",
     "hybp13": "hades252_tpu/ops/perm_pallas.py:945 (_perm_kernel_hybp, sbox13=True)",
 }
-# opt runs 4 lanes a state, 32 states a block (one thread a state above
-# 2^14), hybp 64 states a block, mxu8 and mxu one warpgroup of 128: batches
-# that end inside a group, a warp, a warpgroup or a block
+# naive and opt run 4 lanes a state, 32 states a block (one thread a state
+# above 2^14), hyb and hybp 64 states a block, mxu8 and mxu one warpgroup of
+# 128: batches that end inside a group, a warp, a warpgroup or a block
 RAGGED = (1, 5, 127, 129, PERM_BATCH + 1)
-REDESIGNED = ("opt", "hybp", "mxu8", "mxu")
+REDESIGNED = ("naive", "opt", "hyb", "hybp", "mxu8", "mxu")
 TIMED_SIZES = (1 << 10, 1 << 16, 1 << 18)   # beside PERM_BATCH, for the redesigned kernels
 CKPT_KEEP = 4               # the damage: level files above it go, its own is cut short
 
@@ -247,14 +251,16 @@ def bound(schedule: str, b: int) -> dict:
       r)), the exit (315, 2080), each with 2 adds per recombined column;
       hybp13, in the first port's shape, adds a 17-limb sum to 58 rounds;
       the chain's 64 big REDCs end in five 9-limb subtracts;
-    - the REDCs of hybp, mxu8 and mxu run on the CUDA cores: their dots
-      leave the tensor cores' count, which keeps the MDS dots (and hybp's
-      chain), and 72 multiply-adds and the 9-limb subtract a REDC enter the
-      cores'; hybp's small dot adds onto the big one's sums in the MMA;
+    - the REDCs of hyb, hybp, mxu8 and mxu run on the CUDA cores: their
+      dots leave the tensor cores' count, which keeps the MDS dots (and the
+      chain of hyb and hybp), and 72 multiply-adds and the 9-limb subtract a
+      REDC enter the cores'; hybp's small dot adds onto the big one's sums
+      in the MMA, so hyb's count is hybp's;
     - mxu runs mxu8's schedule: the same counts, its MDS dots at the bf16
       rate (widening the bytes is the kernel's choice, not work the function
       needs);
-    - hyb13 and hybp13 run hyb's and hybp's chain with the base-2^13 S-box,
+    - hyb13 and hybp13 run the first port's block (every REDC as two dots)
+      with the base-2^13 S-box,
       1,420 operations in place of 136: 2 x 210 + 400 narrow multiply-adds, 2 x
       39 column doublings, 4 x 20 digit windows of 3 operations (shift,
       merge, mask), and for each of the 3 products 39 shift-and-adds of two
@@ -277,7 +283,7 @@ def bound(schedule: str, b: int) -> dict:
             else 2 * 36 + 64
         redcs = 3 * sboxes + 5 * dense + (chain + 5 if chain else 0)
         dot_cols = 5 * 63 * dense + (63 * (chain + 5) if chain else 0)
-        redc_on_cores = schedule in ("hybp", "mxu8", "mxu")
+        redc_on_cores = schedule in ("hyb", "hybp", "mxu8", "mxu")
         tensor = dense * 315 * 160 + (0 if redc_on_cores else redcs * (32 * 32 + 63 * 32))
         cores = (sboxes * sbox_ops + 10 * 136
                  + redcs * (72 + 9 if redc_on_cores else 2 * 95 + 16 + 9)
@@ -447,10 +453,10 @@ def run(ckpt_root: str) -> int:
 
     # 4. kernel vs plain: the sponge's, cipher's and openings' batch, the
     # first Merkle level's batch on the Montgomery path the models use
-    # (naive, opt, mxu8 and mxu; hybp covers it through its own 2^20-leaf
-    # tree in phase 5), 4096 and a ragged 1000 (the tail mask)
+    # (naive, opt, mxu8, mxu and hyb; hybp covers it through its own
+    # 2^20-leaf tree in phase 5), 4096 and a ragged 1000 (the tail mask)
     cases = [(PERM_BATCH, (True, False), perm_cuda.SCHEDULES),
-             (MERKLE_LEAVES // merkle.ARITY, (False,), ("naive", "opt", "mxu8", "mxu")),
+             (MERKLE_LEAVES // merkle.ARITY, (False,), ("naive", "opt", "mxu8", "mxu", "hyb")),
              (4096, (True, False), perm_cuda.SCHEDULES),
              (1000, (True, False), perm_cuda.SCHEDULES)]
     max_err = {s: 0 for s in perm_cuda.SCHEDULES}
@@ -491,8 +497,8 @@ def run(ckpt_root: str) -> int:
     # a float64 matmul with w_lin and seeded byte rows at the main path's
     # batch, and with all-255 operands at K = 160: the largest sum,
     # 10,404,000, must come out of the bf16 product's f32 accumulation
-    # exactly; then the block-wide tile product that hyb, hyb13 and hybp13
-    # still run, with w_lin, w_pp and w_p
+    # exactly; then the block-wide tile product that hyb13 and hybp13 still
+    # run, with w_lin, w_pp and w_p
     tables = mxu8_tables()
     w = torch.from_numpy(tables["w_lin"]).to(dev)
     xb = torch.from_numpy(rng.integers(0, 256, (w.shape[1], PERM_BATCH), dtype=np.uint8)).to(dev)
@@ -511,10 +517,11 @@ def run(ckpt_root: str) -> int:
               f"block tile product with {key} != float64 matmul")
     log(f"[plain] mxu8 (u8) and mxu (bf16) MDS products == float64 matmul for w_lin x {PERM_BATCH} "
         f"columns, and all-255 at 320 x 160 gives {160 * 255 * 255} everywhere; the block tile "
-        f"product of hyb, hyb13, hybp13 == float64 matmul for w_lin, w_pp, w_p")
+        f"product of hyb13, hybp13 == float64 matmul for w_lin, w_pp, w_p")
 
-    # the wide tile product of hyb and hybp, whose K loop reads both operands
-    # from global memory: the last round of each segment and the exit map
+    # the wide tile product of hyb13 and hybp13, whose K loop reads both
+    # operands from global memory: the last round of each segment and the
+    # exit map
     chain = hyb_tables()
     for key, w in (("w_seg1", chain["w_seg1"][-1]), ("w_seg2", chain["w_seg2"][-1]),
                    ("w_out", chain["w_out"][:, : 32 * HYB_N_BASIS])):
@@ -545,9 +552,9 @@ def run(ckpt_root: str) -> int:
 
     # 5b-7. the main path, one entry point at a time; each path's counts are
     # its own launches
-    mxu8_fn, hyb_fn, hybp_fn, mxu_fn, hyb13_fn, hybp13_fn = (
+    naive_fn, mxu8_fn, hyb_fn, hybp_fn, mxu_fn, hyb13_fn, hybp13_fn = (
         make_perm_mont_fn("cuda", schedule=s)
-        for s in ("mxu8", "hyb", "hybp", "mxu", "hyb13", "hybp13"))
+        for s in ("naive", "mxu8", "hyb", "hybp", "mxu", "hyb13", "hybp13"))
     ckpt_dir = os.path.join(ckpt_root, "main")
     levels, cross_levels = merkle.tree_levels(MERKLE_LEAVES), merkle.tree_levels(CROSS_LEAVES)
     chunks = 1 + CIPHER_LEN // cipher.RATE
@@ -571,11 +578,19 @@ def run(ckpt_root: str) -> int:
 
     resumed = levels - (CKPT_KEEP - 1)  # levels recomputed after the damage
 
+    def stream_sponge():
+        """The streaming sponge on its default device, fed in uneven pieces."""
+        st = sponge.SpongeState(SPONGE_STREAMS, SPONGE_LEN)
+        check(st._state.device.type == "cuda", "SpongeState must default to the card")
+        for lo in range(0, SPONGE_LEN, 12):
+            st.absorb(msgs[:, lo : lo + 12])
+        return st.digest()
+
     paths = {
         "merkle (opt)": (lambda: merkle.merkle_root(leaves), {"opt": levels}),
         "merkle 2^16 (opt)": (lambda: merkle.merkle_root(cross), {"opt": cross_levels}),
-        "merkle 2^16 (naive)": (lambda: merkle.merkle_root(
-            cross, make_perm_mont_fn("cuda", schedule="naive")), {"naive": cross_levels}),
+        "merkle 2^16 (naive)": (lambda: merkle.merkle_root(cross, naive_fn),
+                                {"naive": cross_levels}),
         "merkle 2^16 (mxu8)": (lambda: merkle.merkle_root(cross, mxu8_fn),
                                {"mxu8": cross_levels}),
         "levels (hybp)": (lambda: state.update(levels=merkle.merkle_levels(leaves, hybp_fn)),
@@ -588,6 +603,7 @@ def run(ckpt_root: str) -> int:
             root, opened[0], merkle.merkle_open(state["levels"], int(opened_idx[0])), levels,
             hybp_fn), {"hybp": levels}),
         "sponge (opt)": (lambda: sponge.sponge_hash(msgs), {"opt": SPONGE_LEN // sponge.RATE}),
+        "sponge streaming (opt)": (stream_sponge, {"opt": SPONGE_LEN // sponge.RATE}),
         "cipher (mxu8)": (lambda: cipher.encrypt(keys, nonces, plaintext, mxu8_fn),
                           {"mxu8": chunks}),
         "cipher (opt)": (lambda: cipher.encrypt(keys, nonces, plaintext), {"opt": chunks}),
@@ -664,8 +680,13 @@ def run(ckpt_root: str) -> int:
     words0 = list(digits_to_ints(msgs[0].cpu().numpy()))
     check(int(digits_to_ints(digests[0].cpu().numpy())) == int_sponge(words0),
           "sponge digest of stream 0: kernel != int oracle")
+    streamed = results["sponge streaming (opt)"]
+    check(streamed.device.type == "cuda" and torch.equal(streamed[:64], digests[:64])
+          and torch.equal(streamed, digests),
+          "SpongeState on its default device: digests != sponge_hash's")
     log(f"[sponge] {SPONGE_STREAMS} streams x {SPONGE_LEN}: digests 0..63 == plain, "
-        "stream 0 == int oracle")
+        "stream 0 == int oracle; SpongeState on its default device (the card), fed in pieces "
+        "of 12, == sponge_hash for every stream")
 
     ct, tag = results["cipher (mxu8)"]
     check(ct.shape == (CIPHER_STREAMS, CIPHER_LEN, 16) and tag.shape == (CIPHER_STREAMS, 16),
@@ -756,6 +777,10 @@ def run(ckpt_root: str) -> int:
     tree_ms = cuda_ms(lambda: merkle.merkle_root(leaves))
     log(f"[time] merkle_root 2^20 leaves (opt): {tree_ms / 1e3:.6f} s/tree = "
         f"{MERKLE_LEAVES / tree_ms * 1e3:,.0f} leaves/s | {smi}")
+    for schedule, fn in (("naive", naive_fn), ("opt", None)):
+        tree_ms = cuda_ms(lambda: merkle.merkle_root(cross, fn))
+        log(f"[time] merkle_root 2^16 leaves ({schedule}, the cross-check tree): "
+            f"{tree_ms:.4f} ms/tree = {CROSS_LEAVES / tree_ms * 1e3:,.0f} leaves/s | {smi}")
     tree_ms = cuda_ms(lambda: merkle.merkle_levels(leaves, hybp_fn))
     log(f"[time] merkle_levels 2^20 leaves (hybp): {tree_ms / 1e3:.6f} s/tree = "
         f"{MERKLE_LEAVES / tree_ms * 1e3:,.0f} leaves/s | {smi}")
@@ -793,6 +818,8 @@ def run(ckpt_root: str) -> int:
     # 9. on request: where the openings' paths spend their device time
     if "--profile" in sys.argv[1:]:
         for name, fn in (("merkle_root 2^20 (opt)", lambda: merkle.merkle_root(leaves)),
+                         ("merkle_root 2^16 (naive)", lambda: merkle.merkle_root(cross, naive_fn)),
+                         ("merkle_root 2^16 (opt)", lambda: merkle.merkle_root(cross)),
                          (f"sponge_hash {SPONGE_STREAMS} x {SPONGE_LEN} (opt)",
                           lambda: sponge.sponge_hash(msgs)),
                          (f"cipher.encrypt {CIPHER_STREAMS} x {CIPHER_LEN} (opt)",

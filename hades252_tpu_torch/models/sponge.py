@@ -81,10 +81,12 @@ class SpongeState:
     the first squeezed word equals sponge_hash's digest. Each permutation
     yields RATE output words. absorb() takes any word count; partial chunks
     wait in a buffer until full, or are zero-padded at the first squeeze.
+    The state lives on `device`, the card unless the caller asks for the
+    CPU (`device="cpu"`); without a card the default raises.
     """
 
     def __init__(self, n_streams: int, total_length: int, perm_mont_fn=None,
-                 *, device="cpu"):
+                 *, device="cuda"):
         if total_length <= 0:
             raise ValueError("total_length must be positive")
         if perm_mont_fn is None:
@@ -163,8 +165,10 @@ class SpongeState:
         return self._digest
 
 
-def sponge_hash_ints(words, perm_mont_fn=None) -> int:
-    """Hash one message given as a list of canonical ints (on the CPU)."""
+def sponge_hash_ints(words, perm_mont_fn=None, *, device="cuda") -> int:
+    """Hash one message given as a list of canonical ints, on `device`: the
+    card unless the caller asks for the CPU; without a card the default
+    raises."""
     digits = torch.from_numpy(ints_to_digits([[int(w) for w in words]]).astype(np.int32))
-    out = sponge_hash(digits, perm_mont_fn)
-    return int(digits_to_ints(out[0].numpy()))
+    out = sponge_hash(digits.to(device), perm_mont_fn)
+    return int(digits_to_ints(out[0].cpu().numpy()))

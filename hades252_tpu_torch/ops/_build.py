@@ -114,12 +114,13 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, i64, i32, p, p, p]
         fn.restype = ctypes.c_int
-    # the chain's weights and their packed copy besides; its basis is in
+    # the chain's weights and their packed copy besides; the basis is in
     # shared memory: no scratch
-    lib.hades_perm_hybp_launch.argtypes = [p, p, i64, i32, p, p, p, p, p]
-    lib.hades_perm_hybp_launch.restype = ctypes.c_int
-    for name in ("hades_perm_hyb_launch", "hades_perm_hyb13_launch",
-                 "hades_perm_hybp13_launch"):
+    for name in ("hades_perm_hyb_launch", "hades_perm_hybp_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, i64, i32, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+    for name in ("hades_perm_hyb13_launch", "hades_perm_hybp13_launch"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, i64, i32, p, p, p, p, i64, p]
         fn.restype = ctypes.c_int

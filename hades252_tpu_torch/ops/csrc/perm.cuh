@@ -1,7 +1,7 @@
 // The per-state Hades252 permutation of the `naive` and `opt` schedules and
-// their constant tables, for the CUDA kernels in perm.cu. `naive` runs one
-// thread a state; `opt` runs a group of G lanes of one warp a state
-// (perm_opt_lanes).
+// their constant tables, for the CUDA kernels in perm.cu. Both run a group
+// of G lanes of one warp a state (perm_naive_lanes, perm_opt_lanes; G = 1
+// is one thread a state).
 //
 // The header compiles for the host as well (without __CUDACC__ the tables
 // are ordinary arrays, and a group's lanes are the slots of an array, run
@@ -14,29 +14,22 @@
 #include "field.cuh"
 
 #ifdef __CUDACC__
-#define HADES_CONST __constant__
 #define HADES_GLOBAL __device__
 #else
-#define HADES_CONST static
 #define HADES_GLOBAL static
 #endif
 
 namespace hades {
 
 // Tables, Montgomery form, uploaded once per device by hades_init
-// (perm.cu). The dense schedule's 11,520 B sit in constant memory: every
-// thread of a warp reads the same entry in the same round, its broadcast
-// case.
-HADES_CONST uint32_t c_r2[kLimbs];                                 // R^2 mod p
-HADES_CONST uint32_t c_ark[kRounds][kWidth][kLimbs];               // dense ARK
-HADES_CONST uint32_t c_mds[kWidth][kWidth][kLimbs];                // MDS
-
-// The sparse schedule's tables, 27,328 B with its own copies of R^2 and the
-// MDS, in global memory: a lane reads the entries of the words it owns, so
-// the lanes of a warp read four different entries at once, which constant
-// memory would serve one after the other. They stay in L1.
-HADES_GLOBAL uint32_t g_r2[kLimbs];
-HADES_GLOBAL uint32_t g_mds[kWidth][kWidth][kLimbs];
+// (perm.cu), 38,080 B in global memory, where they stay in L1: a lane reads
+// the entries of the words it owns, so the lanes of a warp read four
+// different entries at once, which constant memory would serve one after
+// the other. The dense schedule's (R^2, the ARK of every round, the MDS),
+// then the sparse schedule's.
+HADES_GLOBAL uint32_t g_r2[kLimbs];                                 // R^2 mod p
+HADES_GLOBAL uint32_t g_ark[kRounds][kWidth][kLimbs];               // dense ARK
+HADES_GLOBAL uint32_t g_mds[kWidth][kWidth][kLimbs];                // MDS
 HADES_GLOBAL uint32_t g_ark_fr[kFullRounds][kWidth][kLimbs];       // full-round ARK
 HADES_GLOBAL uint32_t g_c0[kWidth][kLimbs];                        // chain entry shift
 HADES_GLOBAL uint32_t g_u[kPartialRounds][4][kLimbs];              // sparse column
@@ -45,80 +38,28 @@ HADES_GLOBAL uint32_t g_m[kLimbs];                                 // M[4][4]
 HADES_GLOBAL uint32_t g_d[kPartialRounds][kWidth][kLimbs];         // folded ARK
 HADES_GLOBAL uint32_t g_final[4][4][kLimbs];                       // A^59
 
-HADES_FN void to_mont(uint32_t s[kWidth][kLimbs]) {
-#pragma unroll
-  for (int w = 0; w < kWidth; ++w) mont_mul(s[w], s[w], c_r2);
-}
-
-HADES_FN void from_mont(uint32_t s[kWidth][kLimbs]) {
-  uint32_t one[kLimbs] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int w = 0; w < kWidth; ++w) mont_mul(s[w], s[w], one);
-}
-
-// s <- MDS s: 25 Montgomery products, each row folded j-ascending.
-HADES_FN void mds_layer(uint32_t s[kWidth][kLimbs]) {
-  uint32_t out[kWidth][kLimbs];
-#pragma unroll
-  for (int k = 0; k < kWidth; ++k) {
-    mont_mul(out[k], s[0], c_mds[k][0]);
-#pragma unroll
-    for (int j = 1; j < kWidth; ++j) {
-      uint32_t t[kLimbs];
-      mont_mul(t, s[j], c_mds[k][j]);
-      add_mod(out[k], out[k], t);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kWidth; ++k) copy(s[k], out[k]);
-}
-
-// ARK on all words -> x^5 on all words -> MDS.
-HADES_FN void full_round(uint32_t s[kWidth][kLimbs],
-                         const uint32_t ark[kWidth][kLimbs]) {
-#pragma unroll
-  for (int w = 0; w < kWidth; ++w) {
-    add_mod(s[w], s[w], ark[w]);
-    sbox(s[w], s[w]);
-  }
-  mds_layer(s);
-}
-
-// The dense schedule (the JAX package's _perm_kernel): 67 rounds of ARK,
-// x^5 (all words in a full round, word 4 in a partial one) and the MDS.
-HADES_FN void perm_naive(uint32_t s[kWidth][kLimbs], bool convert) {
-  if (convert) to_mont(s);
-#pragma unroll 1
-  for (int r = 0; r < kRounds; ++r) {
-    if (r < kHalf || r >= kHalf + kPartialRounds) {
-      full_round(s, c_ark[r]);
-    } else {
-#pragma unroll
-      for (int w = 0; w < kWidth; ++w) add_mod(s[w], s[w], c_ark[r][w]);
-      sbox(s[kWidth - 1], s[kWidth - 1]);
-      mds_layer(s);
-    }
-  }
-  if (convert) from_mont(s);
-}
-
 // ---------------------------------------------------------------------------
-// The sparse-factored schedule (the JAX package's _perm_kernel_opt) on a
-// group of G lanes a state: full rounds 0..3, the entry shift x = s + c0,
-// 59 sparse rounds of 12 products each (x^5 on word 4, then S_r with 9
-// non-identity entries), words 0..3 <- A^59 x[0:4], full rounds 4..7.
+// A state on a group of G lanes. Lane i of the group owns words i, i + G, ..
+// below 4; word 4, whose S-box is every partial round's chain, is kept by
+// all lanes, so x^5 of word 4 is never waited for from another lane. Sums
+// mod p are taken in another order than by one thread; each is reduced to
+// [0, p), so the results are the same.
 //
-// Lane i of the group owns words i, i + G, .. below 4; word 4, whose S-box
-// is every sparse round's chain, is kept by all lanes, so x^4 is never
-// waited for from another lane. A sparse round is then, a lane: the S-box
-// (three products in a row), the lane's own w_r and u_r products and m x^5,
-// which hang on nothing but the lane's registers, and one sum over the
-// group (G = 4: two exchanges of 8 limbs and two modular adds) for the new
-// word 4: 6 products in a row where one thread ran 12. A full round is the
-// lane's own S-boxes, an all-gather of the five words and the lane's rows of
-// the MDS: 16 products where one thread ran 40. Sums mod p are taken in
-// another order than by one thread; each is reduced to [0, p), so the
-// results are the same.
+// The dense schedule (the JAX package's _perm_kernel, perm_naive_lanes): 67
+// rounds of ARK, x^5 (on all words in a full round, on word 4 in a partial
+// one) and the MDS. A round is, a lane: its own S-boxes, an all-gather of
+// the five words, the MDS rows of its own words and its share of row 4,
+// summed over the group. At G = 4 that is 13 products in a row a full round
+// and 10 a partial one, where one thread ran 40 and 28.
+//
+// The sparse-factored schedule (the JAX package's _perm_kernel_opt,
+// perm_opt_lanes): full rounds 0..3, the entry shift x = s + c0, 59 sparse
+// rounds of 12 products each (x^5 on word 4, then S_r with 9 non-identity
+// entries), words 0..3 <- A^59 x[0:4], full rounds 4..7. A sparse round is,
+// a lane: the S-box (three products in a row), the lane's own w_r and u_r
+// products and m x^5, which hang on nothing but the lane's registers, and
+// one sum over the group (G = 4: two exchanges of 8 limbs and two modular
+// adds) for the new word 4: 6 products in a row where one thread ran 12.
 // ---------------------------------------------------------------------------
 
 template <int G>
@@ -211,6 +152,52 @@ HADES_FN void full_round_lanes(Group<G>& g, int r) {
   }
 }
 
+// One round of the dense schedule: ARK with the round's five words, x^5 on
+// word 4 and, in a full round, on the lane's own words; then the MDS over
+// the gathered state: the rows of the lane's own words, and row 4 as the
+// lane's share (the products of its own words) summed over the group, plus
+// m[4][4] x4, which is 2 products a lane at 4 lanes where the whole row is 5.
+// The loops over the words stay rolled, and one body serves full and partial
+// rounds: unrolled, a full round of one thread a state was some 16 k
+// instructions, and rolling its S-boxes and MDS rows took that kernel from
+// 2.42 to 1.16 ms at B = 2^14 (tools/probe_chains.py, part 7; PERF.md).
+template <int G>
+HADES_FN void naive_round_lanes(Group<G>& g, const uint32_t ark[kWidth][kLimbs], bool full) {
+  constexpr int kOwn = Group<G>::kOwn, kSlots = Group<G>::kSlots;
+  uint32_t all[kSlots][kWidth][kLimbs], part[kSlots][kLimbs], other[kSlots][kLimbs];
+  HADES_EACH_LANE(l) {
+#pragma unroll 1
+    for (int k = 0; k < kOwn; ++k) {
+      add_mod(g.own[l][k], g.own[l][k], ark[g.lane(l) + G * k]);
+      if (full) sbox(g.own[l][k], g.own[l][k]);
+    }
+    add_mod(g.s4[l], g.s4[l], ark[4]);
+    sbox(g.s4[l], g.s4[l]);
+  }
+  gather_words<G>(all, g);
+  HADES_EACH_LANE(l) {
+    copy(all[l][4], g.s4[l]);
+#pragma unroll 1
+    for (int k = 0; k < kOwn; ++k) {
+      uint32_t t[kLimbs];
+      mont_mul(t, g.own[l][k], g_mds[4][g.lane(l) + G * k]);
+      if (k == 0) copy(part[l], t); else add_mod(part[l], part[l], t);
+    }
+#pragma unroll 1
+    for (int k = 0; k < kOwn; ++k) row_dot<kWidth>(g.own[l][k], g_mds[g.lane(l) + G * k], all[l]);
+  }
+#pragma unroll
+  for (int mask = 1; mask < G; mask <<= 1) {
+    lanes_xor<G>(other, part, mask);
+    HADES_EACH_LANE(l) add_mod(part[l], part[l], other[l]);
+  }
+  HADES_EACH_LANE(l) {
+    uint32_t t[kLimbs];
+    mont_mul(t, all[l][4], g_mds[4][4]);
+    add_mod(g.s4[l], part[l], t);
+  }
+}
+
 template <int G>
 HADES_FN void sparse_round_lanes(Group<G>& g, int r) {
   constexpr int kOwn = Group<G>::kOwn, kSlots = Group<G>::kSlots;
@@ -244,16 +231,40 @@ HADES_FN void sparse_round_lanes(Group<G>& g, int r) {
   }
 }
 
+// Into and out of the Montgomery domain: a product with R^2, and with 1.
+template <int G>
+HADES_FN void to_mont_lanes(Group<G>& g) {
+  HADES_EACH_LANE(l) {
+#pragma unroll
+    for (int k = 0; k < Group<G>::kOwn; ++k) mont_mul(g.own[l][k], g.own[l][k], g_r2);
+    mont_mul(g.s4[l], g.s4[l], g_r2);
+  }
+}
+
+template <int G>
+HADES_FN void from_mont_lanes(Group<G>& g) {
+  const uint32_t one[kLimbs] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+  HADES_EACH_LANE(l) {
+#pragma unroll
+    for (int k = 0; k < Group<G>::kOwn; ++k) mont_mul(g.own[l][k], g.own[l][k], one);
+    mont_mul(g.s4[l], g.s4[l], one);
+  }
+}
+
+template <int G>
+HADES_FN void perm_naive_lanes(Group<G>& g, bool convert) {
+  if (convert) to_mont_lanes<G>(g);
+#pragma unroll 1
+  for (int r = 0; r < kRounds; ++r) {
+    naive_round_lanes<G>(g, g_ark[r], r < kHalf || r >= kHalf + kPartialRounds);
+  }
+  if (convert) from_mont_lanes<G>(g);
+}
+
 template <int G>
 HADES_FN void perm_opt_lanes(Group<G>& g, bool convert) {
   constexpr int kOwn = Group<G>::kOwn;
-  if (convert) {
-    HADES_EACH_LANE(l) {
-#pragma unroll
-      for (int k = 0; k < kOwn; ++k) mont_mul(g.own[l][k], g.own[l][k], g_r2);
-      mont_mul(g.s4[l], g.s4[l], g_r2);
-    }
-  }
+  if (convert) to_mont_lanes<G>(g);
 #pragma unroll 1
   for (int r = 0; r < kHalf; ++r) full_round_lanes<G>(g, r);
   HADES_EACH_LANE(l) {
@@ -273,27 +284,22 @@ HADES_FN void perm_opt_lanes(Group<G>& g, bool convert) {
   }
 #pragma unroll 1
   for (int r = kHalf; r < kFullRounds; ++r) full_round_lanes<G>(g, r);
-  if (convert) {
-    const uint32_t one[kLimbs] = {1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-    HADES_EACH_LANE(l) {
-#pragma unroll
-      for (int k = 0; k < kOwn; ++k) mont_mul(g.own[l][k], g.own[l][k], one);
-      mont_mul(g.s4[l], g.s4[l], one);
-    }
-  }
+  if (convert) from_mont_lanes<G>(g);
 }
 
 #ifndef __CUDACC__
-// The host's run of one state through a group of G lanes: every lane gets
-// its words and word 4, and the lanes' copies of word 4 must agree at the end.
-template <int G>
-static bool perm_opt_host(uint32_t s[kWidth][kLimbs], bool convert) {
+// The host's run of one state through a group of G lanes, under the dense
+// (kDense, naive) or the sparse schedule (opt): every lane gets its words
+// and word 4, and the lanes' copies of word 4 must agree at the end.
+template <int G, bool kDense>
+static bool perm_lanes_host(uint32_t s[kWidth][kLimbs], bool convert) {
   Group<G> g;
   for (int l = 0; l < G; ++l) {
     for (int k = 0; k < Group<G>::kOwn; ++k) copy(g.own[l][k], s[l + G * k]);
     copy(g.s4[l], s[4]);
   }
-  perm_opt_lanes<G>(g, convert);
+  if (kDense) perm_naive_lanes<G>(g, convert);
+  else perm_opt_lanes<G>(g, convert);
   bool same = true;
   for (int l = 0; l < G; ++l) {
     for (int k = 0; k < Group<G>::kOwn; ++k) copy(s[l + G * k], g.own[l][k]);

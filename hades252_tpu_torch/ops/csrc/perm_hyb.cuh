@@ -1,6 +1,7 @@
-// The `hyb` and `hybp` schedules' per-state code: mxu8's full rounds around
-// the full-expansion partial chain, for the kernels in perm_hyb.cu and
-// (with the base-2^13 S-box) perm_hyb13.cu.
+// The `hyb` and `hybp` schedules' per-state code in the first port's shape:
+// mxu8's full rounds around the full-expansion partial chain, for the block
+// code of perm_hyb_block.cuh, which perm_hyb13.cu runs with the base-2^13
+// S-box. perm_hybp.cuh takes its basis layout, tables and constants.
 // Counterparts in hades252_tpu/ops/perm_pallas.py: _perm_kernel_hyb (:845),
 // _perm_kernel_hybp (:945), _redc_wide_big (:818); the schedule itself is
 // params.dot_schedule_int.

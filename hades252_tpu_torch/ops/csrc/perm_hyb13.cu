@@ -3,7 +3,7 @@
 //
 // hades_perm_hyb13 replaces _perm_kernel_hyb (hades252_tpu/ops/perm_pallas.py
 // :845) and hades_perm_hybp13 replaces _perm_kernel_hybp (:945), both with
-// sbox13=True: the hyb and hybp kernels of perm_hyb.cu with every S-box
+// sbox13=True: the first port's hyb and hybp kernels with every S-box
 // product, in the full rounds and the chain alike, as a base-2^13
 // schoolbook (_MxuOps.sbox_words :687-700; _to13 :181, _sqr13_cols :208,
 // _mul13_cols :195, _cols13_to16 :225). An operand is 20 digits of 13 bits;
@@ -11,11 +11,14 @@
 // in 32-bit columns with no lo/hi split (below 2^31); the columns then go
 // back to the 16 limbs that the REDC takes (perm_mxu8.cuh: to13, mul13).
 // The products' values are those of the 32-bit-limb schoolbook, so the
-// outputs are bit-identical to every other schedule's. Same tables, same
-// scratch tensor and same interface as hyb and hybp.
+// outputs are bit-identical to every other schedule's. hyb's and hybp's
+// tables, and a scratch tensor for the basis.
 //
-// What bounds it: what bounds hyb and hybp (the CUDA-core work and the
-// barriers around the dots, then the chain's L2 traffic; perm_hyb.cu).
+// What bounds it: the CUDA-core work and the block barriers around the
+// dots, then the bytes the chain's dots pull through L2, as in the first
+// port's hyb and hybp: about 400 REDCs a state, each two small dots between
+// six barriers, and the basis (2,112 B a state) in a scratch tensor that
+// the MMA's B fragments read straight from global memory.
 // The S-box's share of that work changes: a state runs 99 S-boxes, each
 // two squares and a product. In 32-bit limbs that is 3 x 64 wide
 // multiply-adds with carries; in 13-bit digits 820 narrow ones without,
@@ -28,8 +31,9 @@
 // accumulator that emits the limbs in order. The 39 columns are never live
 // together, which is what keeps the digits (40 registers for a product)
 // beside the state and hybp's 17 waiting limbs at all. Everything else is
-// perm_hyb_block.cuh's, shared with perm_hyb.cu; this file is a source of
-// its own so that the two compile side by side.
+// perm_hyb_block.cuh's (128 states a block, one thread a state, the
+// weights staged through shared memory); perm_hyb.cu exports its tile
+// products alone.
 
 #include "perm_hyb_block.cuh"
 

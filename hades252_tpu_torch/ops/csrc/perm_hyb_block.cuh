@@ -1,8 +1,8 @@
-// The block-level device code shared by the chained kernels: the wide tile
-// product, the card's dot with the basis buffer, the block's body and the
-// launch, for perm_hyb.cu (hyb, hybp) and perm_hyb13.cu (hyb13, hybp13).
-// perm_hyb.cu's opening comment says what bounds these kernels and what the
-// design does about it. Device code only.
+// The first port's block-level device code of the chained kernels: the
+// wide tile product, the card's dot with the basis buffer, the block's body
+// and the launch, for perm_hyb13.cu (hyb13, hybp13), and the wide tile
+// product alone for perm_hyb.cu. perm_hyb13.cu's opening comment says what
+// bounds these kernels and what the design does about it. Device code only.
 
 #pragma once
 

@@ -1,70 +1,79 @@
-// The `hybp` schedule of the Hades252 permutation for Hopper (sm_90a):
-// hades_perm_hybp replaces _perm_kernel_hybp (hades252_tpu/ops/perm_pallas.py
-// :945), the JAX package's default schedule. It keeps what makes the
-// schedule: the 8 full rounds with the MDS layer as a byte dot, the 59
-// partial rounds as the full-expansion chain over the basis
-// [1, x_0..x_4, s_0..s_58] with the weights of params.hybp_tables, each
-// round's dot split into the big one over the older elements and the small
-// one of the newest element, the big reduction, and the exit map; every dot
-// runs in this kernel's own body on the tensor cores, u8 x u8 -> s32, exact
-// (column sums < 2^28): the big dots and the exit as wgmma m64 n64 k32, the
+// The `hybp` and `hyb` schedules of the Hades252 permutation for Hopper
+// (sm_90a): one block design, two instances of it.
+//   hades_perm_hybp  <- _perm_kernel_hybp (hades252_tpu/ops/perm_pallas.py
+//                       :945), the JAX package's default schedule (kSplit)
+//   hades_perm_hyb   <- _perm_kernel_hyb  (perm_pallas.py:845)
+// Both keep what makes the schedules: the 8 full rounds with the MDS layer
+// as a byte dot, the 59 partial rounds as the full-expansion chain over the
+// basis [1, x_0..x_4, s_0..s_58] (perm_hyb.cuh), each round one dot of the
+// basis, a big reduction and an S-box, and the exit map. hybp splits each
+// round's dot into the big one over the older elements (params.hybp_tables)
+// and the small one of the newest element, so that round r + 1's big dot
+// can run under round r's S-box; hyb runs each round's whole dot
+// (params.hyb_tables) once the newest element is in. Every dot runs in this
+// kernel's own body on the tensor cores, u8 x u8 -> s32, exact (column
+// sums < 2^28): the chain's dots and the exit as wgmma m64 n64 k32, hybp's
 // small dot and the MDS dots as mma.sync m16 n8 k32. Same interface as the
 // other kernels: planar (5, 16, B) int32 digits in and out, canonical
 // (convert=1) or Montgomery (convert=0), any B.
 //
-// What bounds it on this card: a state's chain is serial (round r's S-box
-// input needs s_{r-1}), so one thread's dependent multiply-adds, about 4
-// Montgomery products and a 17-limb reduction a round, set the time of a
-// block (tools/probe_chains.py, part 3: the consumer waits for the
-// producer a tenth of its time). The
-// tensor-core work (6.9e10 byte multiply-adds for 2^14 states, 35 us at the
-// int8 peak) and the weights that stream through L2 (5.3 MB a block) are
-// far below it, and the basis (2,112 B a state) keeps an SM to 64 states.
-// The first port carried the TPU's shape over: every reduction as two more
-// dots between six block barriers, the basis in a scratch tensor in global
+// What bounds them on this card: a state's chain is serial (round r's
+// S-box input needs s_{r-1}), so one thread's dependent multiply-adds,
+// about 4 Montgomery products and a 17-limb reduction a round, set the time
+// of a hybp block (tools/probe_chains.py, part 3: its consumer waits for
+// the producer a tenth of its time). hyb adds the dots themselves to that
+// chain: job r + 1 needs s_r, so the producer idles through the consumer's
+// reduction and S-box and the consumer through the producer's dot, about
+// 1,100 B of K (5 stages of 8 wgmmas) a round on average. The tensor-core
+// work (6.9e10 byte multiply-adds for 2^14 states, 35 us at the int8 peak)
+// and the weights that stream through L2 (5.3 MB a block) are far below
+// either, and the basis (2,112 B a state) keeps an SM to 64 states. The
+// first port carried the TPU's shape over: every reduction as two more dots
+// between six block barriers, the basis in a scratch tensor in global
 // memory, the weights staged with the whole block stopped, and the big dot
-// and the S-box one after the other in the same warps, so the split that
-// names the schedule overlapped nothing.
+// and the S-box one after the other in the same warps.
 //
 // What the design does about it.
 // - The block is warp-specialised: 64 states, a producer warpgroup (threads
 //   0..127) and 2 consumer warps (threads 128..191, one thread a state). The
-//   producer runs the 64 jobs of the chain (round q's big dot over the older
-//   elements, then the 5 blocks of the exit) ahead of the consumer: job
-//   r + 1 starts when s_{r-1} is in the basis, which is at the top of the
-//   consumer's round r, so it runs under round r's reduction and S-box.
-//   They hand over through mbarriers in shared memory (`ready`: a basis
-//   element is in; `full` / `free`: a sums buffer, two of them), never
-//   through a block-wide barrier.
-// - The big dot is wgmma, both operands from shared memory, the 64 x 64
-//   sums in the warpgroup's registers. mma.sync, tried first with the same
-//   split, ran 28-34 clocks an MMA a warp on this card, whatever the order
-//   of its accumulators, and the producer, not the consumer, set the
-//   block's time (1.14 ms a 2^14 batch against 0.80).
+//   producer runs the 64 jobs of the chain (perm_hybp.cuh: a round's dot,
+//   then the 5 blocks of the exit) as soon as the consumer's signal allows
+//   each: for hybp, job r + 1 starts when s_{r-1} is in the basis, at the
+//   top of the consumer's round r, so it runs under round r's reduction and
+//   S-box; for hyb, job r starts there. They hand over through mbarriers in
+//   shared memory (`ready`: a basis element is in; `full` / `free`: a sums
+//   buffer, two of them), never through a block-wide barrier.
+// - The chain's dots are wgmma, both operands from shared memory, the
+//   64 x 64 sums in the warpgroup's registers. mma.sync, tried first for
+//   hybp's big dot, ran 28-34 clocks an MMA a warp on this card, whatever
+//   the order of its accumulators, and the producer, not the consumer, set
+//   the block's time (1.14 ms a 2^14 batch against 0.80).
 // - The weights arrive by bulk copies (the TMA engine; no tensor map, the
 //   bytes are contiguous) into a ring of three stages of 256 bytes of K (64
 //   rows, 16,384 B a stage), two chunks ahead of the MMAs, across jobs: the
-//   weights do not depend on the states. The host packs them in the order of
-//   the stage (perm_cuda.packed_weights) and fills every job up to whole
-//   stages with zeros, so that a chunk is always the same 8 wgmmas in a
-//   straight line: with a branch among them the assembler serialised the
-//   MMAs (228 clocks each, not 32).
+//   weights do not depend on the states, so the ring is full when a job's
+//   signal comes. The host packs them in the order of the stage
+//   (perm_cuda.packed_weights) and fills every job up to whole stages with
+//   zeros, so that a chunk is always the same 8 wgmmas in a straight line:
+//   with a branch among them the assembler serialised the MMAs (228 clocks
+//   each, not 32).
 // - The basis lives in shared memory as bytes, 2,112 B a state, 135,168 B
 //   a block, in wgmma's core-matrix order (below), which the consumer's
-//   puts and its small dot's fragment loads follow; the scratch tensor of
+//   puts and hybp's small dot's fragment loads follow; the scratch tensor of
 //   the first port is gone.
 // - The reductions left the tensor cores (perm_hybp.cuh says why): they are
-//   carry chains in the consumer's registers. The small dot of the newest
-//   element and the MDS dots are warp-local: a consumer warp's 32 states
-//   are an m64 n32 problem of their own, synchronised with __syncwarp(),
-//   with several accumulators in flight (an MMA straight after the one it
-//   depends on waits out its whole latency).
+//   carry chains in the consumer's registers. hybp's small dot of the
+//   newest element and the MDS dots are warp-local: a consumer warp's 32
+//   states are an m64 n32 problem of their own, synchronised with
+//   __syncwarp(), with several accumulators in flight (an MMA straight
+//   after the one it depends on waits out its whole latency).
 // - The MDS weights (51,200 B) take the basis's place outside the chain:
 //   the producer stages them at the start and again after its last job.
 //
-// ptxas (-Xptxas -v, nvcc 12.9, sm_90a): 202 registers, no spill, 3
-// barriers; 225,408 B of dynamic shared memory, 192 threads and one block
-// an SM.
+// ptxas (-Xptxas -v, nvcc 12.9, sm_90a): hades_perm_hybp 202 registers,
+// hades_perm_hyb 198, no spill, 3 barriers; both 225,408 B of dynamic shared
+// memory, 192 threads and one block an SM. hyb's consumer waits for its
+// job's sums 36% of its clocks (tools/probe_chains.py, part 3; hybp's 11%).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -183,6 +192,7 @@ __device__ __forceinline__ void tile_load(int32_t acc[4], const int32_t* cr) {
 // ---------------------------------------------------------------------------
 // The consumer's dot (perm_hybp.cuh): thread kProducers + t is state t.
 // ---------------------------------------------------------------------------
+template <bool kSplit>
 struct ConsumerDot {
   uint8_t* smem;
   uint64_t* bars;
@@ -263,15 +273,15 @@ struct ConsumerDot {
     mbar_arrive(bars + kBarReady + (signals & 1));
     ++signals;
   }
-  // Wait for the producer's sums of job q; for a round after the first add
-  // the newest element's dot on top of them, in place: the warp's 32 states
-  // (their element 5 + q, which the warp's own threads have just put) times
-  // the round's 64 x 32 block of w_new, 16 MMAs.
+  // Wait for the producer's sums of job q; with the split, for a round after
+  // the first, add the newest element's dot on top of them, in place: the
+  // warp's 32 states (their element 5 + q, which the warp's own threads have
+  // just put) times the round's 64 x 32 block of w_new, 16 MMAs.
   __device__ __forceinline__ void job_cols(int q) {
     const int buf = q & 1;
     mbar_wait(bars + kBarFull + buf, (q >> 1) & 1);
     int32_t* c = sums(buf);
-    if (q > 0 && q < kPartialRounds) {
+    if (kSplit && q > 0 && q < kPartialRounds) {
       __syncwarp();  // the warp's puts of s_{q-1}
       const int lane = t & 31, g = lane >> 2, qq = lane & 3, warp = t >> 5;
       const uint32_t* w32 = reinterpret_cast<const uint32_t*>(smem + kOffNew + buf * kNewBytes);
@@ -341,27 +351,32 @@ __device__ __forceinline__ void stage_lin(uint8_t* smem, uint64_t* bars, const u
 // is then the same straight run of kStageK / 32 wgmmas, with no branch
 // among them: the assembler keeps MMAs in flight only where it can follow
 // every use of their registers.
-__device__ __forceinline__ int job_chunks(int q) { return (job_k(q) + kStageK - 1) / kStageK; }
+template <bool kSplit>
+__device__ __forceinline__ int job_chunks(int q) {
+  return (job_k(q, kSplit) + kStageK - 1) / kStageK;
+}
 
 // The producer's place in the packed table: chunk c of job q, at byte `at`.
+template <bool kSplit>
 struct Chunk {
   int q, c;
   uint32_t at;
   __device__ __forceinline__ void next() {
     at += kStageBytes;
-    if (++c == job_chunks(q)) {
+    if (++c == job_chunks<kSplit>(q)) {
       ++q;
       c = 0;
     }
   }
 };
 
-// The 64 jobs. A job is one m64 n64 product over K = job_k(q) bytes: a wgmma
+// The 64 jobs of the table kSplit chooses. A job is one m64 n64 product over K = job_k(q) bytes: a wgmma
 // takes 32 bytes of K, its A operand the weights of a stage of the ring, its
 // B operand the basis, both by descriptor; the 64 x 64 sums stay in the
 // warpgroup's registers over the job. Thread 0 keeps the ring kStages - 1
 // chunks ahead of the MMAs, across jobs: the weights do not depend on the
 // states. Chunk number `turn` sits in stage turn % kStages.
+template <bool kSplit>
 __device__ __forceinline__ void produce(uint8_t* smem, uint64_t* bars,
                                         const uint8_t* __restrict__ packed,
                                         const uint8_t* __restrict__ chain_w,
@@ -369,7 +384,7 @@ __device__ __forceinline__ void produce(uint8_t* smem, uint64_t* bars,
   stage_lin(smem, bars, weights, p);
   const int lane = p & 31, g = lane >> 2, q4 = lane & 3, warp = p >> 5;
   int turn = 0;
-  Chunk ahead{0, 0, 0u};
+  Chunk<kSplit> ahead{0, 0, 0u};
   if (p == 0) {
 #pragma unroll 1
     for (int i = 0; i < kStages - 1; ++i, ahead.next()) {
@@ -379,17 +394,17 @@ __device__ __forceinline__ void produce(uint8_t* smem, uint64_t* bars,
   }
 #pragma unroll 1
   for (int q = 0; q < kJobs; ++q) {
-    const int sig = job_signal(q);
+    const int sig = job_signal(q, kSplit);
     mbar_wait(bars + kBarReady + (sig & 1), (sig >> 1) & 1);
     // the round's block of w_new, for the consumer's small dot: asked for
     // now, put beside the sums at the end
-    const bool with_new = q > 0 && q < kPartialRounds;
+    const bool with_new = kSplit && q > 0 && q < kPartialRounds;
     uint4 nw = make_uint4(0u, 0u, 0u, 0u);
     static_assert(kNewBytes == 16 * kProducers, "a vector a thread");
     if (with_new) nw = reinterpret_cast<const uint4*>(new_w(chain_w, q))[p];
     int32_t acc[32];
     pin(acc);
-    const int chunks = job_chunks(q);
+    const int chunks = job_chunks<kSplit>(q);
 #pragma unroll 1
     for (int c = 0; c < chunks; ++c, ++turn) {
       const int stage = turn % kStages;
@@ -434,39 +449,36 @@ __device__ __forceinline__ void produce(uint8_t* smem, uint64_t* bars,
   stage_lin(smem, bars, weights, p);
 }
 
-}  // namespace hybp
-}  // namespace hades
-
-using namespace hades;
-
-__global__ void __launch_bounds__(hybp::kThreads, 1)
-hades_perm_hybp(const int32_t* __restrict__ x, int32_t* __restrict__ out, long long n,
-                int convert, const uint32_t* __restrict__ consts,
-                const uint8_t* __restrict__ weights, const uint8_t* __restrict__ chain_w,
-                const uint8_t* __restrict__ packed) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + hybp::kOffBars);
+// A block: the producer warpgroup, then the consumer's 64 threads, one a
+// state. Tail lanes of the last block run a zero state (every consumer
+// thread must reach the barriers and the warp-wide MMAs); only their store
+// is masked.
+template <bool kSplit>
+__device__ __forceinline__ void perm_block(uint8_t* smem, const int32_t* __restrict__ x,
+                                           int32_t* __restrict__ out, long long n, int convert,
+                                           const uint32_t* __restrict__ consts,
+                                           const uint8_t* __restrict__ weights,
+                                           const uint8_t* __restrict__ chain_w,
+                                           const uint8_t* __restrict__ packed) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kOffBars);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
-      hybp::mbar_init(bars + hybp::kBarReady + i, hybp::kConsumers);
-      hybp::mbar_init(bars + hybp::kBarFull + i, hybp::kProducers);
-      hybp::mbar_init(bars + hybp::kBarFree + i, hybp::kConsumers);
+      mbar_init(bars + kBarReady + i, kConsumers);
+      mbar_init(bars + kBarFull + i, kProducers);
+      mbar_init(bars + kBarFree + i, kConsumers);
     }
-    hybp::mbar_init(bars + hybp::kBarLin, hybp::kProducers);
-    for (int i = 0; i < hybp::kStages; ++i) hybp::mbar_init(bars + hybp::kBarStage + i, 1);
+    mbar_init(bars + kBarLin, kProducers);
+    for (int i = 0; i < kStages; ++i) mbar_init(bars + kBarStage + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x < hybp::kProducers) {
-    hybp::produce(smem, bars, packed, chain_w, reinterpret_cast<const uint4*>(weights),
-                  (int)threadIdx.x);
+  if (threadIdx.x < kProducers) {
+    produce<kSplit>(smem, bars, packed, chain_w, reinterpret_cast<const uint4*>(weights),
+                    (int)threadIdx.x);
     return;
   }
-  // Tail lanes of the last block run a zero state (every consumer thread
-  // must reach the barriers and the warp-wide MMAs); only their store is
-  // masked.
-  const int t = (int)threadIdx.x - hybp::kProducers;
-  const long long b = (long long)blockIdx.x * hybp::kStates + t;
+  const int t = (int)threadIdx.x - kProducers;
+  const long long b = (long long)blockIdx.x * kStates + t;
   const bool live = b < n;
   uint32_t s[kWidth][kLimbs];
   if (live) {
@@ -478,14 +490,58 @@ hades_perm_hybp(const int32_t* __restrict__ x, int32_t* __restrict__ out, long l
       for (int j = 0; j < kLimbs; ++j) s[w][j] = 0;
     }
   }
-  hybp::ConsumerDot d{smem, bars, t, nullptr, 0, 0};
-  hybp::perm(d, s, consts, convert != 0);
+  ConsumerDot<kSplit> d{smem, bars, t, nullptr, 0, 0};
+  perm(d, s, consts, convert != 0);
   if (live) store_state(out, s, b, n);
+}
+
+}  // namespace hybp
+}  // namespace hades
+
+using namespace hades;
+
+__global__ void __launch_bounds__(hybp::kThreads, 1)
+hades_perm_hybp(const int32_t* __restrict__ x, int32_t* __restrict__ out, long long n,
+                int convert, const uint32_t* __restrict__ consts,
+                const uint8_t* __restrict__ weights, const uint8_t* __restrict__ chain_w,
+                const uint8_t* __restrict__ packed) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  hybp::perm_block<true>(smem, x, out, n, convert, consts, weights, chain_w, packed);
+}
+
+__global__ void __launch_bounds__(hybp::kThreads, 1)
+hades_perm_hyb(const int32_t* __restrict__ x, int32_t* __restrict__ out, long long n,
+               int convert, const uint32_t* __restrict__ consts,
+               const uint8_t* __restrict__ weights, const uint8_t* __restrict__ chain_w,
+               const uint8_t* __restrict__ packed) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  hybp::perm_block<false>(smem, x, out, n, convert, consts, weights, chain_w, packed);
 }
 
 // ---------------------------------------------------------------------------
 // Plain C interface, bound with ctypes (ops/perm_cuda.py)
 // ---------------------------------------------------------------------------
+
+// Check the pointers, allow the block's shared memory and launch one of the
+// two instances; returns its status.
+template <typename Kernel>
+static int launch_chain(Kernel kernel, const void* x, void* out, long long n, int convert,
+                        const void* consts, const void* weights, const void* chain_w,
+                        const void* packed, void* stream) {
+  const unsigned grid = grid_for(n, hybp::kStates);
+  if (grid == 0) return kErrBatch;
+  if (reinterpret_cast<uintptr_t>(weights) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(chain_w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(packed) % 16 != 0) {
+    return kErrShape;
+  }
+  cudaError_t err = mxu8::allow_smem(kernel, hybp::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, hybp::kThreads, hybp::kSmemBytes, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (int32_t*)out, n, convert, (const uint32_t*)consts,
+      (const uint8_t*)weights, (const uint8_t*)chain_w, (const uint8_t*)packed);
+  return (int)cudaGetLastError();
+}
 
 extern "C" {
 
@@ -494,24 +550,24 @@ extern "C" {
 // w_lin, the first mxu8::kLinBytes; chain_w: hyb::chain_bytes(true) of
 // wo_seg1, wo_seg2, w_new, w_out (params.hybp_tables), of which the kernel
 // reads w_new; packed: the 64 jobs' weights in the order of the ring's
-// stages (perm_cuda.packed_weights). All are device pointers, 16-byte
-// aligned, that the caller keeps alive.
+// stages (perm_cuda.packed_weights("hybp")). All are device pointers,
+// 16-byte aligned, that the caller keeps alive.
 int hades_perm_hybp_launch(const void* x, void* out, long long n, int convert,
                            const void* consts, const void* weights, const void* chain_w,
                            const void* packed, void* stream) {
-  const unsigned grid = grid_for(n, hybp::kStates);
-  if (grid == 0) return kErrBatch;
-  if (reinterpret_cast<uintptr_t>(weights) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(chain_w) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(packed) % 16 != 0) {
-    return kErrShape;
-  }
-  cudaError_t err = mxu8::allow_smem(hades_perm_hybp, hybp::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  hades_perm_hybp<<<grid, hybp::kThreads, hybp::kSmemBytes, (cudaStream_t)stream>>>(
-      (const int32_t*)x, (int32_t*)out, n, convert, (const uint32_t*)consts,
-      (const uint8_t*)weights, (const uint8_t*)chain_w, (const uint8_t*)packed);
-  return (int)cudaGetLastError();
+  return launch_chain(hades_perm_hybp, x, out, n, convert, consts, weights, chain_w, packed,
+                      stream);
+}
+
+// As hades_perm_hybp_launch, with hyb's tables: chain_w holds
+// hyb::chain_bytes(false) of w_seg1, w_seg2, w_out (params.hyb_tables),
+// which the kernel does not read; packed is perm_cuda.packed_weights("hyb"),
+// each round's whole dot a job.
+int hades_perm_hyb_launch(const void* x, void* out, long long n, int convert,
+                          const void* consts, const void* weights, const void* chain_w,
+                          const void* packed, void* stream) {
+  return launch_chain(hades_perm_hyb, x, out, n, convert, consts, weights, chain_w, packed,
+                      stream);
 }
 
 }  // extern "C"

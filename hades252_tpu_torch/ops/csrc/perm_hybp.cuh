@@ -1,10 +1,13 @@
-// The `hybp` schedule's per-state code for the kernel in perm_hybp.cu: the
-// consumer's side of a block that is split into a consumer, which walks the
-// states through the rounds, and a producer, which runs the chain's big
-// dots ahead of it (perm_hybp.cu). Counterparts in
+// The `hybp` and `hyb` schedules' per-state code for the kernel in
+// perm_hybp.cu: the consumer's side of a block that is split into a
+// consumer, which walks the states through the rounds, and a producer,
+// which runs the chain's dots (perm_hybp.cu). Counterparts in
 // hades252_tpu/ops/perm_pallas.py: _perm_kernel_hybp (:945),
-// _redc_wide_big (:818); the schedule is params.dot_schedule_int and the
-// weights are params.hybp_tables, as perm_hyb.cuh describes them.
+// _perm_kernel_hyb (:845), _redc_wide_big (:818); the schedule is
+// params.dot_schedule_int and the weights are params.hybp_tables and
+// params.hyb_tables, as perm_hyb.cuh describes them. The consumer's code is
+// the same for both: only the producer's job table (below) and the dot
+// object differ.
 //
 // What the TPU kernel did and this one does otherwise. There every
 // Montgomery reduction is two more byte dots (with p' and with p), because
@@ -27,9 +30,10 @@
 //   d.basis_put(j, w)     this state's basis element j <- 8 limbs;
 //   d.basis_signal()      the elements put so far may be read by the producer;
 //   d.job_cols(q)         the sums of job q are ready to be read: for q < 59 round
-//                         q's dot (the producer's over the older elements plus,
-//                         for q > 0, the newest element's, which the consumer's
-//                         own warp runs), for q >= 59 word q - 59 of the exit;
+//                         q's dot (hyb: the producer's whole dot; hybp: the
+//                         producer's over the older elements plus, for q > 0,
+//                         the newest element's, which the consumer's own warp
+//                         runs), for q >= 59 word q - 59 of the exit;
 //   d.job_done(q)         they have been read;
 //   d.col(i)              column sum i of the last mds_run or job_cols.
 // On the card these wait on and signal the block's barriers; for the host,
@@ -49,18 +53,22 @@ using hyb::kT;
 using mxu8::kBlockRows;
 using mxu8::kLinK;
 
-// The producer's jobs: 59 big dots (round q's, over the older elements) and
-// the 5 blocks of the exit map. Job q multiplies the first job_k(q) bytes
-// of the basis, reads its weights at job_w(q) with rows job_stride(q) apart,
-// and may start after the consumer's signal number job_signal(q).
+// The producer's jobs: one a partial round, then the 5 blocks of the exit
+// map. With the split (`hybp`), round q's job is its big dot over the older
+// elements, and the consumer adds the newest element's small dot; without it
+// (`hyb`), round q's job is the round's whole dot. Job q multiplies the
+// first job_k(q, split) bytes of the basis, reads its weights at
+// job_w(chain_w, q, split) with rows job_stride(q) apart, and may start
+// after the consumer's signal number job_signal(q, split).
 constexpr int kJobs = kPartialRounds + kWidth;
 
-// Round 0 takes all its 6 elements; round q > 0 the 5 + q older ones (the
-// weights of the newest are zero in the table). Rounded up to the dot's step
-// of 64 bytes: the element after the last, if any, meets zero weights.
-HADES_HD int job_k(int q) {
+// Round q's elements: hybp's older ones (all 6 in round 0, the 5 + q before
+// the newest in round q > 0; the newest one's weights are zero in its
+// table), or hyb's 6 + q. Rounded up to the dot's step of 64 bytes: the
+// element after the last, if any, meets zero weights.
+HADES_HD int job_k(int q, bool split) {
   if (q >= kPartialRounds) return kBasisBytes;
-  const int elems = q == 0 ? 1 + kWidth : kWidth + q;
+  const int elems = !split ? 1 + kWidth + q : q == 0 ? 1 + kWidth : kWidth + q;
   return (32 * elems + 63) & ~63;
 }
 
@@ -68,19 +76,23 @@ HADES_HD int job_stride(int q) {
   return q < hyb::kSeg1Rounds ? hyb::kSeg1K : q < kPartialRounds ? hyb::kSeg2K : kBasisBytes;
 }
 
-HADES_HD const uint8_t* job_w(const uint8_t* chain_w, int q) {
+// The tables of params.hybp_tables (split) and params.hyb_tables share
+// their layout but for hybp's w_new before the exit map.
+HADES_HD const uint8_t* job_w(const uint8_t* chain_w, int q, bool split) {
   if (q < hyb::kSeg1Rounds) return chain_w + q * (kBlockRows * hyb::kSeg1K);
   if (q < kPartialRounds) {
     return chain_w + hyb::kSeg1Bytes + (q - hyb::kSeg1Rounds) * (kBlockRows * hyb::kSeg2K);
   }
-  return chain_w + hyb::kSeg1Bytes + hyb::kSeg2Bytes + hyb::kNewBytes +
+  return chain_w + hyb::kSeg1Bytes + hyb::kSeg2Bytes + (split ? hyb::kNewBytes : 0) +
          (q - kPartialRounds) * (kBlockRows * kBasisBytes);
 }
 
 // Signal 0: elements 0..5 are in; signal r > 0: s_{r-1} is in. Round q's
-// older elements end with s_{q-2}; the exit needs s_58.
-HADES_HD int job_signal(int q) {
-  return q >= kPartialRounds ? kPartialRounds : q > 1 ? q - 1 : 0;
+// older elements end with s_{q-2}, its newest is s_{q-1}; the exit needs
+// s_58.
+HADES_HD int job_signal(int q, bool split) {
+  if (q >= kPartialRounds) return kPartialRounds;
+  return !split ? q : q > 1 ? q - 1 : 0;
 }
 
 HADES_HD const uint8_t* new_w(const uint8_t* chain_w, int r) {
@@ -93,7 +105,8 @@ using dense::redc_big;
 // The 59 partial rounds and the chain's exit. In: the state after full
 // round 3. Out: the state entering full round 63. Round r: s_{r-1} enters
 // the basis and is signalled, which lets the producer start round r + 1's
-// big dot while this thread reduces round r's sums and runs its S-box.
+// big dot while this thread reduces round r's sums and runs its S-box
+// (hybp), or round r's whole dot, which this thread then waits for (hyb).
 template <class Dot>
 HADES_FN void chain(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ one_mont) {
   uint32_t x[kLimbs], t[kT];
@@ -154,7 +167,9 @@ HADES_FN void perm(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restric
 // The host's dot: plain loops over the kernel's byte weights, and the
 // producer's jobs run in sequence, each at the signal that allows it, so
 // that a job sees the basis as the card's producer may see it at the
-// earliest: everything it needs and nothing later.
+// earliest: everything it needs and nothing later. kSplit follows the
+// kernel's: hybp's table with the consumer's small dot, or hyb's.
+template <bool kSplit = true>
 struct HostDot : dense::HostDot<> {
   const uint8_t* chain_w;
   uint8_t y[kBasisBytes];
@@ -172,9 +187,9 @@ struct HostDot : dense::HostDot<> {
     }
   }
   void basis_signal() {
-    for (; next_job < kJobs && job_signal(next_job) <= signals; ++next_job) {
-      const uint8_t* w = job_w(chain_w, next_job);
-      const int k = job_k(next_job), stride = job_stride(next_job);
+    for (; next_job < kJobs && job_signal(next_job, kSplit) <= signals; ++next_job) {
+      const uint8_t* w = job_w(chain_w, next_job, kSplit);
+      const int k = job_k(next_job, kSplit), stride = job_stride(next_job);
       for (int m = 0; m < kBlockRows; ++m) {
         int32_t sum = 0;
         for (int i = 0; i < k; ++i) sum += (int32_t)w[m * stride + i] * y[i];
@@ -188,7 +203,7 @@ struct HostDot : dense::HostDot<> {
     const uint8_t* w = new_w(chain_w, q);
     for (int m = 0; m < kBlockRows; ++m) {
       int32_t sum = job[q][m];
-      if (q > 0 && q < kPartialRounds) {
+      if (kSplit && q > 0 && q < kPartialRounds) {
         for (int i = 0; i < 32; ++i) sum += (int32_t)w[m * 32 + i] * y[32 * (kWidth + q) + i];
       }
       c[m] = sum;

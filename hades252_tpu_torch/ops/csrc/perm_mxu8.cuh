@@ -1,7 +1,7 @@
 // The `mxu8` schedule's per-state code in the first port's shape: the dense
 // round with every constant product as a byte dot, the MDS layer and each
 // Montgomery REDC alike, as the TPU kernel runs it. The chained kernels in
-// that shape run their full rounds on it (perm_hyb.cuh: hyb, hyb13,
+// that shape run their full rounds on it (perm_hyb.cuh: hyb13,
 // hybp13); the dense kernels themselves now reduce on the CUDA cores
 // (perm_dense.cuh). Counterparts in hades252_tpu/ops/perm_pallas.py:
 // _perm_kernel_mxu_impl (:731), _MxuOps (:653), _redc_words_mxu (:580).

@@ -2,17 +2,17 @@
 plain PyTorch versions.
 
 Port of the eight schedules of `hades252_tpu/ops/perm_pallas.py`
-(`permute_planar` :1270, `_batch_major` :1390). The kernels are `hades_perm_naive` (dense rounds, replacing
-`_perm_kernel`) and `hades_perm_opt` (sparse-factored partial rounds on a
-group of 4 lanes a state, replacing `_perm_kernel_opt`) in `csrc/perm.cu`,
-`hades_perm_mxu8` (dense rounds, the MDS layer as an 8-bit integer
-warpgroup MMA and the reductions on the CUDA cores, replacing
-`_perm_kernel_mxu8`) in `csrc/perm_mxu8.cu`, `hades_perm_hyb` (full rounds
-with every constant product as a byte dot, around the full-expansion partial
-chain, replacing `_perm_kernel_hyb`) in
-`csrc/perm_hyb.cu`, `hades_perm_hybp` (the chain with each round's dot
-split, the big one run ahead by a producer warpgroup as wgmma, replacing
-`_perm_kernel_hybp`) in `csrc/perm_hybp.cu`, `hades_perm_mxu` (mxu8's
+(`permute_planar` :1270, `_batch_major` :1390). The kernels are `hades_perm_naive` (dense rounds, replacing `_perm_kernel`)
+and `hades_perm_opt` (sparse-factored partial rounds, replacing
+`_perm_kernel_opt`), both on a group of 4, 2 or 1 lanes a state, in
+`csrc/perm.cu`, `hades_perm_mxu8` (dense rounds, the MDS layer as an 8-bit
+integer warpgroup MMA and the reductions on the CUDA cores, replacing
+`_perm_kernel_mxu8`) in `csrc/perm_mxu8.cu`, `hades_perm_hybp` (the
+full-expansion partial chain with each round's dot split, the big one run
+ahead by a producer warpgroup as wgmma, the reductions on the CUDA cores,
+replacing `_perm_kernel_hybp`) and `hades_perm_hyb` (the same block without
+the split, each round's whole dot a wgmma job, replacing `_perm_kernel_hyb`)
+in `csrc/perm_hybp.cu`, `hades_perm_mxu` (mxu8's
 kernel with the MDS layer as bf16 warpgroup MMAs with float32 sums,
 replacing `_perm_kernel_mxu`) in `csrc/perm_mxu.cu`, and
 `hades_perm_hyb13` and `hades_perm_hybp13` (hyb and hybp with every S-box
@@ -141,12 +141,12 @@ def dense_smem_bytes(schedule: str) -> int:
 
 def hyb_kernel_tables(schedule: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The hyb or hybp kernel's tables as its launch takes them: mxu8's
-    consts with R mod p appended (uint32 limbs), mxu8's weights (for the
-    full rounds and every REDC; hybp's kernel takes the MDS block alone),
-    and the chain's weights as one flat uint8 array: segment 1, segment 2,
-    for hybp w_new, then w_out. hyb13 and hybp13 take hyb's and hybp's
-    unchanged (perm_pallas.py:1333-1342). The hybp kernel also takes
-    `packed_weights`."""
+    consts with R mod p appended (uint32 limbs), mxu8's weights (the MDS
+    block, which the hyb and hybp kernels take alone; hyb13 and hybp13 also
+    every REDC's), and the chain's weights as one flat uint8 array: segment
+    1, segment 2, for hybp w_new, then w_out. hyb13 and hybp13 take hyb's
+    and hybp's unchanged (perm_pallas.py:1333-1342). The hyb and hybp
+    kernels also take `packed_weights`."""
     consts, weights = mxu8_kernel_tables()
     t = hybp_tables() if schedule.startswith("hybp") else hyb_tables()
     consts = np.concatenate([consts, digits_to_limbs(t["one_mont"])])
@@ -154,42 +154,46 @@ def hyb_kernel_tables(schedule: str) -> tuple[np.ndarray, np.ndarray, np.ndarray
     return consts, weights, chain
 
 
-#: The rows of a job of the hybp kernel's producer and the bytes of K a stage
-#: of its ring holds (csrc/perm_hybp.cu: kBlockRows, kStageK).
-_HYBP_ROWS = 64
-_HYBP_STAGE_K = 256
+#: The rows of a job of the hyb and hybp kernels' producer and the bytes of
+#: K a stage of its ring holds (csrc/perm_hybp.cu: kBlockRows, kStageK).
+_JOB_ROWS = 64
+_STAGE_K = 256
 
 
-def hybp_job_k(q: int) -> int:
-    """Bytes of the basis that job q of the hybp kernel's producer multiplies
-    (csrc/perm_hybp.cuh: job_k): round q's older elements, rounded up to 64
-    bytes, or the whole padded basis for the exit's five blocks."""
+def job_k(q: int, split: bool) -> int:
+    """Bytes of the basis that job q of the hyb (split=False) or hybp kernel's
+    producer multiplies (csrc/perm_hybp.cuh: job_k): round q's elements
+    (hyb's 6 + q; hybp's older ones, 6 in round 0 and 5 + q after), rounded
+    up to 64 bytes, or the whole padded basis for the exit's five blocks."""
     if q >= 59:
         return 2112
-    return (32 * (6 if q == 0 else 5 + q) + 63) & ~63
+    elems = 6 + q if not split else 6 if q == 0 else 5 + q
+    return (32 * elems + 63) & ~63
 
 
 @functools.cache
-def packed_weights() -> np.ndarray:
-    """The weights of the hybp kernel's 64 producer jobs (the 59 rounds' big
-    dots over the older elements, then the exit's 5 blocks), job after job,
-    each job's (64, job_k) block in the order of wgmma's shared-memory
-    operand without swizzle: cut into 16-byte vectors, vector v of row r at
-    v * 1024 + (r // 8) * 128 + (r % 8) * 16, its K filled up with zeros to
-    whole stages of the kernel's ring. A stage is then a contiguous run of
-    a job's bytes, which one bulk copy moves."""
-    t = hybp_tables()
+def packed_weights(schedule: str) -> np.ndarray:
+    """The weights of the 64 producer jobs of the hyb or hybp kernel (the 59
+    rounds' dots: hyb's whole, hybp's big one over the older elements; then
+    the exit's 5 blocks), job after job, each job's (64, job_k) block in the
+    order of wgmma's shared-memory operand without swizzle: cut into 16-byte
+    vectors, vector v of row r at v * 1024 + (r // 8) * 128 + (r % 8) * 16,
+    its K filled up with zeros to whole stages of the kernel's ring. A stage
+    is then a contiguous run of a job's bytes, which one bulk copy moves."""
+    split = schedule == "hybp"
+    t = hybp_tables() if split else hyb_tables()
+    seg1, seg2 = (t["wo_seg1"], t["wo_seg2"]) if split else (t["w_seg1"], t["w_seg2"])
     jobs = []
     for q in range(64):
-        if q < 27:
-            w = t["wo_seg1"][q]
-        elif q < 59:
-            w = t["wo_seg2"][q - 27]
+        if q < HYB_SEG1_ROUNDS:
+            w = seg1[q]
+        elif q < PARTIAL_ROUNDS:
+            w = seg2[q - HYB_SEG1_ROUNDS]
         else:
-            w = t["w_out"].reshape(5, _HYBP_ROWS, -1)[q - 59]
-        k = hybp_job_k(q)
-        assert w.shape[0] == _HYBP_ROWS and not w[:, k:].any()
-        padded = np.zeros((_HYBP_ROWS, -(-k // _HYBP_STAGE_K) * _HYBP_STAGE_K), np.uint8)
+            w = t["w_out"].reshape(5, _JOB_ROWS, -1)[q - PARTIAL_ROUNDS]
+        k = job_k(q, split)
+        assert w.shape[0] == _JOB_ROWS and not w[:, k:].any()
+        padded = np.zeros((_JOB_ROWS, -(-k // _STAGE_K) * _STAGE_K), np.uint8)
         padded[:, :k] = w[:, :k]
         # (row group, row, vector, byte) -> (vector, row group, row, byte)
         jobs.append(padded.reshape(8, 8, -1, 16).transpose(2, 0, 1, 3).reshape(-1))
@@ -198,10 +202,11 @@ def packed_weights() -> np.ndarray:
 
 #: The dense schedules whose constant products are tile products, the
 #: schedules with the full-expansion chain, and those of them whose kernel
-#: keeps the basis in a scratch tensor (hybp's keeps it in shared memory).
+#: keeps the basis in a scratch tensor (hyb's and hybp's keep it in shared
+#: memory and take `packed_weights`).
 _DENSE_DOT = ("mxu8", "mxu")
 _CHAINED = ("hyb", "hybp", "hyb13", "hybp13")
-_SCRATCH = ("hyb", "hyb13", "hybp13")
+_SCRATCH = ("hyb13", "hybp13")
 
 
 @functools.cache
@@ -210,8 +215,8 @@ def _device_tables(schedule: str, device: torch.device) -> tuple[torch.Tensor, .
     device. hyb13 and hybp13 take hyb's and hybp's."""
     tables = (dense_kernel_tables(schedule) if schedule in _DENSE_DOT
               else hyb_kernel_tables(schedule.removesuffix("13")))
-    if schedule == "hybp":
-        tables = (*tables, packed_weights())
+    if schedule in ("hyb", "hybp"):
+        tables = (*tables, packed_weights(schedule))
     return tuple(torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).to(device)
                  for t in tables)
 
@@ -306,7 +311,7 @@ def mxu_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def block_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) over uint8 operands with exact int32 sums, M <= 320
     and K <= 160: on a CUDA tensor through the block-wide tile product that
-    the REDCs and full rounds of hyb, hyb13 and hybp13 run
+    the REDCs and full rounds of hyb13 and hybp13 run
     (`hades_block_dot`, mma.sync m16n8k32 u8), with both operands zero-padded
     to the MMA's 16 rows and 32 bytes; on the CPU in float64."""
     _check_dot(w, x, 5 * MXU8_BLOCK_ROWS, 160)

@@ -4,8 +4,10 @@ the per-state code of `perm.cuh` (a lane group's lanes run in turn),
 producer's jobs run in sequence) compiled for the host, and the independent oracles of
 `chip_smoke.py`, all on the CPU."""
 
+import contextlib
 import shutil
 import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -29,9 +31,11 @@ torch.set_num_threads(1)
 # for mxu, as their kernels read it. The chained schedules run perm_hyb.cuh with
 # its host dot, plain loops over the kernels' byte weights; hyb13 and hybp13 take
 # the base-2^13 S-box. opt runs a group of
-# HADES_GROUP lanes (default 4; the kernel runs 4, 2 or 1 by the batch) a state, the lanes in turn and the
-# shuffles as array reads; hybp runs perm_hybp.cuh, the consumer's code of its
-# kernel, with each of the producer's jobs run at the signal that allows it.
+# naive and opt run a group of HADES_GROUP lanes (default 4; the kernels run 4, 2 or 1 by
+# the batch) a state, the lanes in turn and the shuffles as array reads; hyb and hybp
+# run perm_hybp.cuh, the consumer's code of their kernel, with each of the producer's
+# jobs run at the signal that allows it, from hyb's table (each round's whole dot) or
+# hybp's (the split).
 # HARNESS13 runs the base-2^13 products alone: to13 and mul13 over pairs of
 # 8-limb values -> the 20 digits of the first, its square and the product.
 HARNESS = r"""
@@ -77,11 +81,9 @@ int main(int argc, char** argv) {
   const uint32_t* src = tables.data();
   for (int j = 0; j < kLimbs; ++j) if (src[j] != p_limb(j)) return 2;
   src += kLimbs;
-  TAKE(c_r2) TAKE(c_ark) TAKE(c_mds) TAKE(g_ark_fr) TAKE(g_c0) TAKE(g_u) TAKE(g_w)
+  TAKE(g_r2) TAKE(g_ark) TAKE(g_mds) TAKE(g_ark_fr) TAKE(g_c0) TAKE(g_u) TAKE(g_w)
   TAKE(g_m) TAKE(g_d) TAKE(g_final)
   if (src != tables.data() + tables.size()) return 3;
-  memcpy(g_r2, c_r2, sizeof(g_r2));
-  memcpy(g_mds, c_mds, sizeof(g_mds));
   const int group = getenv("HADES_GROUP") ? atoi(getenv("HADES_GROUP")) : 4;
   for (size_t b = 0; b * 40 < states.size(); ++b) {
     uint32_t s[kWidth][kLimbs];
@@ -90,10 +92,14 @@ int main(int argc, char** argv) {
     else if (schedule == 6) hyb::perm<false, true>(dot, s, consts.data(), chain.data(), convert != 0);
     else if (schedule == 4) {
       // the consumer's code, with the producer's jobs run at their signals
-      hybp::HostDot split{{weights.data()}, chain.data()};
+      hybp::HostDot<true> split{{weights.data()}, chain.data()};
       hybp::perm(split, s, consts.data(), convert != 0);
     }
-    else if (schedule == 3) hyb::perm<false>(dot, s, consts.data(), chain.data(), convert != 0);
+    else if (schedule == 3) {
+      // the same block without the split: each round's whole dot a job
+      hybp::HostDot<false> whole{{weights.data()}, chain.data()};
+      hybp::perm(whole, s, consts.data(), convert != 0);
+    }
     else if (schedule == 2) {
       dense::HostDot<> lin{weights.data()};
       dense::perm(lin, s, consts.data(), convert != 0);
@@ -102,14 +108,18 @@ int main(int argc, char** argv) {
       dense::HostDot<uint16_t> lin{lin_bf16.data()};
       dense::perm(lin, s, consts.data(), convert != 0);
     }
-    else if (schedule == 1) {
-      // the lanes of a group in turn; their copies of word 4 must agree
-      const bool same = group == 4 ? perm_opt_host<4>(s, convert != 0)
-                      : group == 2 ? perm_opt_host<2>(s, convert != 0)
-                                   : perm_opt_host<1>(s, convert != 0);
+    else {
+      // naive (dense) or opt: the lanes of a group in turn; their copies of
+      // word 4 must agree
+      const bool dense = schedule == 0;
+      const bool same = group == 4 ? (dense ? perm_lanes_host<4, true>(s, convert != 0)
+                                            : perm_lanes_host<4, false>(s, convert != 0))
+                      : group == 2 ? (dense ? perm_lanes_host<2, true>(s, convert != 0)
+                                            : perm_lanes_host<2, false>(s, convert != 0))
+                                   : (dense ? perm_lanes_host<1, true>(s, convert != 0)
+                                            : perm_lanes_host<1, false>(s, convert != 0));
       if (!same) return 5;
     }
-    else perm_naive(s, convert != 0);
     memcpy(&states[b * 40], s, sizeof(s));
   }
   fwrite(states.data(), 4, states.size(), stdout);
@@ -351,61 +361,90 @@ def test_dense_weights_are_w_lin_in_wgmma_order(schedule):
     assert np.array_equal(unpacked.astype(np.int64), w_lin.astype(np.int64))
 
 
-@pytest.mark.parametrize("group", [1, 2, 4])
-@pytest.mark.parametrize("convert", [True, False])
-def test_opt_lane_groups_on_host_match_int_oracle(harness, group, convert):
-    """perm_opt_lanes for every group size the kernel runs (4, 2 or 1 lanes a
-    state, by the batch): the words spread over the lanes, the sum over the group and the
-    all-gathers as array reads, over the 128 KATs; every lane's copy of word
-    4 must agree at the end (the harness returns 5 otherwise)."""
+def _run_lanes(harness, schedule, group, convert):
+    """The harness's naive (0) or opt (1) on a group of `group` lanes over the
+    128 KATs; the harness returns 5 where the lanes' copies of word 4
+    disagree at the end."""
     inputs, expected, inputs_m, expected_m = selftest._vectors()
     x, want = (inputs, expected) if convert else (inputs_m, expected_m)
-    states = harness / f"states_g{group}_{int(convert)}.bin"
+    states = harness / f"states_{schedule}_g{group}_{int(convert)}.bin"
     digits_to_limbs(x).astype("<u4").tofile(states)
     out = subprocess.run(
-        [str(harness / "harness"), str(harness / "tables.bin"), str(states), "1",
-         str(int(convert)), str(harness / "mxu8_consts.bin"), str(harness / "mxu8_weights.bin")],
+        [str(harness / "harness"), str(harness / "tables.bin"), str(states),
+         str(perm_cuda.SCHEDULES.index(schedule)), str(int(convert)),
+         str(harness / "mxu8_consts.bin"), str(harness / "mxu8_weights.bin")],
         capture_output=True, check=True, timeout=300, env={"HADES_GROUP": str(group)},
     ).stdout
     assert np.array_equal(np.frombuffer(out, "<u4").reshape(-1, 5, 8), digits_to_limbs(want))
 
 
-def test_hybp_jobs_cover_their_rounds():
-    """The producer's job table of perm_hybp.cuh, mirrored here: job q stops
-    at the last older element of its round, and everything it leaves out of
-    the table's padded width is zero; w_new holds what it leaves to the
-    consumer's small dot."""
-    from hades252_tpu_torch.params import hybp_tables
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("convert", [True, False])
+def test_opt_lane_groups_on_host_match_int_oracle(harness, group, convert):
+    """perm_opt_lanes for every group size the kernel runs (4, 2 or 1 lanes a
+    state, by the batch): the words spread over the lanes, the sum over the group and the
+    all-gathers as array reads; every lane's copy of word 4 must agree."""
+    _run_lanes(harness, "opt", group, convert)
 
-    t = hybp_tables()
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("convert", [True, False])
+def test_naive_lane_groups_on_host_match_int_oracle(harness, group, convert):
+    """perm_naive_lanes, the dense schedule, for every group size its kernel
+    runs: each lane's own words and word 4 through the ARK and the S-boxes,
+    the all-gather as array reads, each lane's MDS rows; every lane's copy of
+    word 4 must agree."""
+    _run_lanes(harness, "naive", group, convert)
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_hybp_jobs_cover_their_rounds(split):
+    """The producer's job table of perm_hybp.cuh, mirrored here. With the
+    split (hybp), job q stops at the last older element of its round, and
+    w_new holds what it leaves to the consumer's small dot; without it
+    (hyb), job q holds its round's whole dot, the newest element included.
+    Everything a job leaves out of the table's padded width is zero, and
+    `job_k` matches the table."""
+    from hades252_tpu_torch.params import hyb_tables, hybp_tables
+
+    t = hybp_tables() if split else hyb_tables()
+    seg1, seg2 = (t["wo_seg1"], t["wo_seg2"]) if split else (t["w_seg1"], t["w_seg2"])
     for q in range(59):
-        w = t["wo_seg1"][q] if q < 27 else t["wo_seg2"][q - 27]
-        k = (32 * (6 if q == 0 else 5 + q) + 63) & ~63
-        assert k <= w.shape[1] and not w[:, k:].any()
-        assert w[:, : 32 * (6 if q == 0 else 5 + q)].any()
-        if q:
+        w = seg1[q] if q < 27 else seg2[q - 27]
+        elems = (6 if q == 0 else 5 + q) if split else 6 + q
+        k = (32 * elems + 63) & ~63
+        assert perm_cuda.job_k(q, split) == k
+        assert k <= w.shape[1] and not w[:, k:].any() and not w[:, 32 * elems:].any()
+        assert w[:, : 32 * elems].any()
+        if split and q:
             assert not w[:, 32 * (5 + q): 32 * (6 + q)].any() and t["w_new"][q].any()
-    assert not t["w_new"][0].any() and t["w_out"].shape == (320, 2112)
+        if not split:
+            assert w[:, 32 * (5 + q): 32 * (6 + q)].any()  # the newest element's weights
+    assert all(perm_cuda.job_k(q, split) == 2112 for q in range(59, 64))
+    assert t["w_out"].shape == (320, 2112)
+    if split:
+        assert not t["w_new"][0].any()
 
 
-def test_hybp_packed_weights_hold_every_job_in_stage_order():
-    """perm_cuda.packed_weights, which the hybp kernel's bulk copies read:
-    job after job, K filled up with zeros to whole stages of 256 bytes, byte
-    k of row r of a job at (k // 16) * 1024 + (r // 8) * 128 + (r % 8) * 16
-    + k % 16 (the operand order of the kernel's wgmma), so a stage's 16,384
-    bytes are contiguous."""
-    from hades252_tpu_torch.params import hybp_tables
+@pytest.mark.parametrize("split", [True, False])
+def test_hybp_packed_weights_hold_every_job_in_stage_order(split):
+    """perm_cuda.packed_weights, which the bulk copies of the hybp and hyb
+    kernels read: job after job, K filled up with zeros to whole stages of
+    256 bytes, byte k of row r of a job at (k // 16) * 1024 + (r // 8) * 128
+    + (r % 8) * 16 + k % 16 (the operand order of the kernel's wgmma), so a
+    stage's 16,384 bytes are contiguous."""
+    from hades252_tpu_torch.params import hyb_tables, hybp_tables
 
-    t = hybp_tables()
-    packed = perm_cuda.packed_weights()
+    t = hybp_tables() if split else hyb_tables()
+    seg1, seg2 = (t["wo_seg1"], t["wo_seg2"]) if split else (t["w_seg1"], t["w_seg2"])
+    packed = perm_cuda.packed_weights("hybp" if split else "hyb")
     assert packed.dtype == np.uint8 and packed.flags.c_contiguous
     at = 0
     rng = np.random.default_rng(12)
     for q in range(64):
-        w = (t["wo_seg1"][q] if q < 27 else t["wo_seg2"][q - 27] if q < 59
+        w = (seg1[q] if q < 27 else seg2[q - 27] if q < 59
              else t["w_out"][64 * (q - 59): 64 * (q - 58)])
-        k = perm_cuda.hybp_job_k(q)
-        assert k == (2112 if q >= 59 else (32 * (6 if q == 0 else 5 + q) + 63) & ~63)
+        k = perm_cuda.job_k(q, split)
         padded = -(-k // 256) * 256
         job = packed[at: at + 64 * padded]
         for r, kk in zip(rng.integers(0, 64, 200), rng.integers(0, padded, 200)):
@@ -414,6 +453,47 @@ def test_hybp_packed_weights_hold_every_job_in_stage_order():
         assert int(job.astype(np.int64).sum()) == int(w[:, :k].astype(np.int64).sum())
         at += 64 * padded
     assert at == packed.size and at % 16384 == 0
+
+
+def test_hyb_takes_packed_weights_and_no_scratch(monkeypatch):
+    """The hyb kernel's tables and launch as the wrapper makes them (no
+    card: the tables on the CPU, the library a stand-in that records its
+    calls): hyb's tables with its packed jobs appended, no scratch tensor,
+    the hybp kernel's signature; hyb13 keeps its scratch."""
+    tables = perm_cuda._device_tables("hyb", torch.device("cpu"))
+    assert len(tables) == 4 and tables[3].dtype == torch.uint8
+    assert np.array_equal(tables[3].numpy(), perm_cuda.packed_weights("hyb"))
+    assert tables[2].numel() == sum(v.size for v in perm_cuda.hyb_tables().values()
+                                    if v.dtype == np.uint8)
+    assert not np.array_equal(perm_cuda.packed_weights("hyb"), perm_cuda.packed_weights("hybp"))
+    assert "hyb" not in perm_cuda._SCRATCH and "hyb13" in perm_cuda._SCRATCH
+
+    real = perm_cuda._device_tables
+    monkeypatch.setattr(perm_cuda, "_device_tables",
+                        lambda schedule, device: real(schedule, torch.device("cpu")))
+    calls = {}
+
+    class Lib:
+        def __getattr__(self, name):
+            def launch(*args):
+                calls[name] = args
+                return 0
+            return launch
+
+    monkeypatch.setattr(perm_cuda._build, "library", Lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(perm_cuda, "launches", dict.fromkeys(perm_cuda.SCHEDULES, 0))
+    x = torch.zeros((5, 16, 3), dtype=torch.int32)
+    for schedule in ("hyb", "hybp", "hyb13"):
+        perm_cuda._launch(x, torch.empty_like(x), convert=True, schedule=schedule)
+    hyb, hybp, hyb13 = (calls[f"hades_perm_{s}_launch"] for s in ("hyb", "hybp", "hyb13"))
+    # x, out, B, convert; consts, weights, chain, packed; the stream
+    assert len(hyb) == len(hybp) == 9 and hyb[-1] == hybp[-1] == 7
+    assert hyb[2:4] == (3, 1) and hyb[4:8] == tuple(t.data_ptr() for t in tables)
+    # consts, weights, chain, then the scratch and its size
+    assert len(hyb13) == 10 and hyb13[8] == 128 * 2112
 
 
 def test_source_hash_covers_every_source():
@@ -570,20 +650,19 @@ def test_chip_smoke_bound(schedule):
         assert one["cores_ms"] == pytest.approx(cores_ms(113_586))
         assert one["tensor_ms"] == pytest.approx(
             2 * 67 * 315 * 160 * (1 << 14) / chip_smoke.INT8_OPS_PER_S * 1e3)
-    if schedule == "hyb":
-        # 401 REDCs against mxu8's 632, but as dots with 215 operations of carries each
-        # against mxu8's 81 on the cores; the chain's dots outweigh the MDS dots they replace
-        assert one["cores_ms"] == pytest.approx(cores_ms(117_663)) and one["cores_ms"] > mxu8["cores_ms"]
-        assert one["tensor_ms"] > mxu8["tensor_ms"]
-    if schedule == "hybp":
+    if schedule in ("hyb", "hybp"):
+        # one block, split or not: 401 REDCs on the CUDA cores (81 operations each), 99
+        # S-boxes of 136, the 10 conversion products, 2 adds a recombined column of the
+        # 8 MDS dots and the 64 chain dots, the ARK and five 9-limb subtracts a chain
+        # reduction; the tensor cores keep the MDS dots and the chain's, the same work
+        # whether hybp's small dot is split off or not
+        assert one["cores_ms"] == pytest.approx(cores_ms(63_929))
         assert one["cores_ms"] < mxu8["cores_ms"]
-        # its 401 REDCs run on the CUDA cores: 3,040 byte multiply-adds each leave the
-        # tensor cores' count, 81 operations in place of 215 stay on the cores'
-        hyb = chip_smoke.bound("hyb", 1 << 14)
-        assert hyb["tensor_ms"] - one["tensor_ms"] == pytest.approx(
-            2 * 401 * 3040 * (1 << 14) / chip_smoke.INT8_OPS_PER_S * 1e3)
-        assert hyb["cores_ms"] - one["cores_ms"] == pytest.approx(
-            401 * (215 - 81) * (1 << 14) / chip_smoke.INT32_OPS_PER_S * 1e3)
+        chain = sum(63 * 32 * (6 + r) for r in range(59)) + 315 * 2080
+        assert one["tensor_ms"] == pytest.approx(
+            2 * (8 * 315 * 160 + chain) * (1 << 14) / chip_smoke.INT8_OPS_PER_S * 1e3)
+        other = chip_smoke.bound("hybp" if schedule == "hyb" else "hyb", 1 << 14)
+        assert one["tensor_ms"] == other["tensor_ms"] and one["cores_ms"] == other["cores_ms"]
     if schedule in ("naive", "opt"):
         # 198 of the products are the S-boxes' squares: 36 raw products, not 64
         products, adds = (1982, 1675) if schedule == "naive" else (1054, 984)
@@ -596,14 +675,16 @@ def test_chip_smoke_bound(schedule):
         assert one["bytes_ms"] - mxu8["bytes_ms"] == pytest.approx(
             320 * 160 / chip_smoke.HBM_BYTES_PER_S * 1e3)
     if schedule.endswith("13"):
-        # the same tables; 99 S-boxes of 1,420 operations in place of 136. hybp13 keeps the
-        # first port's shape: hyb's dots (REDCs included) and the split's 17-limb sums
-        hyb = chip_smoke.bound("hyb", 1 << 14)
-        assert one["tensor_ms"] == hyb["tensor_ms"]
+        # the first port's block: hyb's 401 REDCs as a (32, 32) and a (63, 32) dot each,
+        # 215 operations of carries each on the cores (117,663 for the state with the
+        # 32-bit S-box), and 99 S-boxes of 1,420 operations in place of 136; hybp13 adds
+        # the split's 17-limb sums
+        hybp = chip_smoke.bound("hybp", 1 << 14)
+        assert one["tensor_ms"] == pytest.approx(
+            hybp["tensor_ms"] + 2 * 401 * 3040 * (1 << 14) / chip_smoke.INT8_OPS_PER_S * 1e3)
         assert one["bytes_ms"] == chip_smoke.bound(schedule.removesuffix("13"), 1 << 14)["bytes_ms"]
         extra = 99 * (1420 - 136) + (58 * (2 * 63 + 17) if schedule == "hybp13" else 0)
-        assert one["cores_ms"] - hyb["cores_ms"] == pytest.approx(
-            extra * (1 << 14) / chip_smoke.INT32_OPS_PER_S * 1e3)
+        assert one["cores_ms"] == pytest.approx(cores_ms(117_663 + extra))
 
 
 def test_chip_smoke_damage_leaves_the_level_below_whole(tmp_path):

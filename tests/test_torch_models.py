@@ -206,7 +206,7 @@ def test_model_input_validation():
         sponge.sponge_hash(torch.zeros((3, 16), dtype=torch.int32))
     with pytest.raises(ValueError):
         merkle.merkle_root(torch.zeros((4, 4, 16), dtype=torch.int32))
-    st = sponge.SpongeState(1, 4)
+    st = sponge.SpongeState(1, 4, device="cpu")
     with pytest.raises(ValueError):
         st.absorb(torch.zeros((1, 5, 16), dtype=torch.int32))
     st.absorb(torch.zeros((1, 2, 16), dtype=torch.int32))

@@ -21,7 +21,9 @@ Part 1, `perm.cu` (`naive`, `opt`), B = 2^14, CUDA events, median of 7:
 and the base at B = 2^10, 2^16 and 2^18. The SASS of a kernel that holds
 one `mont_mul` is counted by opcode (`cuobjdump -sass`).
 
-Part 2, `perm_hyb.cu` (`hyb`, `hybp`), B = 2^14: `clock64()` sums of thread 0
+Part 2, the first port's `perm_hyb.cu` (`hyb`, and `hybp` in the oldest
+sources; the sources after `--csrc`, of a commit that still has that
+kernel there), B = 2^14: `clock64()` sums of thread 0
 of every block, a section at a time (the wide dot with its stage copies and
 barriers; the small dots; the barriers of `put` and `done`; `recombine`;
 `mul_wide`; `ladder9`), divided by the number of blocks. The sections are
@@ -29,16 +31,19 @@ leaves, so they do not overlap; the rest of the kernel's clocks is the
 remainder. Outputs stay right on this build and are checked against the
 uninstrumented `naive` kernel.
 
-Part 3, `opt` and `hybp`, on this tree's sources. `perm.cu`:
-`hades_perm_opt` with its group of lanes forced to 4, 2 and 1 at B = 2^10 ..
-2^18, which is where the thresholds `kGroup4Max` and `kGroup2Max` come from. `perm_hybp.cu`:
-`clock64()` sums of the first consumer thread and the first producer thread
-of every block, a section at a time (consumer: the wait for a job's sums,
-the small dot, `recombine`, the big reduction, the S-box, the MDS dots;
-producer: the waits for a basis element, for a stage of weights, for the
-MMAs of the chunk before with the warpgroup's barrier, for a free sums
-buffer, and the write of the sums; the rest of the producer's time is the
-issue of its wgmmas), at B = 2^10 (one block an SM, no second wave) and 2^14.
+Part 3, on this tree's sources. `perm.cu`: `hades_perm_opt` and
+`hades_perm_naive` with their group of lanes forced to 4, 2 and 1 at B =
+2^10 .. 2^18, outputs held against `opt`'s, which is where the thresholds
+(`kGroup4Max`, `kGroup2Max`, `kNaiveGroup4Max`, `kNaiveGroup2Max`) come
+from; and `naive` at 4 and 2 lanes with row 4 of the MDS whole in every
+lane (`g4w`, `g2w`) in place of a share a lane summed over the group. `perm_hybp.cu`, `hybp` and `hyb`: `clock64()` sums of the first
+consumer thread and the first producer thread of every block, a section at
+a time (consumer: the wait for a job's sums, the small dot, `recombine`, the
+big reduction, the S-box, the MDS dots; producer: the waits for a basis
+element, for a stage of weights, for the MMAs of the chunk before with the
+warpgroup's barrier, for a free sums buffer, and the write of the sums; the
+rest of the producer's time goes to its wgmma instructions), at B = 2^10 (one
+block an SM, no second wave) and 2^14.
 
 Part 4, the dense kernels `mxu8` and `mxu`: the first port's (the sources
 after `--csrc`; skipped with a note where its patches do not apply) and
@@ -51,14 +56,20 @@ shared memory) through `mma.sync` m16n8k32 u8 on a warp's 32 states and
 through `wgmma` m64n64k32 u8 and m64n64k16 bf16 on a warpgroup's 128, at 1
 to 4 warps a scheduler.
 
-Part 5: the kernels that a change of the dense pair must not move (`naive`,
-`opt`, `hyb`, `hybp`, `hyb13`, `hybp13`), each built from the sources after
-`--csrc` and from this tree's and timed in turns in one process (parent,
-change, change, parent) at B = 2^14, outputs compared.
+Part 5: the kernels that a change of `naive` and `hyb` must not move
+(`opt`, `hybp`, `mxu8`, `mxu`, `hyb13`, `hybp13`), each built from the
+sources after `--csrc` and from this tree's and timed in turns in one
+process (parent, change, change, parent) at B = 2^14, outputs compared.
 
 Part 6: the dense kernels' variants (`DENSE_VARIANTS`: the MDS layer's five
 values reduced together after the last dot, as the sources do, or each
 under the next block's wgmmas), timed in turns at B = 2^14 and 2^18.
+
+Part 7, `perm.cu`'s one-thread-a-state `naive` (the sources after
+`--csrc`): the SASS instruction count of `hades_perm_naive`, its registers
+and its time at B = 2^10 and 2^14 as it is and with `#pragma unroll 1` over
+`mds_layer`'s rows, over `full_round`'s words, and over both: whether
+instruction fetch holds it back.
 
 Everything is printed, with the card's name and power limit on every line
 that carries a time, and written to `probe_chains.txt` (and the SASS of one
@@ -170,15 +181,55 @@ HYB_PATCHES = [
 ]
 
 
-GROUP4_OLD = "constexpr long long kGroup4Max = 1 << 13;"
-GROUP2_OLD = "constexpr long long kGroup2Max = 1 << 14;"
-GROUP_VARIANTS = {
-    "g4": [("perm.cu", GROUP4_OLD, "constexpr long long kGroup4Max = 1LL << 40;")],
-    "g2": [("perm.cu", GROUP4_OLD, "constexpr long long kGroup4Max = 0;"),
-           ("perm.cu", GROUP2_OLD, "constexpr long long kGroup2Max = 1LL << 40;")],
-    "g1": [("perm.cu", GROUP4_OLD, "constexpr long long kGroup4Max = 0;"),
-           ("perm.cu", GROUP2_OLD, "constexpr long long kGroup2Max = 0;")],
-}
+def group_variants() -> dict:
+    """opt's and naive's thresholds (the lines of this tree's perm.cu), each
+    pair forced to one group size; naive at 4 and 2 lanes also with row 4
+    whole (ROW4_WHOLE)."""
+    text = (_build.CSRC / "perm.cu").read_text()
+    old = {(kernel, g): re.search(rf"constexpr long long k{kernel}Group{g}Max = [^;]*;",
+                                  text).group(0)
+           for kernel in ("", "Naive") for g in (2, 4)}
+    variants = {
+        name: [("perm.cu", old[(kernel, g)], f"constexpr long long k{kernel}Group{g}Max = {value};")
+               for kernel in ("", "Naive") for g, value in zip((4, 2), values)]
+        for name, values in (("g4", ("1LL << 40", "1LL << 40")), ("g2", ("0", "1LL << 40")),
+                             ("g1", ("0", "0")))
+    }
+    for name in ("g4", "g2"):
+        variants[f"{name}w"] = variants[name] + [("perm.cuh", ROW4_SHARE, ROW4_WHOLE)]
+    return variants
+
+
+# naive's row 4 as every lane's whole row (5 products), in place of the
+# sources' share a lane summed over the group by exchanges plus m[4][4] x4
+# (2 products at 4 lanes), with the group forced (group_variants).
+ROW4_SHARE = """#pragma unroll 1
+    for (int k = 0; k < kOwn; ++k) {
+      uint32_t t[kLimbs];
+      mont_mul(t, g.own[l][k], g_mds[4][g.lane(l) + G * k]);
+      if (k == 0) copy(part[l], t); else add_mod(part[l], part[l], t);
+    }
+#pragma unroll 1
+    for (int k = 0; k < kOwn; ++k) row_dot<kWidth>(g.own[l][k], g_mds[g.lane(l) + G * k], all[l]);
+  }
+#pragma unroll
+  for (int mask = 1; mask < G; mask <<= 1) {
+    lanes_xor<G>(other, part, mask);
+    HADES_EACH_LANE(l) add_mod(part[l], part[l], other[l]);
+  }
+  HADES_EACH_LANE(l) {
+    uint32_t t[kLimbs];
+    mont_mul(t, all[l][4], g_mds[4][4]);
+    add_mod(g.s4[l], part[l], t);
+  }
+}"""
+ROW4_WHOLE = """#pragma unroll 1
+    for (int k = 0; k < kOwn; ++k) row_dot<kWidth>(g.own[l][k], g_mds[g.lane(l) + G * k], all[l]);
+    row_dot<kWidth>(g.s4[l], g_mds[4], all[l]);
+  }
+  (void)part;
+  (void)other;
+}"""
 
 HYBP = "perm_hybp.cu"
 HYBP_SECTIONS = ["consumer: kernel", "consumer: wait for a job's sums", "consumer: small dot",
@@ -194,8 +245,8 @@ HYBP_PATCHES = [
      PROF_HEAD.replace("g_clk[8]", "g_clk[16]")
      .replace("threadIdx.x == 0", "threadIdx.x == 0 || threadIdx.x == 128")
      + "\nnamespace hades {\n\nconstexpr int kLimbs"),
-    (HYBP, "  hybp::ConsumerDot d{smem, bars, t, nullptr, 0, 0};",
-     "  PROF(0);\n  hybp::ConsumerDot d{smem, bars, t, nullptr, 0, 0};"),
+    (HYBP, "  ConsumerDot<kSplit> d{smem, bars, t, nullptr, 0, 0};",
+     "  PROF(0);\n  ConsumerDot<kSplit> d{smem, bars, t, nullptr, 0, 0};"),
     (HYBP, "    mbar_wait(bars + kBarFull + buf, (q >> 1) & 1);\n    int32_t* c = sums(buf);",
      "    { PROF(1); mbar_wait(bars + kBarFull + buf, (q >> 1) & 1); }\n    int32_t* c = sums(buf);"),
     (HYBP, "      __syncwarp();  // the warp's puts of s_{q-1}",
@@ -443,8 +494,25 @@ DENSE_VARIANTS = {
   }""")],
 }
 
-COMPARE = {"perm.cu": ("naive", "opt"), "perm_hyb.cu": ("hyb",), "perm_hyb13.cu": ("hyb13", "hybp13"),
-           HYBP: ("hybp",)}
+# Part 7: the one-thread-a-state `naive` kernel with its round's loops
+# rolled, which tests whether instruction fetch holds it back: a full round's
+# 40 inlined products are some 16 k instructions.
+MDS_ROWS_OLD = """#pragma unroll
+  for (int k = 0; k < kWidth; ++k) {
+    mont_mul(out[k], s[0], c_mds[k][0]);"""
+FULL_WORDS_OLD = """                         const uint32_t ark[kWidth][kLimbs]) {
+#pragma unroll
+  for (int w = 0; w < kWidth; ++w) {"""
+LOOP_VARIANTS = {
+    "loop_base": [],
+    "loop_mdsrows1": [("perm.cuh", MDS_ROWS_OLD, MDS_ROWS_OLD.replace("unroll", "unroll 1"))],
+    "loop_fullwords1": [("perm.cuh", FULL_WORDS_OLD, FULL_WORDS_OLD.replace("unroll", "unroll 1"))],
+    "loop_both": [("perm.cuh", MDS_ROWS_OLD, MDS_ROWS_OLD.replace("unroll", "unroll 1")),
+                  ("perm.cuh", FULL_WORDS_OLD, FULL_WORDS_OLD.replace("unroll", "unroll 1"))],
+}
+
+COMPARE = {"perm.cu": ("opt",), HYBP: ("hybp",), "perm_mxu8.cu": ("mxu8",),
+           "perm_mxu.cu": ("mxu",), "perm_hyb13.cu": ("hyb13", "hybp13")}
 
 
 def start_variant(name: str, patches, flags, source: str, csrc: Path | None = None):
@@ -553,7 +621,7 @@ def part1(smi: str) -> None:
             fns = re.split(r"\n\s*Function : ", sass)
             for body in fns[1:]:
                 fname = body.split("\n", 1)[0].strip()
-                ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)", body)
+                ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)", body)
                 hist: dict[str, int] = {}
                 for op in ops:
                     key = op.split(".")[0] + (".WIDE" if ".WIDE" in op else "")
@@ -562,6 +630,43 @@ def part1(smi: str) -> None:
                 say(f"[probe] SASS {fname}: {len(ops)} instructions; {top}")
                 if "probe_one_mul" in fname:
                     (REPORTS / "probe_one_mul.sass").write_text(body)
+
+
+def sass_sizes(lib_path: Path) -> dict[str, int]:
+    """Each kernel of a library by its instruction count (`cuobjdump -sass`)."""
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass", str(lib_path)],
+                          capture_output=True, text=True).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)", body)
+        out[body.split("\n", 1)[0].strip()] = len(ops)
+    return out
+
+
+def part7(smi: str) -> None:
+    """The naive kernel's loop shapes: instructions, registers and times."""
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    tables = perm_cuda.kernel_tables()
+    stream = torch.cuda.current_stream().cuda_stream
+    for name in LOOP_VARIANTS:
+        lib, report = finish_variant(name, STARTED[name])
+        if lib is None:
+            continue
+        lib.hades_init.argtypes = [p, i64]
+        if lib.hades_init(tables.ctypes.data, tables.size) != 0:
+            say(f"[probe] variant {name}: hades_init failed")
+            continue
+        sizes = {k: v for k, v in sass_sizes(OUT / name / f"lib{name}.so").items() if "naive" in k}
+        say(f"[probe] {name}: ptxas {ptxas(report)}; SASS instructions {sizes}")
+        fn = lib.hades_perm_naive_launch
+        fn.argtypes = [p, p, i64, i32, p]
+        if name == "loop_base":
+            BASE["naive"] = fn
+        for b in (1 << 10, 1 << 14):
+            x = states(b, 7)
+            out = torch.empty_like(x)
+            ms = cuda_ms(lambda: fn(x.data_ptr(), out.data_ptr(), b, 0, stream))
+            say(f"[probe] {name} naive B={b}: {ms:.4f} ms, {ms / b * (1 << 14):.4f} ms a 2^14 | {smi}")
 
 
 def part2(smi: str) -> None:
@@ -615,8 +720,8 @@ def part3(smi: str) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     tables = perm_cuda.kernel_tables()
     stream = torch.cuda.current_stream().cuda_stream
-    naive = None
-    for name in GROUP_VARIANTS:
+    ref = None  # an opt launch: the reference of naive's forced groups and of the chains
+    for name in group_variants():
         lib, report = finish_variant(name, STARTED[name])
         if lib is None:
             continue
@@ -624,45 +729,56 @@ def part3(smi: str) -> None:
         if lib.hades_init(tables.ctypes.data, tables.size) != 0:
             say(f"[probe] variant {name}: hades_init failed")
             continue
-        fn = lib.hades_perm_opt_launch
-        fn.argtypes = [p, p, i64, i32, p]
-        naive = naive or lib.hades_perm_naive_launch
-        naive.argtypes = [p, p, i64, i32, p]
-        for b in (1 << 10, 1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16, 1 << 18):
-            x = states(b, 1)
-            out = torch.empty_like(x)
-            ms = cuda_ms(lambda: fn(x.data_ptr(), out.data_ptr(), b, 0, stream))
-            say(f"[probe] opt {name} B={b}: {ms:.4f} ms, {ms / b * (1 << 14):.4f} ms a 2^14 | {smi}")
+        sizes = {k: v for k, v in sass_sizes(OUT / name / f"lib{name}.so").items()
+                 if "hades_perm" in k}
+        say(f"[probe] {name}: ptxas {ptxas(report)}; SASS instructions {sizes}")
+        for kernel in ("opt", "naive"):
+            fn = getattr(lib, f"hades_perm_{kernel}_launch")
+            fn.argtypes = [p, p, i64, i32, p]
+            ref = ref or (fn if kernel == "opt" else None)
+            for b in (1 << 10, 1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16, 1 << 18):
+                x = states(b, 1)
+                out, want = torch.empty_like(x), torch.empty_like(x)
+                ms = cuda_ms(lambda: fn(x.data_ptr(), out.data_ptr(), b, 0, stream))
+                ref(x.data_ptr(), want.data_ptr(), b, 0, stream)
+                torch.cuda.synchronize()
+                same = "==" if torch.equal(out, want) else "!="
+                say(f"[probe] {kernel} {name} B={b}: {ms:.4f} ms, {ms / b * (1 << 14):.4f} ms a "
+                    f"2^14; outputs {same} opt | {smi}")
     lib, report = finish_variant("hybpclk", STARTED["hybpclk"])
-    if lib is None or naive is None:
+    if lib is None or ref is None:
         return
     say(f"[probe] hybpclk: ptxas {ptxas(report)}")
-    fn = lib.hades_perm_hybp_launch
-    fn.argtypes = [p, p, i64, i32, p, p, p, p, p]
-    tabs = [torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
-            for t in (*perm_cuda.hyb_kernel_tables("hybp"), perm_cuda.packed_weights())]
-    for b in (1 << 10, 1 << 14):
-        x = states(b, 3)
-        out, want = torch.empty_like(x), torch.empty_like(x)
+    for kernel in ("hybp", "hyb"):
+        fn = getattr(lib, f"hades_perm_{kernel}_launch")
+        fn.argtypes = [p, p, i64, i32, p, p, p, p, p]
+        tabs = [torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
+                for t in (*perm_cuda.hyb_kernel_tables(kernel), perm_cuda.packed_weights(kernel))]
+        for b in (1 << 10, 1 << 14):
+            x = states(b, 3)
+            out, want = torch.empty_like(x), torch.empty_like(x)
 
-        def launch():
-            return fn(x.data_ptr(), out.data_ptr(), b, 0, *(t.data_ptr() for t in tabs), stream)
+            def launch():
+                return fn(x.data_ptr(), out.data_ptr(), b, 0, *(t.data_ptr() for t in tabs),
+                          stream)
 
-        naive(x.data_ptr(), want.data_ptr(), b, 0, stream)
-        if launch() != 0:
-            say("[probe] hybpclk: the launch failed; skipped")
-            return
-        torch.cuda.synchronize()
-        ok = torch.equal(out, want)
-        clk = (ctypes.c_ulonglong * 16)()
-        lib.hades_prof_read(clk)  # the first launch's
-        ms = cuda_ms(launch, reps=3)
-        lib.hades_prof_read(clk)
-        per = [c / (4 * -(-b // 64)) for c in clk]  # warm-up + 3 timed launches
-        say(f"[probe] hybpclk hybp B={b}: outputs {'==' if ok else '!='} naive; {ms:.4f} ms "
-            f"instrumented | {smi}")
-        for name, c in zip(HYBP_SECTIONS, per):
-            say(f"[probe]   {name}: {c:,.0f} clocks a block")
+            ref(x.data_ptr(), want.data_ptr(), b, 0, stream)
+            if launch() != 0:
+                say(f"[probe] hybpclk {kernel}: the launch failed; skipped")
+                break
+            torch.cuda.synchronize()
+            ok = torch.equal(out, want)
+            clk = (ctypes.c_ulonglong * 16)()
+            lib.hades_prof_read(clk)  # the first launch's
+            ms = cuda_ms(launch, reps=3)
+            lib.hades_prof_read(clk)
+            per = [c / (4 * -(-b // 64)) for c in clk]  # warm-up + 3 timed launches
+            say(f"[probe] hybpclk {kernel} B={b}: outputs {'==' if ok else '!='} opt; {ms:.4f} ms "
+                f"instrumented | {smi}")
+            for i, (name, c) in enumerate(zip(HYBP_SECTIONS, per)):
+                side = per[0] if i < 8 else per[8]  # the consumer's sections, then the producer's
+                say(f"[probe]   {kernel} {name}: {c:,.0f} clocks a block "
+                    f"({c / max(side, 1):.3f} of its side's)")
 
 
 def part4(smi: str) -> None:
@@ -761,11 +877,16 @@ def part5(smi: str) -> None:
                     lib.hades_init(tables.ctypes.data, tables.size)
                     fn.argtypes = [p, p, i64, i32, p]
                     args = ()
+                elif kernel in ("mxu8", "mxu"):
+                    tabs = [torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
+                            for t in perm_cuda.dense_kernel_tables(kernel)]
+                    fn.argtypes = [p, p, i64, i32, p, p, p]
+                    args = tuple(t.data_ptr() for t in tabs)
                 else:
                     tabs = [torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
                             for t in perm_cuda.hyb_kernel_tables(kernel.removesuffix("13"))]
-                    if kernel == "hybp":
-                        tabs.append(torch.from_numpy(perm_cuda.packed_weights()).cuda())
+                    if kernel in ("hyb", "hybp"):
+                        tabs.append(torch.from_numpy(perm_cuda.packed_weights(kernel)).cuda())
                         fn.argtypes = [p, p, i64, i32, p, p, p, p, p]
                         args = tuple(t.data_ptr() for t in tabs)
                     else:
@@ -831,15 +952,20 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     OUT.mkdir(parents=True, exist_ok=True)
     parts = sys.argv[sys.argv.index("--parts") + 1].split(",") if "--parts" in sys.argv \
-        else ["1", "2", "3", "4", "5", "6"]
-    # every variant's compiler at once: one takes a minute or two
-    if "1" in parts or "2" in parts:  # part 2 checks against part 1's naive
+        else ["1", "2", "3", "4", "5", "6", "7"]
+    # every variant's compiler at once: one takes a minute or two. Part 2
+    # checks against the unpatched naive of part 1 or part 7.
+    part1_runs = "1" in parts or ("2" in parts and "7" not in parts)
+    if part1_runs:
         for name, (patches, flags) in PERM_VARIANTS.items():
             STARTED[name] = start_variant(name, patches, flags, "perm.cu")
+    if "7" in parts:
+        for name, patches in LOOP_VARIANTS.items():
+            STARTED[name] = start_variant(name, patches, [], "perm.cu")
     if "2" in parts:
         STARTED["hybclk"] = start_variant("hybclk", HYB_PATCHES, [], "perm_hyb.cu")
     if "3" in parts:
-        for name, patches in GROUP_VARIANTS.items():
+        for name, patches in group_variants().items():
             STARTED[name] = start_variant(name, patches, [], "perm.cu", _build.CSRC)
         STARTED["hybpclk"] = start_variant("hybpclk", HYBP_PATCHES, [], HYBP, _build.CSRC)
     if "4" in parts:
@@ -861,8 +987,10 @@ def main() -> int:
             for tag, tree in (("parent", CSRC), ("change", _build.CSRC)):
                 STARTED[f"{tag}_{Path(source).stem}"] = start_variant(
                     f"{tag}_{Path(source).stem}", [], [], source, tree)
-    if "1" in parts or "2" in parts:
+    if part1_runs:
         part1(smi)
+    if "7" in parts:
+        part7(smi)
     if "2" in parts:
         part2(smi)
     if "3" in parts:
@@ -874,7 +1002,7 @@ def main() -> int:
     if "6" in parts:
         part6(smi)
     REPORTS.mkdir(parents=True, exist_ok=True)
-    name = "probe_chains.txt" if len(parts) == 6 else f"probe_chains_{'_'.join(parts)}.txt"
+    name = "probe_chains.txt" if len(parts) == 7 else f"probe_chains_{'_'.join(parts)}.txt"
     (REPORTS / name).write_text("\n".join(LINES) + "\n")
     return 0
 
