@@ -17,18 +17,15 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      answers);
   4. holds each kernel against its plain PyTorch version on the card at
      B = 2^14, 4096 and a ragged 1000, both `convert` values, and `naive`,
-     `opt`, `mxu8`, `mxu` and `hyb` at the first Merkle level's B = 2^18 on
-     the Montgomery path; the redesigned kernels, `naive` and `opt` (a
-     group of lanes a state), `hyb` and `hybp` (64 states a block), `mxu8`
-     and `mxu` (a warpgroup of 128), also at B = 1, 5, 127, 129 and 2^14 +
-     1, where `opt` is held against the native engine too (built here: an
-     engine that does not build fails the run); and holds every tensor-core
-     tile product a kernel runs against a float64 matmul: the MDS products
-     of `mxu8` (u8 wgmma) and `mxu` (bf16 wgmma, float32 sums) with w_lin
-     and with all-255 operands at 320 x 160, the largest sum they can meet,
-     the block tile product of `hyb13` and `hybp13` with w_lin, w_pp and
-     w_p, and their wide one at K = 1024, 2048 and 2080 with the chain's
-     own weights;
+     `opt`, `mxu8`, `mxu`, `hyb`, `hyb13` and `hybp13` at the first Merkle
+     level's B = 2^18 on the Montgomery path; every kernel, `naive` and
+     `opt` (a group of lanes a state), `hyb`, `hybp`, `hyb13` and `hybp13`
+     (64 states a block), `mxu8` and `mxu` (a warpgroup of 128), also at
+     B = 1, 5, 127, 129 and 2^14 + 1, where `opt` is held against the
+     native engine too (built here: an engine that does not build fails the
+     run); and holds the MDS products of `mxu8` (u8 wgmma) and `mxu` (bf16
+     wgmma, float32 sums) against a float64 matmul with w_lin and with
+     all-255 operands at 320 x 160, the largest sum they can meet;
   5. builds the arity-4 Merkle root over 2^20 seeded leaves through
      `merkle_root` (BASELINE config 4) with the default `opt` kernel, and
      over their first 2^16 with the `opt`, `naive` and `mxu8` kernels, and
@@ -73,9 +70,8 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      device-to-host copies and file writes is a number), and the `naive`
      cross-check tree over 2^16 leaves beside `opt`'s, with CUDA events
      (median of 5 after a warm-up), and works out each kernel's bound: the
-     least time the card could take for the same states (`bound`); the
-     redesigned kernels (all but `hyb13` and `hybp13`) also at B = 2^10,
-     2^16 and 2^18.
+     least time the card could take for the same states (`bound`); every
+     kernel also at B = 2^10, 2^16 and 2^18.
 
 Each path of phases 5-7b runs with the launch counts set to 0 just before
 it and read just after; the kernels' JSON line reports their sum. The
@@ -87,7 +83,8 @@ single PyTorch call computes a 255-bit modular permutation, so the line's
 With `--profile` it also traces one warm call of the tree, the sponge and
 the cipher through `opt`, of the 2^16-leaf tree through `naive` and `opt`,
 of the cipher through `mxu8`, of each of the
-openings' paths and of the checkpointed build (through `mxu`) with
+openings' paths, of the checkpointed build (through `mxu`) and of its two
+resumes (through `hyb13` and `hybp13`, the damage included) with
 `torch.profiler` (phase 9) and prints, per path, the span of
 its device work, the time the device was busy, the idle share, the
 permutation kernel's share and the plain-torch glue's.
@@ -125,7 +122,7 @@ from hades252_tpu_torch import selftest
 from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import _build, make_perm_mont_fn, perm_cuda
 from hades252_tpu_torch import field
-from hades252_tpu_torch.params import HYB_N_BASIS, P, WIDTH, hyb_tables, mxu8_tables
+from hades252_tpu_torch.params import P, WIDTH, mxu8_tables
 from hades252_tpu_torch.strategy import ScalarStrategy
 from hades252_tpu_torch.utils import checkpoint, native
 from hades252_tpu_torch.utils.encoding import digits_to_ints
@@ -145,8 +142,8 @@ SOURCES = {
     "hyb": "hades252_tpu_torch/ops/csrc/perm_hybp.cu",
     "hybp": "hades252_tpu_torch/ops/csrc/perm_hybp.cu",
     "mxu": "hades252_tpu_torch/ops/csrc/perm_mxu.cu",
-    "hyb13": "hades252_tpu_torch/ops/csrc/perm_hyb13.cu",
-    "hybp13": "hades252_tpu_torch/ops/csrc/perm_hyb13.cu",
+    "hyb13": "hades252_tpu_torch/ops/csrc/perm_hybp.cu",
+    "hybp13": "hades252_tpu_torch/ops/csrc/perm_hybp.cu",
 }
 REPLACES = {
     "naive": "hades252_tpu/ops/perm_pallas.py:330 (_perm_kernel)",
@@ -159,11 +156,11 @@ REPLACES = {
     "hybp13": "hades252_tpu/ops/perm_pallas.py:945 (_perm_kernel_hybp, sbox13=True)",
 }
 # naive and opt run 4 lanes a state, 32 states a block (one thread a state
-# above 2^14), hyb and hybp 64 states a block, mxu8 and mxu one warpgroup of
-# 128: batches that end inside a group, a warp, a warpgroup or a block
+# above 2^14), hyb, hybp, hyb13 and hybp13 64 states a block, mxu8 and mxu
+# one warpgroup of 128: batches that end inside a group, a warp, a
+# warpgroup or a block
 RAGGED = (1, 5, 127, 129, PERM_BATCH + 1)
-REDESIGNED = ("naive", "opt", "hyb", "hybp", "mxu8", "mxu")
-TIMED_SIZES = (1 << 10, 1 << 16, 1 << 18)   # beside PERM_BATCH, for the redesigned kernels
+TIMED_SIZES = (1 << 10, 1 << 16, 1 << 18)   # beside PERM_BATCH
 CKPT_KEEP = 4               # the damage: level files above it go, its own is cut short
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): dense int8 and
@@ -233,7 +230,7 @@ def bound(schedule: str, b: int) -> dict:
     (ii) the 32-bit integer operations of its
     CUDA-core work over the int32 rate, and (iii) its bytes over the memory
     rate. Counted per state from the sources (csrc/field.cuh, perm.cuh,
-    perm_mxu8.cuh, perm_hyb.cuh):
+    perm_dense.cuh, perm_hybp.cuh):
 
     - a Montgomery product is 136 multiply-adds: 64 for a b and 72 for the
       reduction (8 steps of 6 multiply-adds by the limbs of p that are not 1
@@ -244,23 +241,18 @@ def bound(schedule: str, b: int) -> dict:
       984 modular adds of 16 adds and subtracts. What opt's lanes compute
       twice over is the kernel's choice, not work the function needs;
     - the byte-dot kernels run 99 S-boxes of two 36- and one 64-multiply-add
-      raw product and the 10 conversion products; each REDC (632 in mxu8, 401
-      in the chained kernels) is a (32, 32) and a (63, 32) dot, 2 adds for
-      each of their 95 recombined columns, the 16-limb sum and a 9-limb
-      subtract; an MDS dot is (315, 160), round r of the chain (63, 32 (6 +
-      r)), the exit (315, 2080), each with 2 adds per recombined column;
-      hybp13, in the first port's shape, adds a 17-limb sum to 58 rounds;
-      the chain's 64 big REDCs end in five 9-limb subtracts;
-    - the REDCs of hyb, hybp, mxu8 and mxu run on the CUDA cores: their
-      dots leave the tensor cores' count, which keeps the MDS dots (and the
-      chain of hyb and hybp), and 72 multiply-adds and the 9-limb subtract a
-      REDC enter the cores'; hybp's small dot adds onto the big one's sums
-      in the MMA, so hyb's count is hybp's;
+      raw product and the 10 conversion products; every REDC (632 in mxu8
+      and mxu, 401 in the chained kernels) runs on the CUDA cores, 72
+      multiply-adds and a 9-limb subtract; the tensor cores run the dots
+      with constant weights: an MDS dot is (315, 160), round r of the chain
+      (63, 32 (6 + r)), the exit (315, 2080), each with 2 adds per
+      recombined column on the cores; the chain's 64 big REDCs end in five
+      9-limb subtracts; hybp's small dot adds onto the big one's sums in the
+      MMA, so hyb's count is hybp's;
     - mxu runs mxu8's schedule: the same counts, its MDS dots at the bf16
       rate (widening the bytes is the kernel's choice, not work the function
       needs);
-    - hyb13 and hybp13 run the first port's block (every REDC as two dots)
-      with the base-2^13 S-box,
+    - hyb13 and hybp13 run hyb's and hybp's work with the base-2^13 S-box,
       1,420 operations in place of 136: 2 x 210 + 400 narrow multiply-adds, 2 x
       39 column doublings, 4 x 20 digit windows of 3 operations (shift,
       merge, mask), and for each of the 3 products 39 shift-and-adds of two
@@ -283,17 +275,12 @@ def bound(schedule: str, b: int) -> dict:
             else 2 * 36 + 64
         redcs = 3 * sboxes + 5 * dense + (chain + 5 if chain else 0)
         dot_cols = 5 * 63 * dense + (63 * (chain + 5) if chain else 0)
-        redc_on_cores = schedule in ("hyb", "hybp", "mxu8", "mxu")
-        tensor = dense * 315 * 160 + (0 if redc_on_cores else redcs * (32 * 32 + 63 * 32))
-        cores = (sboxes * sbox_ops + 10 * 136
-                 + redcs * (72 + 9 if redc_on_cores else 2 * 95 + 16 + 9)
-                 + 2 * dot_cols + 16 * 5 * dense)
+        tensor = dense * 315 * 160
+        cores = sboxes * sbox_ops + 10 * 136 + redcs * (72 + 9) + 2 * dot_cols + 16 * 5 * dense
         if chain:
             tensor += sum(63 * 32 * (6 + r) for r in range(chain)) + 315 * 2080
             cores += (chain + 5) * 5 * 9
-        if schedule == "hybp13":
-            cores += (chain - 1) * (2 * 63 + 17)
-        tables = (perm_cuda.hyb_kernel_tables(schedule) if chain
+        tables = (perm_cuda.hyb_kernel_tables(base) if chain
                   else perm_cuda.dense_kernel_tables(schedule))
         table_bytes = sum(t.nbytes for t in tables)
     tensor_rate = BF16_OPS_PER_S if schedule == "mxu" else INT8_OPS_PER_S
@@ -453,10 +440,11 @@ def run(ckpt_root: str) -> int:
 
     # 4. kernel vs plain: the sponge's, cipher's and openings' batch, the
     # first Merkle level's batch on the Montgomery path the models use
-    # (naive, opt, mxu8, mxu and hyb; hybp covers it through its own
-    # 2^20-leaf tree in phase 5), 4096 and a ragged 1000 (the tail mask)
+    # (every kernel but hybp, which covers it through its own 2^20-leaf tree
+    # in phase 5), 4096 and a ragged 1000 (the tail mask)
     cases = [(PERM_BATCH, (True, False), perm_cuda.SCHEDULES),
-             (MERKLE_LEAVES // merkle.ARITY, (False,), ("naive", "opt", "mxu8", "mxu", "hyb")),
+             (MERKLE_LEAVES // merkle.ARITY, (False,),
+              ("naive", "opt", "mxu8", "mxu", "hyb", "hyb13", "hybp13")),
              (4096, (True, False), perm_cuda.SCHEDULES),
              (1000, (True, False), perm_cuda.SCHEDULES)]
     max_err = {s: 0 for s in perm_cuda.SCHEDULES}
@@ -472,7 +460,7 @@ def run(ckpt_root: str) -> int:
         log(f"[plain] {', '.join(schedules)} kernels == plain versions at B = {b}, "
             f"convert in {converts}")
 
-    # the ragged edges of the redesigned kernels, and opt against the native
+    # the ragged edges of every kernel, and opt against the native
     # engine's sparse schedule (the second, independent reference)
     t0 = time.perf_counter()
     native._lib()  # raises NativeUnavailable where it cannot be built
@@ -480,7 +468,7 @@ def run(ckpt_root: str) -> int:
     for b in RAGGED:
         states = random_elements((b, WIDTH), rng)
         x = torch.from_numpy(states.transpose(1, 2, 0).copy()).to(dev)
-        for schedule in REDESIGNED:
+        for schedule in perm_cuda.SCHEDULES:
             for convert in (True, False):
                 got = perm_cuda.permute_planar(x, convert=convert, schedule=schedule)
                 want = plain_planar(x, convert=convert, schedule=schedule)
@@ -490,17 +478,15 @@ def run(ckpt_root: str) -> int:
         got = perm_cuda.permute_planar(x, schedule="opt").permute(2, 0, 1).cpu().numpy()
         check(np.array_equal(native.perm_batch_digits(states), got),
               f"opt kernel != native engine at B={b}")
-    log(f"[plain] {', '.join(REDESIGNED)} kernels == plain versions at B in {RAGGED}, both "
+    log(f"[plain] {', '.join(perm_cuda.SCHEDULES)} kernels == plain versions at B in {RAGGED}, both "
         "convert values; opt kernel == native engine there")
 
     # the dense kernels' MDS products (warpgroup wgmma, u8 and bf16) against
     # a float64 matmul with w_lin and seeded byte rows at the main path's
     # batch, and with all-255 operands at K = 160: the largest sum,
     # 10,404,000, must come out of the bf16 product's f32 accumulation
-    # exactly; then the block-wide tile product that hyb13 and hybp13 still
-    # run, with w_lin, w_pp and w_p
-    tables = mxu8_tables()
-    w = torch.from_numpy(tables["w_lin"]).to(dev)
+    # exactly
+    w = torch.from_numpy(mxu8_tables()["w_lin"]).to(dev)
     xb = torch.from_numpy(rng.integers(0, 256, (w.shape[1], PERM_BATCH), dtype=np.uint8)).to(dev)
     ones = torch.full((320, 160), 255, dtype=torch.uint8, device=dev)
     ones_x = torch.full((160, PERM_BATCH), 255, dtype=torch.uint8, device=dev)
@@ -509,28 +495,8 @@ def run(ckpt_root: str) -> int:
               f"{name} MDS product with w_lin != float64 matmul")
         check(bool((dot(ones, ones_x) == 160 * 255 * 255).all()),
               f"{name} MDS product of all-255 operands")
-    for key in ("w_lin", "w_pp", "w_p"):
-        wk = torch.from_numpy(tables[key]).to(dev)
-        xk = torch.from_numpy(rng.integers(0, 256, (wk.shape[1], PERM_BATCH), dtype=np.uint8)).to(dev)
-        check(torch.equal(perm_cuda.block_dot(wk, xk).double(),
-                          torch.matmul(wk.double(), xk.double())),
-              f"block tile product with {key} != float64 matmul")
     log(f"[plain] mxu8 (u8) and mxu (bf16) MDS products == float64 matmul for w_lin x {PERM_BATCH} "
-        f"columns, and all-255 at 320 x 160 gives {160 * 255 * 255} everywhere; the block tile "
-        f"product of hyb13, hybp13 == float64 matmul for w_lin, w_pp, w_p")
-
-    # the wide tile product of hyb13 and hybp13, whose K loop reads both
-    # operands from global memory: the last round of each segment and the
-    # exit map
-    chain = hyb_tables()
-    for key, w in (("w_seg1", chain["w_seg1"][-1]), ("w_seg2", chain["w_seg2"][-1]),
-                   ("w_out", chain["w_out"][:, : 32 * HYB_N_BASIS])):
-        w = torch.from_numpy(w).to(dev)
-        xb = torch.from_numpy(rng.integers(0, 256, (w.shape[1], PERM_BATCH), dtype=np.uint8)).to(dev)
-        check(torch.equal(perm_cuda.hyb_dot(w, xb).double(), torch.matmul(w.double(), xb.double())),
-              f"wide tile product with {key} != float64 matmul")
-    log(f"[plain] wide tile product == float64 matmul at K = 1024, 2048, 2080 x {PERM_BATCH} "
-        "columns")
+        f"columns, and all-255 at 320 x 160 gives {160 * 255 * 255} everywhere")
 
     # 5a. Merkle checks against the plain version and the int oracle
     small = torch.from_numpy(random_elements((4096,), rng)).to(dev)
@@ -768,7 +734,7 @@ def run(ckpt_root: str) -> int:
             + f"; B={PERM_BATCH} | {smi}")
     for b in TIMED_SIZES:
         xb = torch.from_numpy(random_elements((WIDTH, b), rng).transpose(0, 2, 1).copy()).to(dev)
-        for schedule in REDESIGNED:
+        for schedule in perm_cuda.SCHEDULES:
             t = cuda_ms(lambda: perm_cuda.permute_planar(xb, schedule=schedule))
             bd = bound(schedule, b)["bound_ms"]
             log(f"[time] {schedule}: kernel {t:.4f} ms = {b / t * 1e3:,.0f} perms/s, "
@@ -796,9 +762,10 @@ def run(ckpt_root: str) -> int:
         f"merkle_root_checkpointed into a fresh directory (mxu): {ckpt_ms / 1e3:.6f} s/tree = "
         f"{MERKLE_LEAVES / ckpt_ms * 1e3:,.0f} leaves/s; the fingerprint, {levels} copies to "
         f"the host and {levels} files cost {(ckpt_ms - tree_ms) / 1e3:.6f} s | {smi}")
-    resume_ms = cuda_ms(resume(hyb13_fn))
-    log(f"[time] resume from level {CKPT_KEEP - 1} (hyb13, {resumed} launches, damage included): "
-        f"{resume_ms / 1e3:.6f} s | {smi}")
+    for schedule, fn in (("hyb13", hyb13_fn), ("hybp13", hybp13_fn)):
+        resume_ms = cuda_ms(resume(fn))
+        log(f"[time] resume from level {CKPT_KEEP - 1} ({schedule}, {resumed} launches, damage "
+            f"included): {resume_ms / 1e3:.6f} s | {smi}")
     open_ms = cuda_ms(open_many)
     log(f"[time] merkle_open_batched {OPENINGS} of 2^20: {open_ms:.3f} ms = "
         f"{OPENINGS / open_ms * 1e3:,.0f} openings/s | {smi}")
@@ -832,7 +799,9 @@ def run(ckpt_root: str) -> int:
                          (f"merkle_verify_batched {OPENINGS} (hybp)", verify_many(hybp_fn)),
                          (f"merkle_verify_batched {OPENINGS} (hyb)", verify_many(hyb_fn)),
                          (f"merkle_verify_batched {OPENINGS} (opt)", verify_many(None)),
-                         ("merkle_root_checkpointed 2^20 (mxu)", checkpointed_build)):
+                         ("merkle_root_checkpointed 2^20 (mxu)", checkpointed_build),
+                         (f"resume from level {CKPT_KEEP - 1} (hyb13)", resume(hyb13_fn)),
+                         (f"resume from level {CKPT_KEEP - 1} (hybp13)", resume(hybp13_fn))):
             profile_path(f"{name} | {smi}", fn)
 
     kernels = [

@@ -116,17 +116,10 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     # the chain's weights and their packed copy besides; the basis is in
     # shared memory: no scratch
-    for name in ("hades_perm_hyb_launch", "hades_perm_hybp_launch"):
+    for name in ("hades_perm_hyb_launch", "hades_perm_hybp_launch", "hades_perm_hyb13_launch",
+                 "hades_perm_hybp13_launch"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, i64, i32, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-    for name in ("hades_perm_hyb13_launch", "hades_perm_hybp13_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, i64, i32, p, p, p, p, i64, p]
-        fn.restype = ctypes.c_int
-    for name in ("hades_block_dot_launch", "hades_hyb_dot_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, i32, i32, i64, p]
         fn.restype = ctypes.c_int
     for name in ("hades_mxu8_dot_launch", "hades_mxu_dot_launch"):
         fn = getattr(lib, name)

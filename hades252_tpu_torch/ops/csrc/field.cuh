@@ -336,6 +336,91 @@ HADES_FN void sbox(uint32_t r[kLimbs], const uint32_t x[kLimbs]) {
   mont_mul(r, x4, x);
 }
 
+// ---------------------------------------------------------------------------
+// The S-box's raw products in base-2^13 digits, for the hyb13 and hybp13
+// kernels (hades252_tpu/ops/perm_pallas.py: _to13 :181, _mul13_cols :195,
+// _sqr13_cols :208, _cols13_to16 :225). A value below 2^256 is 20 digits of
+// 13 bits; a raw product of two digits is below 2^26, so a column of the
+// schoolbook sums up to 20 of them in 32 bits with no lo/hi split and no
+// carry: below 20 * 2^26 < 2^31 for a product, and for a square (the
+// off-diagonal sum doubled, plus the diagonal) below 21 * 2^26 < 2^31.
+// ---------------------------------------------------------------------------
+constexpr int kD13 = 20;
+constexpr uint32_t kMask13 = (1u << 13) - 1;
+
+// d <- the 20 thirteen-bit digits of a (8 limbs): bit windows, each over
+// at most two limbs. a may be any value below 2^256.
+HADES_FN void to13(uint32_t d[kD13], const uint32_t a[kLimbs]) {
+#pragma unroll
+  for (int k = 0; k < kD13; ++k) {
+    const int j = (13 * k) / 32, r = (13 * k) % 32;
+    uint32_t v = a[j] >> r;
+    if (r + 13 > 32 && j + 1 < kLimbs) v |= a[j + 1] << (32 - r);
+    d[k] = v & kMask13;
+  }
+}
+
+// t = a b exactly, 16 limbs, from 13-bit digits: 400 raw products (210 for
+// kSquare, whose caller passes a for b), a column at a time. Column k sits
+// at bit 13 k and goes straight into the limbs through a 64-bit
+// accumulator, so the 39 columns are never live together and there is no
+// 16-bit column stage. The accumulator holds the columns so far, shifted
+// down by the limbs already written: below 2^(31 + 13k mod 32 + 1) <= 2^63.
+template <bool kSquare>
+HADES_FN void mul13(uint32_t t[2 * kLimbs], const uint32_t a[kD13], const uint32_t b[kD13]) {
+  uint64_t acc = 0;
+#pragma unroll
+  for (int k = 0; k < 2 * kD13 - 1; ++k) {
+    uint32_t col = 0;
+#pragma unroll
+    for (int i = 0; i < kD13; ++i) {
+      const int j = k - i;
+      if (kSquare ? (i < j && j < kD13) : (j >= 0 && j < kD13)) col += a[i] * b[j];
+    }
+    if (kSquare) {
+      col += col;
+      if (k % 2 == 0) col += a[k / 2] * a[k / 2];
+    }
+    const int limb = (13 * k) / 32, prev = k ? (13 * (k - 1)) / 32 : 0;
+    if (limb != prev) {
+      t[prev] = (uint32_t)acc;
+      acc >>= 32;
+    }
+    acc += (uint64_t)col << ((13 * k) % 32);
+  }
+  t[2 * kLimbs - 1] = (uint32_t)acc;  // column 38 opens limb 15; a b < 2^512
+}
+
+// x^5 = (x^2)^2 x as sbox computes it, with the three raw products in
+// base-2^13 digits (sbox13=True, perm_pallas.py:687-700). A product's value
+// is the same whichever base computes it, and each is reduced at once by
+// the same redc as mont_sqr's and mont_mul's, so x^2, x^4 and x^5 are
+// bit-identical to sbox's. x < p; r may alias x. The digits of x are
+// worked out again for the last product, not kept across two reductions.
+HADES_FN void sbox13(uint32_t r[kLimbs], const uint32_t x[kLimbs]) {
+  uint32_t a[kD13], b[kD13], t[2 * kLimbs], x4[kLimbs];
+  to13(a, x);
+  mul13<true>(t, a, a);
+  redc(x4, t);  // x^2
+  to13(a, x4);
+  mul13<true>(t, a, a);
+  redc(x4, t);
+  to13(a, x4);
+  to13(b, x);
+  mul13<false>(t, a, b);
+  redc(r, t);
+}
+
+// The S-box of a kernel: sbox, or sbox13 for hyb13 and hybp13.
+template <bool kSbox13>
+HADES_FN void sbox_of(uint32_t r[kLimbs], const uint32_t x[kLimbs]) {
+  if constexpr (kSbox13) {
+    sbox13(r, x);
+  } else {
+    sbox(r, x);
+  }
+}
+
 // Status codes of the C entry points, besides CUDA's own
 // (hades_error_string, perm.cu).
 constexpr int kErrTableSize = -1;

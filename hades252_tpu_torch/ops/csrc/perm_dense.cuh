@@ -1,7 +1,8 @@
 // The dense schedules' per-state code on this card, for the `mxu8` and `mxu`
 // kernels (perm_dense_block.cuh, perm_mxu8.cu, perm_mxu.cu), and the MDS
-// layer and full round that the `hybp` kernel's consumer shares
-// (perm_hybp.cuh). Counterparts in hades252_tpu/ops/perm_pallas.py:
+// layer and full round that the chained kernels' consumer shares
+// (perm_hybp.cuh: `hyb`, `hybp`, and `hyb13`, `hybp13` with the base-2^13
+// S-box). Counterparts in hades252_tpu/ops/perm_pallas.py:
 // _perm_kernel_mxu_impl (:731), _MxuOps (:653).
 //
 // The TPU kernel runs every constant product as a byte dot: the MDS layer
@@ -36,8 +37,9 @@ using mxu8::kLinK;
 constexpr int kT = 2 * kLimbs + 1;  // limbs of a dot's value
 
 // out <- T R^-1 mod p for a 17-limb T whose (T + M p) / R is below 2^RUNGS p
-// (perm_mxu8.cuh's redc states the bounds): the reduction on the CUDA
-// cores, then the ladder of RUNGS conditional subtracts.
+// (2 rungs after an MDS dot, T < 5p^2: (T + M p) / R < 3.3p; 5 after a
+// chain dot, T < 65p^2: < 31p): the reduction on the CUDA cores, then the
+// ladder of RUNGS conditional subtracts.
 template <int RUNGS>
 HADES_FN void redc_big(uint32_t out[kLimbs], uint32_t t[kT]) {
   redc_steps<kT>(t);
@@ -66,8 +68,9 @@ HADES_FN void mds(Dot& d, uint32_t s[kWidth][kLimbs]) {
 // One round (_MxuOps.round_fn): ARK, x^5 on every word of a full round (one copy of the S-box:
 // word 4 is S-boxed and the state rotated by a word, five times over) and on
 // word 4 of a partial one, then the MDS dot. consts opens with the
-// Montgomery ARK (kRounds x kWidth x kLimbs).
-template <class Dot>
+// Montgomery ARK (kRounds x kWidth x kLimbs). kSbox13 takes field.cuh's
+// sbox13 (hyb13, hybp13) in place of sbox.
+template <bool kSbox13 = false, class Dot>
 HADES_FN void round_fn(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ consts,
                     int r, bool full) {
 #pragma unroll
@@ -80,7 +83,7 @@ HADES_FN void round_fn(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __res
 #pragma unroll 1
   for (int i = 0; i < (full ? kWidth : 1); ++i) {
     uint32_t x[kLimbs];
-    sbox(x, s[kWidth - 1]);
+    sbox_of<kSbox13>(x, s[kWidth - 1]);
     if (full) {
 #pragma unroll
       for (int w = kWidth - 1; w > 0; --w) copy(s[w], s[w - 1]);
@@ -92,10 +95,10 @@ HADES_FN void round_fn(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __res
   mds(d, s);
 }
 
-template <class Dot>
+template <bool kSbox13 = false, class Dot>
 HADES_FN void full_round(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ consts,
                          int r) {
-  round_fn(d, s, consts, r, true);
+  round_fn<kSbox13>(d, s, consts, r, true);
 }
 
 // The 67 dense rounds (_perm_kernel_mxu_impl). consts: the Montgomery ARK,

@@ -1,16 +1,23 @@
-// The `hybp` and `hyb` schedules of the Hades252 permutation for Hopper
-// (sm_90a): one block design, two instances of it.
-//   hades_perm_hybp  <- _perm_kernel_hybp (hades252_tpu/ops/perm_pallas.py
-//                       :945), the JAX package's default schedule (kSplit)
-//   hades_perm_hyb   <- _perm_kernel_hyb  (perm_pallas.py:845)
-// Both keep what makes the schedules: the 8 full rounds with the MDS layer
+// The `hybp`, `hyb`, `hybp13` and `hyb13` schedules of the Hades252
+// permutation for Hopper (sm_90a): one block design, four instances of it.
+//   hades_perm_hybp   <- _perm_kernel_hybp (hades252_tpu/ops/perm_pallas.py
+//                        :945), the JAX package's default schedule (kSplit)
+//   hades_perm_hyb    <- _perm_kernel_hyb  (perm_pallas.py:845)
+//   hades_perm_hybp13 <- _perm_kernel_hybp with sbox13=True (kSplit, kSbox13)
+//   hades_perm_hyb13  <- _perm_kernel_hyb with sbox13=True (kSbox13)
+// All keep what makes the schedules: the 8 full rounds with the MDS layer
 // as a byte dot, the 59 partial rounds as the full-expansion chain over the
-// basis [1, x_0..x_4, s_0..s_58] (perm_hyb.cuh), each round one dot of the
+// basis [1, x_0..x_4, s_0..s_58] (perm_hybp.cuh), each round one dot of the
 // basis, a big reduction and an S-box, and the exit map. hybp splits each
 // round's dot into the big one over the older elements (params.hybp_tables)
 // and the small one of the newest element, so that round r + 1's big dot
 // can run under round r's S-box; hyb runs each round's whole dot
-// (params.hyb_tables) once the newest element is in. Every dot runs in this
+// (params.hyb_tables) once the newest element is in. The `13` instances
+// take the same tables and jobs and differ in the S-box alone: its three
+// raw products in base-2^13 digits (field.cuh: to13, mul13, sbox13;
+// _MxuOps.sbox_words :678-700), in the full rounds and the chain alike, as
+// the JAX kernels do; a product's value does not depend on its base, so
+// every output bit is the other instances'. Every dot runs in this
 // kernel's own body on the tensor cores, u8 x u8 -> s32, exact (column
 // sums < 2^28): the chain's dots and the exit as wgmma m64 n64 k32, hybp's
 // small dot and the MDS dots as mma.sync m16 n8 k32. Same interface as the
@@ -31,7 +38,10 @@
 // first port carried the TPU's shape over: every reduction as two more dots
 // between six block barriers, the basis in a scratch tensor in global
 // memory, the weights staged with the whole block stopped, and the big dot
-// and the S-box one after the other in the same warps.
+// and the S-box one after the other in the same warps. The base-2^13 S-box
+// adds to the consumer's chain: 820 narrow multiply-adds with no carry and
+// 117 shift-and-adds a call, where sbox's products are 136 wide ones with
+// carry chains; its reductions are sbox's.
 //
 // What the design does about it.
 // - The block is warp-specialised: 64 states, a producer warpgroup (threads
@@ -69,6 +79,15 @@
 //   after the one it depends on waits out its whole latency).
 // - The MDS weights (51,200 B) take the basis's place outside the chain:
 //   the producer stages them at the start and again after its last job.
+// - The base-2^13 S-box (kSbox13) is field.cuh's sbox13 in the consumer's
+//   registers: each raw product a column at a time into a 64-bit
+//   accumulator (the 39 columns are never live together), each reduced at
+//   once by the same carry chains as sbox's. It is inlined at each call
+//   site, the chain's and the full rounds' loops: one copy of it behind a
+//   __noinline__ call, and its products rolled into one loop of the
+//   general product, ran 2-9% slower at B = 2^14 (tools/probe_chains.py,
+//   part 8), and none of the shapes spilled. Instruction fetch does not
+//   hold this consumer back as it held the first port's one-thread naive.
 //
 // ptxas (-Xptxas -v, nvcc 12.9, sm_90a): hades_perm_hybp 202 registers,
 // hades_perm_hyb 198, no spill, 3 barriers; both 225,408 B of dynamic shared
@@ -78,7 +97,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_tile.cuh"
 #include "perm_hybp.cuh"
 #include "wgmma.cuh"
 
@@ -165,10 +183,18 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
 // wgmma_u8 (wgmma.cuh): the big dot's sums, 64 x 64, in the warpgroup's
 // registers, 32 a thread.
 
-// One MMA of the consumer's, m16 n8 k32, u8 x u8 -> s32, onto c. Not
-// `volatile`, as mma_tile.cuh's is: the value depends on the operands alone,
-// and the loops below hand the compiler several accumulators at once, so
-// that an MMA need not wait for the one before it.
+// One MMA of the consumer's, m16 n8 k32, u8 x u8 -> s32, onto c: C[m][n] +=
+// sum_k W[m][k] X[n][k] over a 16 x 32 tile of weights (row major) and a
+// 32 x 8 tile of byte rows. Fragments (PTX ISA), with g = lane / 4 and
+// q = lane % 4:
+//   A: a0 = W[g][4q..4q+3], a1 = W[g+8][4q..], a2 = W[g][16+4q..], a3 = W[g+8][16+4q..]
+//   B: b0 = X[n=g][4q..4q+3], b1 = X[n=g][16+4q..]
+//   C: c0 = C[g][2q], c1 = C[g][2q+1], c2 = C[g+8][2q], c3 = C[g+8][2q+1]
+// Bytes with the lower k sit in the lower bits of a register, which is how
+// a little-endian 32-bit load of 4 consecutive bytes packs them. Not
+// `volatile`: the value depends on the operands alone, and the loops below
+// hand the compiler several accumulators at once, so that an MMA need not
+// wait for the one before it.
 __device__ __forceinline__ void mma(int32_t c[4], uint32_t a0, uint32_t a1, uint32_t a2,
                                     uint32_t a3, uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
@@ -213,7 +239,7 @@ struct ConsumerDot {
   }
   // The warp's own 32 states times block k of the MDS weights: 4 column
   // tiles of 8, 4 row tiles of 16, 5 steps of 32 bytes of K; fragments as
-  // mma_tile.cuh's block_dot describes them. The sums go to buffer 0.
+  // `mma` describes them. The sums go to buffer 0.
   __device__ __forceinline__ void mds_run(int k) {
     const uint32_t* w32 = reinterpret_cast<const uint32_t*>(smem + kOffLin) +
                           k * (kBlockRows * kLinK / 4);
@@ -452,8 +478,8 @@ __device__ __forceinline__ void produce(uint8_t* smem, uint64_t* bars,
 // A block: the producer warpgroup, then the consumer's 64 threads, one a
 // state. Tail lanes of the last block run a zero state (every consumer
 // thread must reach the barriers and the warp-wide MMAs); only their store
-// is masked.
-template <bool kSplit>
+// is masked. kSbox13 chooses the consumer's S-box, kSplit the job table.
+template <bool kSplit, bool kSbox13>
 __device__ __forceinline__ void perm_block(uint8_t* smem, const int32_t* __restrict__ x,
                                            int32_t* __restrict__ out, long long n, int convert,
                                            const uint32_t* __restrict__ consts,
@@ -491,7 +517,7 @@ __device__ __forceinline__ void perm_block(uint8_t* smem, const int32_t* __restr
     }
   }
   ConsumerDot<kSplit> d{smem, bars, t, nullptr, 0, 0};
-  perm(d, s, consts, convert != 0);
+  perm<kSbox13>(d, s, consts, convert != 0);
   if (live) store_state(out, s, b, n);
 }
 
@@ -506,7 +532,7 @@ hades_perm_hybp(const int32_t* __restrict__ x, int32_t* __restrict__ out, long l
                 const uint8_t* __restrict__ weights, const uint8_t* __restrict__ chain_w,
                 const uint8_t* __restrict__ packed) {
   extern __shared__ __align__(128) uint8_t smem[];
-  hybp::perm_block<true>(smem, x, out, n, convert, consts, weights, chain_w, packed);
+  hybp::perm_block<true, false>(smem, x, out, n, convert, consts, weights, chain_w, packed);
 }
 
 __global__ void __launch_bounds__(hybp::kThreads, 1)
@@ -515,15 +541,33 @@ hades_perm_hyb(const int32_t* __restrict__ x, int32_t* __restrict__ out, long lo
                const uint8_t* __restrict__ weights, const uint8_t* __restrict__ chain_w,
                const uint8_t* __restrict__ packed) {
   extern __shared__ __align__(128) uint8_t smem[];
-  hybp::perm_block<false>(smem, x, out, n, convert, consts, weights, chain_w, packed);
+  hybp::perm_block<false, false>(smem, x, out, n, convert, consts, weights, chain_w, packed);
+}
+
+__global__ void __launch_bounds__(hybp::kThreads, 1)
+hades_perm_hybp13(const int32_t* __restrict__ x, int32_t* __restrict__ out, long long n,
+                  int convert, const uint32_t* __restrict__ consts,
+                  const uint8_t* __restrict__ weights, const uint8_t* __restrict__ chain_w,
+                  const uint8_t* __restrict__ packed) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  hybp::perm_block<true, true>(smem, x, out, n, convert, consts, weights, chain_w, packed);
+}
+
+__global__ void __launch_bounds__(hybp::kThreads, 1)
+hades_perm_hyb13(const int32_t* __restrict__ x, int32_t* __restrict__ out, long long n,
+                 int convert, const uint32_t* __restrict__ consts,
+                 const uint8_t* __restrict__ weights, const uint8_t* __restrict__ chain_w,
+                 const uint8_t* __restrict__ packed) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  hybp::perm_block<false, true>(smem, x, out, n, convert, consts, weights, chain_w, packed);
 }
 
 // ---------------------------------------------------------------------------
 // Plain C interface, bound with ctypes (ops/perm_cuda.py)
 // ---------------------------------------------------------------------------
 
-// Check the pointers, allow the block's shared memory and launch one of the
-// two instances; returns its status.
+// Check the pointers, allow the block's shared memory (above the 48 KB
+// default) and launch one of the four instances; returns its status.
 template <typename Kernel>
 static int launch_chain(Kernel kernel, const void* x, void* out, long long n, int convert,
                         const void* consts, const void* weights, const void* chain_w,
@@ -535,7 +579,8 @@ static int launch_chain(Kernel kernel, const void* x, void* out, long long n, in
       reinterpret_cast<uintptr_t>(packed) % 16 != 0) {
     return kErrShape;
   }
-  cudaError_t err = mxu8::allow_smem(kernel, hybp::kSmemBytes);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, hybp::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, hybp::kThreads, hybp::kSmemBytes, (cudaStream_t)stream>>>(
       (const int32_t*)x, (int32_t*)out, n, convert, (const uint32_t*)consts,
@@ -545,9 +590,9 @@ static int launch_chain(Kernel kernel, const void* x, void* out, long long n, in
 
 extern "C" {
 
-// consts: hyb::kConstWords uint32 (the dense Montgomery ARK, R^2, R mod p,
+// consts: hybp::kConstWords uint32 (the dense Montgomery ARK, R^2, R mod p,
 // as 32-bit limbs); weights: mxu8::kWeightBytes, of which the kernel takes
-// w_lin, the first mxu8::kLinBytes; chain_w: hyb::chain_bytes(true) of
+// w_lin, the first mxu8::kLinBytes; chain_w: hybp::chain_bytes(true) of
 // wo_seg1, wo_seg2, w_new, w_out (params.hybp_tables), of which the kernel
 // reads w_new; packed: the 64 jobs' weights in the order of the ring's
 // stages (perm_cuda.packed_weights("hybp")). All are device pointers,
@@ -560,13 +605,31 @@ int hades_perm_hybp_launch(const void* x, void* out, long long n, int convert,
 }
 
 // As hades_perm_hybp_launch, with hyb's tables: chain_w holds
-// hyb::chain_bytes(false) of w_seg1, w_seg2, w_out (params.hyb_tables),
+// hybp::chain_bytes(false) of w_seg1, w_seg2, w_out (params.hyb_tables),
 // which the kernel does not read; packed is perm_cuda.packed_weights("hyb"),
 // each round's whole dot a job.
 int hades_perm_hyb_launch(const void* x, void* out, long long n, int convert,
                           const void* consts, const void* weights, const void* chain_w,
                           const void* packed, void* stream) {
   return launch_chain(hades_perm_hyb, x, out, n, convert, consts, weights, chain_w, packed,
+                      stream);
+}
+
+// As hades_perm_hybp_launch (hybp's tables and packed jobs), with every
+// S-box's raw products in base-2^13 digits.
+int hades_perm_hybp13_launch(const void* x, void* out, long long n, int convert,
+                             const void* consts, const void* weights, const void* chain_w,
+                             const void* packed, void* stream) {
+  return launch_chain(hades_perm_hybp13, x, out, n, convert, consts, weights, chain_w, packed,
+                      stream);
+}
+
+// As hades_perm_hyb_launch (hyb's tables and packed jobs), with every S-box's
+// raw products in base-2^13 digits.
+int hades_perm_hyb13_launch(const void* x, void* out, long long n, int convert,
+                            const void* consts, const void* weights, const void* chain_w,
+                            const void* packed, void* stream) {
+  return launch_chain(hades_perm_hyb13, x, out, n, convert, consts, weights, chain_w, packed,
                       stream);
 }
 

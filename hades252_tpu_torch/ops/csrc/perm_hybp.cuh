@@ -1,13 +1,30 @@
-// The `hybp` and `hyb` schedules' per-state code for the kernel in
-// perm_hybp.cu: the consumer's side of a block that is split into a
-// consumer, which walks the states through the rounds, and a producer,
-// which runs the chain's dots (perm_hybp.cu). Counterparts in
-// hades252_tpu/ops/perm_pallas.py: _perm_kernel_hybp (:945),
-// _perm_kernel_hyb (:845), _redc_wide_big (:818); the schedule is
+// The chained schedules' per-state code for the kernels in perm_hybp.cu
+// (`hybp`, `hyb`, and `hybp13`, `hyb13` with the base-2^13 S-box): the
+// consumer's side of a block that is split into a consumer, which walks
+// the states through the rounds, and a producer, which runs the chain's
+// dots (perm_hybp.cu). Counterparts in hades252_tpu/ops/perm_pallas.py:
+// _perm_kernel_hybp (:945), _perm_kernel_hyb (:845), both with sbox13
+// False or True, _redc_wide_big (:818); the schedule is
 // params.dot_schedule_int and the weights are params.hybp_tables and
-// params.hyb_tables, as perm_hyb.cuh describes them. The consumer's code is
-// the same for both: only the producer's job table (below) and the dot
-// object differ.
+// params.hyb_tables. The consumer's code is the same for all four but for
+// the S-box: only the producer's job table (below) and the dot object
+// differ between the split and the whole dot.
+//
+// The 59 partial rounds apply the S-box to word 4 only, so over the basis
+//   e = [1, x_0..x_4, s_0..s_58]   (65 elements of 32 bytes)
+// every S-box input t_r is a fixed linear map of e[:6+r] and so is the
+// chain's output. A partial round is then one byte dot of the basis with
+// that round's 63 x 32(6+r) Toeplitz weights (zero-padded to 32 or 64
+// elements), one big reduction and one S-box, in place of the dense
+// round's MDS dot and five reductions. A basis element's 32 bytes are its
+// 8 limbs as stored (natural byte order; params._chain_tables permutes the
+// weights' K axis to match). A state's basis is padded from 65 to 66
+// elements, so that every K is a multiple of 64 bytes; the 66th is never
+// written and w_out's columns for it are zero.
+//
+// Bounds (perm_pallas.py:818-842): a dot sums up to 65 Montgomery
+// products, T < 65p^2 < 2^517, 17 limbs; (T + m p) / R < 0.453 * 65p + p <
+// 31p < 2^260 takes 9 limbs and the five-rung ladder 16p .. p.
 //
 // What the TPU kernel did and this one does otherwise. There every
 // Montgomery reduction is two more byte dots (with p' and with p), because
@@ -42,16 +59,31 @@
 #pragma once
 
 #include "perm_dense.cuh"
-#include "perm_hyb.cuh"
 
 namespace hades {
 namespace hybp {
 
-using hyb::kBasis;
-using hyb::kBasisBytes;
-using hyb::kT;
+using dense::kT;
 using mxu8::kBlockRows;
 using mxu8::kLinK;
+
+constexpr int kBasis = 1 + kWidth + kPartialRounds;  // 65 elements
+constexpr int kBasisBytes = 32 * (kBasis + 1);       // 2,112 B a state, the last 32 padding
+constexpr int kSeg1Rounds = 27;                      // rounds 0..26: <= 32 elements
+constexpr int kSeg1K = 32 * 32;
+constexpr int kSeg2K = 32 * 64;                      // rounds 27..58: <= 64 elements
+
+// The chain's weights, one flat byte array: the rounds of segment 1, those
+// of segment 2, for hybp the 59 newest-element blocks, then the exit map.
+constexpr int kSeg1Bytes = kSeg1Rounds * kBlockRows * kSeg1K;
+constexpr int kSeg2Bytes = (kPartialRounds - kSeg1Rounds) * kBlockRows * kSeg2K;
+constexpr int kNewTableBytes = kPartialRounds * kBlockRows * 32;
+constexpr int kOutBytes = kWidth * kBlockRows * kBasisBytes;
+constexpr int chain_bytes(bool split) {
+  return kSeg1Bytes + kSeg2Bytes + (split ? kNewTableBytes : 0) + kOutBytes;
+}
+// the kernels' uint32 table: mxu8's (the dense ARK, R^2), then R mod p
+constexpr int kConstWords = mxu8::kConstWords + kLimbs;
 
 // The producer's jobs: one a partial round, then the 5 blocks of the exit
 // map. With the split (`hybp`), round q's job is its big dot over the older
@@ -73,17 +105,17 @@ HADES_HD int job_k(int q, bool split) {
 }
 
 HADES_HD int job_stride(int q) {
-  return q < hyb::kSeg1Rounds ? hyb::kSeg1K : q < kPartialRounds ? hyb::kSeg2K : kBasisBytes;
+  return q < kSeg1Rounds ? kSeg1K : q < kPartialRounds ? kSeg2K : kBasisBytes;
 }
 
 // The tables of params.hybp_tables (split) and params.hyb_tables share
 // their layout but for hybp's w_new before the exit map.
 HADES_HD const uint8_t* job_w(const uint8_t* chain_w, int q, bool split) {
-  if (q < hyb::kSeg1Rounds) return chain_w + q * (kBlockRows * hyb::kSeg1K);
+  if (q < kSeg1Rounds) return chain_w + q * (kBlockRows * kSeg1K);
   if (q < kPartialRounds) {
-    return chain_w + hyb::kSeg1Bytes + (q - hyb::kSeg1Rounds) * (kBlockRows * hyb::kSeg2K);
+    return chain_w + kSeg1Bytes + (q - kSeg1Rounds) * (kBlockRows * kSeg2K);
   }
-  return chain_w + hyb::kSeg1Bytes + hyb::kSeg2Bytes + (split ? hyb::kNewBytes : 0) +
+  return chain_w + kSeg1Bytes + kSeg2Bytes + (split ? kNewTableBytes : 0) +
          (q - kPartialRounds) * (kBlockRows * kBasisBytes);
 }
 
@@ -96,7 +128,7 @@ HADES_HD int job_signal(int q, bool split) {
 }
 
 HADES_HD const uint8_t* new_w(const uint8_t* chain_w, int r) {
-  return chain_w + hyb::kSeg1Bytes + hyb::kSeg2Bytes + r * (kBlockRows * 32);
+  return chain_w + kSeg1Bytes + kSeg2Bytes + r * (kBlockRows * 32);
 }
 
 using dense::full_round;
@@ -107,7 +139,8 @@ using dense::redc_big;
 // the basis and is signalled, which lets the producer start round r + 1's
 // big dot while this thread reduces round r's sums and runs its S-box
 // (hybp), or round r's whole dot, which this thread then waits for (hyb).
-template <class Dot>
+// kSbox13 takes field.cuh's sbox13 (hyb13, hybp13).
+template <bool kSbox13, class Dot>
 HADES_FN void chain(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ one_mont) {
   uint32_t x[kLimbs], t[kT];
   d.chain_begin();
@@ -132,7 +165,7 @@ HADES_FN void chain(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restri
     mxu8::recombine<63, kT>(d, t);
     d.job_done(r);
     redc_big<5>(x, t);  // the S-box's input t_r
-    sbox(x, x);         // s_r
+    sbox_of<kSbox13>(x, x);  // s_r
   }
   d.basis_put(kBasis - 1, x);  // s_58
   d.basis_signal();
@@ -148,18 +181,20 @@ HADES_FN void chain(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restri
   }
 }
 
-// The permutation. consts: hyb::kConstWords (the dense ARK, R^2, R mod p).
-template <class Dot>
+// The permutation. consts: kConstWords (the dense ARK, R^2, R mod p).
+// kSbox13 (hyb13, hybp13) takes every S-box's raw products, in the full
+// rounds and the chain alike, in base-2^13 digits.
+template <bool kSbox13, class Dot>
 HADES_FN void perm(Dot& d, uint32_t s[kWidth][kLimbs], const uint32_t* __restrict__ consts,
                    bool convert) {
   if (convert) mxu8::state_to_mont(s, consts);
   d.lin_wait();
 #pragma unroll 1
-  for (int r = 0; r < kHalf; ++r) full_round(d, s, consts, r);
-  chain(d, s, consts + mxu8::kConstWords);
+  for (int r = 0; r < kHalf; ++r) full_round<kSbox13>(d, s, consts, r);
+  chain<kSbox13>(d, s, consts + mxu8::kConstWords);
   d.lin_wait();
 #pragma unroll 1
-  for (int r = kHalf + kPartialRounds; r < kRounds; ++r) full_round(d, s, consts, r);
+  for (int r = kHalf + kPartialRounds; r < kRounds; ++r) full_round<kSbox13>(d, s, consts, r);
   if (convert) mxu8::state_from_mont(s);
 }
 

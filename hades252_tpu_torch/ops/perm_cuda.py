@@ -10,14 +10,13 @@ integer warpgroup MMA and the reductions on the CUDA cores, replacing
 `_perm_kernel_mxu8`) in `csrc/perm_mxu8.cu`, `hades_perm_hybp` (the
 full-expansion partial chain with each round's dot split, the big one run
 ahead by a producer warpgroup as wgmma, the reductions on the CUDA cores,
-replacing `_perm_kernel_hybp`) and `hades_perm_hyb` (the same block without
+replacing `_perm_kernel_hybp`), `hades_perm_hyb` (the same block without
 the split, each round's whole dot a wgmma job, replacing `_perm_kernel_hyb`)
-in `csrc/perm_hybp.cu`, `hades_perm_mxu` (mxu8's
+and `hades_perm_hybp13`, `hades_perm_hyb13` (the same two with every S-box
+product as a base-2^13 schoolbook on the CUDA cores, the JAX bodies'
+`sbox13=True`) in `csrc/perm_hybp.cu`, and `hades_perm_mxu` (mxu8's
 kernel with the MDS layer as bf16 warpgroup MMAs with float32 sums,
-replacing `_perm_kernel_mxu`) in `csrc/perm_mxu.cu`, and
-`hades_perm_hyb13` and `hades_perm_hybp13` (hyb and hybp with every S-box
-product as a base-2^13 schoolbook, the JAX bodies' `sbox13=True`) in
-`csrc/perm_hyb13.cu`.
+replacing `_perm_kernel_mxu`) in `csrc/perm_mxu.cu`.
 
 A wrapper launches its kernel for a CUDA tensor and raises where it cannot;
 it takes the plain version only for a tensor on the CPU. The plain versions
@@ -36,7 +35,6 @@ import torch.nn.functional as F
 
 from .. import field
 from ..params import (
-    HYB_KERNEL_K_OUT,
     HYB_N_BASIS,
     HYB_SEG1_ROUNDS,
     MXU8_BLOCK_ROWS,
@@ -86,10 +84,10 @@ def kernel_tables() -> np.ndarray:
 
 
 def mxu8_kernel_tables() -> tuple[np.ndarray, np.ndarray]:
-    """The mxu8 schedule's tables in the first port's layout, which the
-    chained kernels take (`hyb_kernel_tables`): the dense ARK and R^2 as one
-    flat uint32 array of 32-bit limbs, and the weights w_lin, w_pp, w_p as
-    one flat uint8 array (params.mxu8_tables)."""
+    """The mxu8 schedule's tables as the chained kernels take them
+    (`hyb_kernel_tables`): the dense ARK and R^2 as one flat uint32 array
+    of 32-bit limbs, and the weights w_lin, w_pp, w_p as one flat uint8
+    array (params.mxu8_tables), of which the kernels read w_lin."""
     t = mxu8_tables()
     consts = np.concatenate([digits_to_limbs(t[k]).reshape(-1) for k in ("ark_mont", "r2")])
     weights = np.concatenate([t[k].reshape(-1) for k in ("w_lin", "w_pp", "w_p")])
@@ -125,27 +123,21 @@ def dense_kernel_tables(schedule: str) -> tuple[np.ndarray, np.ndarray]:
     return consts, core_order(w).numpy()
 
 
-#: States of one block of the byte-dot kernels (csrc/mma_tile.cuh,
-#: csrc/perm_dense_block.cuh).
-_BLOCK_STATES = 128
-
-
 def dense_smem_bytes(schedule: str) -> int:
     """The dynamic shared memory of a block of the mxu8 or mxu kernel
     (csrc/perm_dense_block.cuh: Layout): w_lin, the states' two halves of
     64 rows (both 160 values a row, a byte or a bf16 each) and one block's
-    sums, 64 rows of 128 + 8 int32."""
+    sums, 64 rows of its 128 states + 8 int32."""
     panel = 64 * 160 * (2 if schedule == "mxu" else 1)
-    return 5 * panel + 2 * panel + 64 * (_BLOCK_STATES + 8) * 4
+    return 5 * panel + 2 * panel + 64 * (128 + 8) * 4
 
 
 def hyb_kernel_tables(schedule: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The hyb or hybp kernel's tables as its launch takes them: mxu8's
-    consts with R mod p appended (uint32 limbs), mxu8's weights (the MDS
-    block, which the hyb and hybp kernels take alone; hyb13 and hybp13 also
-    every REDC's), and the chain's weights as one flat uint8 array: segment
-    1, segment 2, for hybp w_new, then w_out. hyb13 and hybp13 take hyb's
-    and hybp's unchanged (perm_pallas.py:1333-1342). The hyb and hybp
+    consts with R mod p appended (uint32 limbs), mxu8's weights (of which
+    the kernels read the MDS block), and the chain's weights as one flat
+    uint8 array: segment 1, segment 2, for hybp w_new, then w_out. hyb13 and
+    hybp13 take hyb's and hybp's unchanged (perm_pallas.py:1333-1342). The
     kernels also take `packed_weights`."""
     consts, weights = mxu8_kernel_tables()
     t = hybp_tables() if schedule.startswith("hybp") else hyb_tables()
@@ -179,8 +171,12 @@ def packed_weights(schedule: str) -> np.ndarray:
     order of wgmma's shared-memory operand without swizzle: cut into 16-byte
     vectors, vector v of row r at v * 1024 + (r // 8) * 128 + (r % 8) * 16,
     its K filled up with zeros to whole stages of the kernel's ring. A stage
-    is then a contiguous run of a job's bytes, which one bulk copy moves."""
-    split = schedule == "hybp"
+    is then a contiguous run of a job's bytes, which one bulk copy moves.
+    hyb13 and hybp13 take hyb's and hybp's jobs."""
+    base = schedule.removesuffix("13")
+    if base not in ("hyb", "hybp"):
+        raise ValueError(f"no producer jobs for schedule {schedule!r}")
+    split = base == "hybp"
     t = hybp_tables() if split else hyb_tables()
     seg1, seg2 = (t["wo_seg1"], t["wo_seg2"]) if split else (t["w_seg1"], t["w_seg2"])
     jobs = []
@@ -200,23 +196,21 @@ def packed_weights(schedule: str) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate(jobs))
 
 
-#: The dense schedules whose constant products are tile products, the
-#: schedules with the full-expansion chain, and those of them whose kernel
-#: keeps the basis in a scratch tensor (hyb's and hybp's keep it in shared
-#: memory and take `packed_weights`).
+#: The dense schedules whose MDS layer is a tile product, and the schedules
+#: with the full-expansion chain (whose kernels take `packed_weights`).
 _DENSE_DOT = ("mxu8", "mxu")
 _CHAINED = ("hyb", "hybp", "hyb13", "hybp13")
-_SCRATCH = ("hyb13", "hybp13")
 
 
 @functools.cache
 def _device_tables(schedule: str, device: torch.device) -> tuple[torch.Tensor, ...]:
     """The tables of a dot kernel (every schedule but naive and opt) on the
-    device. hyb13 and hybp13 take hyb's and hybp's."""
+    device. hyb13 and hybp13 take hyb's and hybp's, packed jobs included: the
+    same tensors."""
+    if schedule in ("hyb13", "hybp13"):
+        return _device_tables(schedule.removesuffix("13"), device)
     tables = (dense_kernel_tables(schedule) if schedule in _DENSE_DOT
-              else hyb_kernel_tables(schedule.removesuffix("13")))
-    if schedule in ("hyb", "hybp"):
-        tables = (*tables, packed_weights(schedule))
+              else (*hyb_kernel_tables(schedule), packed_weights(schedule)))
     return tuple(torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).to(device)
                  for t in tables)
 
@@ -233,15 +227,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, *, convert: bool, schedule: str)
         stream = torch.cuda.current_stream().cuda_stream
         args = (x.data_ptr(), out.data_ptr(), x.shape[2], int(convert))
         fn = getattr(lib, f"hades_perm_{schedule}_launch")
-        if schedule in _SCRATCH:
-            tables = _device_tables(schedule, torch.device("cuda", dev))
-            # every block writes the basis of all its states, live or not
-            blocks = -(-x.shape[2] // _BLOCK_STATES)
-            scratch = torch.empty(blocks * _BLOCK_STATES * HYB_KERNEL_K_OUT, dtype=torch.uint8,
-                                  device=x.device)
-            status = fn(*args, *(t.data_ptr() for t in tables), scratch.data_ptr(),
-                        scratch.numel(), stream)
-        elif schedule in _DENSE_DOT or schedule in _CHAINED:
+        if schedule in _DENSE_DOT or schedule in _CHAINED:
             tables = _device_tables(schedule, torch.device("cuda", dev))
             status = fn(*args, *(t.data_ptr() for t in tables), stream)
         else:
@@ -306,48 +292,6 @@ def mxu_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     guarantees (160 * 255^2 = 10,404,000); the card's checks hold it against
     a float64 matmul, all-255 operands included."""
     return _mds_dot(w, x, "mxu")
-
-
-def block_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(M, K) @ (K, N) over uint8 operands with exact int32 sums, M <= 320
-    and K <= 160: on a CUDA tensor through the block-wide tile product that
-    the REDCs and full rounds of hyb13 and hybp13 run
-    (`hades_block_dot`, mma.sync m16n8k32 u8), with both operands zero-padded
-    to the MMA's 16 rows and 32 bytes; on the CPU in float64."""
-    _check_dot(w, x, 5 * MXU8_BLOCK_ROWS, 160)
-    if w.device.type == "cpu":
-        return torch.matmul(w.double(), x.double()).to(torch.int32)
-    (m, k), n = w.shape, x.shape[1]
-    mp, kp = -(-m // 16) * 16, -(-k // 32) * 32
-    wp = torch.zeros((mp, kp), dtype=torch.uint8, device=w.device)
-    wp[:m, :k] = w
-    xt = torch.zeros((n, kp), dtype=torch.uint8, device=w.device)
-    xt[:, :k] = x.t()
-    out = torch.empty((mp, n), dtype=torch.int32, device=w.device)
-    _call("hades_block_dot", w.device, wp.data_ptr(), xt.data_ptr(), out.data_ptr(), mp, kp, n)
-    return out[:m]
-
-
-def hyb_dot(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(M, K) @ (K, N) over uint8 operands with exact int32 sums, for any K
-    (K 255^2 < 2^31: K <= 33,000): on a CUDA tensor through the hyb kernels'
-    own wide tile product (`hades_hyb_dot`), whose K loop reads both
-    operands from global memory, so that it can be checked against a matmul
-    at the chain's K = 1024, 2048 and 2080; on the CPU in float64. M is
-    zero-padded to the tile's 64 rows, K to the loop's step of 64 bytes and
-    N to whole blocks of 128 columns."""
-    _check_dot(w, x, 1 << 20, 33000)
-    if w.device.type == "cpu":
-        return torch.matmul(w.double(), x.double()).to(torch.int32)
-    (m, k), n = w.shape, x.shape[1]
-    mp, kp, np_ = -(-m // 64) * 64, -(-k // 64) * 64, -(-n // _BLOCK_STATES) * _BLOCK_STATES
-    wp = torch.zeros((mp, kp), dtype=torch.uint8, device=w.device)
-    wp[:m, :k] = w
-    xt = torch.zeros((np_, kp), dtype=torch.uint8, device=w.device)
-    xt[:n, :k] = x.t()
-    out = torch.empty((mp, n), dtype=torch.int32, device=w.device)
-    _call("hades_hyb_dot", w.device, wp.data_ptr(), xt.data_ptr(), out.data_ptr(), mp, kp, n)
-    return out[:m]
 
 
 def _check_schedule(schedule: str) -> None:

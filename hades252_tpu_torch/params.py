@@ -611,7 +611,7 @@ def _chain_tables(weights: dict, keys) -> dict[str, np.ndarray]:
 @functools.cache
 def hyb_tables() -> dict[str, np.ndarray]:
     """The chain tables of the CUDA hyb and hyb13 kernels
-    (`ops/csrc/perm_hybp.cu`, `perm_hyb13.cu`): w_seg1 (27, 64, 1024),
+    (`ops/csrc/perm_hybp.cu`): w_seg1 (27, 64, 1024),
     w_seg2 (32, 64, 2048), w_out (320, 2112) uint8 and one_mont (N_DIGITS,)
     uint32. Their full rounds use `mxu8_tables()`."""
     return _chain_tables(hyb_weights_np(), _HYB_WEIGHT_KEYS)

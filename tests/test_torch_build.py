@@ -1,7 +1,7 @@
-"""The kernels' build helpers, the carry-chain arithmetic of `field.cuh` and
-the per-state code of `perm.cuh` (a lane group's lanes run in turn),
-`perm_dense.cuh`, `perm_mxu8.cuh`, `perm_hyb.cuh` and `perm_hybp.cuh` (the
-producer's jobs run in sequence) compiled for the host, and the independent oracles of
+"""The kernels' build helpers, the carry-chain arithmetic and the base-2^13
+S-box of `field.cuh` and the per-state code of `perm.cuh` (a lane group's
+lanes run in turn), `perm_dense.cuh` and `perm_hybp.cuh` (the producer's jobs
+run in sequence) compiled for the host, and the independent oracles of
 `chip_smoke.py`, all on the CPU."""
 
 import contextlib
@@ -28,24 +28,21 @@ torch.set_num_threads(1)
 # or, for mxu, W_LIN_BF16] -> limbs on stdout. mxu8 and mxu run perm_dense.cuh
 # (the reductions and the S-box on field.cuh's carry chains) with its host dot, a
 # plain loop over w_lin in the MMA's place: bytes for mxu8, bf16 with float sums
-# for mxu, as their kernels read it. The chained schedules run perm_hyb.cuh with
-# its host dot, plain loops over the kernels' byte weights; hyb13 and hybp13 take
-# the base-2^13 S-box. opt runs a group of
-# naive and opt run a group of HADES_GROUP lanes (default 4; the kernels run 4, 2 or 1 by
-# the batch) a state, the lanes in turn and the shuffles as array reads; hyb and hybp
-# run perm_hybp.cuh, the consumer's code of their kernel, with each of the producer's
-# jobs run at the signal that allows it, from hyb's table (each round's whole dot) or
-# hybp's (the split).
+# for mxu, as their kernels read it. naive and opt run a group of HADES_GROUP lanes
+# (default 4; the kernels run 4, 2 or 1 by the batch) a state, the lanes in turn and
+# the shuffles as array reads. The chained schedules run perm_hybp.cuh, the
+# consumer's code of their kernel, with each of the producer's jobs run at the
+# signal that allows it, from hyb's table (each round's whole dot: hyb, hyb13) or
+# hybp's (the split: hybp, hybp13); hyb13 and hybp13 take field.cuh's sbox13.
 # HARNESS13 runs the base-2^13 products alone: to13 and mul13 over pairs of
-# 8-limb values -> the 20 digits of the first, its square and the product.
+# 8-limb values -> the 20 digits of the first, its square and the product; then
+# sbox and sbox13 of the first.
 HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <vector>
 #include "perm.cuh"
-#include "perm_mxu8.cuh"
-#include "perm_hyb.cuh"
 #include "perm_hybp.cuh"
 #include "perm_dense.cuh"
 using namespace hades;
@@ -67,17 +64,15 @@ int main(int argc, char** argv) {
   std::vector<uint8_t> weights = read_file<uint8_t>(argv[6]);
   std::vector<uint8_t> chain;
   const bool chained = schedule == 3 || schedule == 4 || schedule >= 6;
-  const bool pipelined = schedule == 4 || schedule == 7;
+  const bool split = schedule == 4 || schedule == 7;
   if (chained) chain = read_file<uint8_t>(argv[7]);
   std::vector<uint16_t> lin_bf16;
   if (schedule == 5) lin_bf16 = read_file<uint16_t>(argv[7]);
   if (schedule == 5 && (int)lin_bf16.size() != mxu8::kLinBytes) return 4;
-  if ((int)consts.size() != (chained ? hyb::kConstWords : mxu8::kConstWords) ||
+  if ((int)consts.size() != (chained ? hybp::kConstWords : mxu8::kConstWords) ||
       (int)weights.size() != mxu8::kWeightBytes ||
-      (chained && (int)chain.size() != hyb::chain_bytes(pipelined)))
+      (chained && (int)chain.size() != hybp::chain_bytes(split)))
     return 4;
-  hyb::HostDot dot{{weights.data(), weights.data() + mxu8::kLinBytes,
-                    weights.data() + mxu8::kLinBytes + mxu8::kPpBytes, {}, {}}, {}};
   const uint32_t* src = tables.data();
   for (int j = 0; j < kLimbs; ++j) if (src[j] != p_limb(j)) return 2;
   src += kLimbs;
@@ -88,17 +83,17 @@ int main(int argc, char** argv) {
   for (size_t b = 0; b * 40 < states.size(); ++b) {
     uint32_t s[kWidth][kLimbs];
     memcpy(s, &states[b * 40], sizeof(s));
-    if (schedule == 7) hyb::perm<true, true>(dot, s, consts.data(), chain.data(), convert != 0);
-    else if (schedule == 6) hyb::perm<false, true>(dot, s, consts.data(), chain.data(), convert != 0);
-    else if (schedule == 4) {
+    if (split) {
       // the consumer's code, with the producer's jobs run at their signals
-      hybp::HostDot<true> split{{weights.data()}, chain.data()};
-      hybp::perm(split, s, consts.data(), convert != 0);
+      hybp::HostDot<true> dot{{weights.data()}, chain.data()};
+      if (schedule == 7) hybp::perm<true>(dot, s, consts.data(), convert != 0);
+      else hybp::perm<false>(dot, s, consts.data(), convert != 0);
     }
-    else if (schedule == 3) {
+    else if (chained) {
       // the same block without the split: each round's whole dot a job
-      hybp::HostDot<false> whole{{weights.data()}, chain.data()};
-      hybp::perm(whole, s, consts.data(), convert != 0);
+      hybp::HostDot<false> dot{{weights.data()}, chain.data()};
+      if (schedule == 6) hybp::perm<true>(dot, s, consts.data(), convert != 0);
+      else hybp::perm<false>(dot, s, consts.data(), convert != 0);
     }
     else if (schedule == 2) {
       dense::HostDot<> lin{weights.data()};
@@ -131,7 +126,7 @@ int main(int argc, char** argv) {
 HARNESS13 = r"""
 #include <cstdio>
 #include <vector>
-#include "perm_mxu8.cuh"
+#include "field.cuh"
 using namespace hades;
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
@@ -140,14 +135,18 @@ int main(int argc, char** argv) {
   while (fread(&w, 4, 1, f) == 1) v.push_back(w);
   fclose(f);
   for (size_t i = 0; i + 16 <= v.size(); i += 16) {
-    uint32_t a[mxu8::kD13], b[mxu8::kD13], sq[16], pr[16];
-    mxu8::to13(a, &v[i]);
-    mxu8::to13(b, &v[i + 8]);
-    mxu8::mul13<true>(sq, a, a);
-    mxu8::mul13<false>(pr, a, b);
-    fwrite(a, 4, mxu8::kD13, stdout);
+    uint32_t a[kD13], b[kD13], sq[16], pr[16], x5[8], y5[8];
+    to13(a, &v[i]);
+    to13(b, &v[i + 8]);
+    mul13<true>(sq, a, a);
+    mul13<false>(pr, a, b);
+    sbox(x5, &v[i]);
+    sbox13(y5, &v[i]);
+    fwrite(a, 4, kD13, stdout);
     fwrite(sq, 4, 16, stdout);
     fwrite(pr, 4, 16, stdout);
+    fwrite(x5, 4, 8, stdout);
+    fwrite(y5, 4, 8, stdout);
   }
   return 0;
 }
@@ -200,28 +199,53 @@ def _cxx():
     return cxx
 
 
-def test_base13_products_on_host_are_exact(tmp_path):
-    """to13 and mul13 (the S-box body of hyb13 and hybp13) compiled for the
-    host, on canonical values, on un-normalised ones just below 2p, which
-    the S-box's x^2 and x^4 may be, and on the limits of 256 bits."""
-    from hades252_tpu_torch.params import P
-
-    (tmp_path / "h.cpp").write_text(HARNESS13)
+@pytest.fixture(scope="module")
+def harness13(tmp_path_factory):
+    d = tmp_path_factory.mktemp("harness13")
+    (d / "h.cpp").write_text(HARNESS13)
     subprocess.run([_cxx(), "-O1", "-std=c++17", "-w", f"-I{_build.CSRC}", "-o",
-                    str(tmp_path / "h"), str(tmp_path / "h.cpp")], check=True, timeout=300)
+                    str(d / "h"), str(d / "h.cpp")], check=True, timeout=300)
+    return d / "h"
+
+
+def _run13(harness13, pairs, path):
+    """HARNESS13 over (a, b) pairs: per pair a row of the 20 digits of a, a^2,
+    a b, sbox(a) and sbox13(a)."""
+    limbs = [[(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for pair in pairs for x in pair]
+    np.asarray(limbs, "<u4").tofile(path)
+    out = subprocess.run([str(harness13), str(path)], capture_output=True, check=True,
+                         timeout=60).stdout
+    return np.frombuffer(out, "<u4").reshape(len(pairs), 20 + 16 + 16 + 8 + 8)
+
+
+def test_base13_products_on_host_are_exact(harness13, tmp_path):
+    """to13 and mul13 (the S-box body of hyb13 and hybp13) compiled for the
+    host, on canonical values, on un-normalised ones just below 2p, and on
+    the limits of 256 bits."""
     rng = np.random.default_rng(9)
     vals = [0, 1, P - 1, P, 2 * P - 1, 2 * P - 2, (1 << 256) - 1, (1 << 255) + 1]
     vals += [int.from_bytes(rng.bytes(32), "little") % (2 * P) for _ in range(24)]
     pairs = list(zip(vals, reversed(vals)))
-    limbs = [[(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for pair in pairs for x in pair]
-    np.asarray(limbs, "<u4").tofile(tmp_path / "in.bin")
-    out = subprocess.run([str(tmp_path / "h"), str(tmp_path / "in.bin")], capture_output=True,
-                         check=True, timeout=60).stdout
-    rows = np.frombuffer(out, "<u4").reshape(len(pairs), 20 + 16 + 16)
+    rows = _run13(harness13, pairs, tmp_path / "in.bin")
     for (x, y), row in zip(pairs, rows):
         assert [int(d) for d in row[:20]] == [(x >> (13 * k)) & 0x1FFF for k in range(20)]
         assert sum(int(v) << (32 * i) for i, v in enumerate(row[20:36])) == x * x
-        assert sum(int(v) << (32 * i) for i, v in enumerate(row[36:])) == x * y
+        assert sum(int(v) << (32 * i) for i, v in enumerate(row[36:52])) == x * y
+
+
+@pytest.mark.parametrize("x", [0, 1, P - 1, (P + 1) // 2, 1 << 254, "seeded"])
+def test_sbox13_on_host_equals_sbox(harness13, tmp_path, x):
+    """field.cuh's sbox13 (the S-box of the hyb13 and hybp13 kernels: the raw
+    products in base-2^13 digits, each reduced at once) against its sbox and
+    the int x^5 R^-4 mod p (a Montgomery-domain x^5), bit for bit."""
+    rng = np.random.default_rng(15)
+    vals = ([int.from_bytes(rng.bytes(32), "little") % P for _ in range(16)] if x == "seeded"
+            else [x])
+    rows = _run13(harness13, [(v, v) for v in vals], tmp_path / "in.bin")
+    rinv = pow(1 << 256, -1, P)
+    for v, row in zip(vals, rows):
+        assert np.array_equal(row[52:60], row[60:68])
+        assert sum(int(w) << (32 * i) for i, w in enumerate(row[60:68])) == v ** 5 * rinv ** 4 % P
 
 
 def test_field_chains_on_host_are_exact(tmp_path):
@@ -456,17 +480,16 @@ def test_hybp_packed_weights_hold_every_job_in_stage_order(split):
 
 
 def test_hyb_takes_packed_weights_and_no_scratch(monkeypatch):
-    """The hyb kernel's tables and launch as the wrapper makes them (no
+    """The chained kernels' tables and launches as the wrapper makes them (no
     card: the tables on the CPU, the library a stand-in that records its
-    calls): hyb's tables with its packed jobs appended, no scratch tensor,
-    the hybp kernel's signature; hyb13 keeps its scratch."""
+    calls): hyb's tables with its packed jobs appended, no scratch tensor for
+    any schedule, one signature for hyb, hybp, hyb13 and hybp13."""
     tables = perm_cuda._device_tables("hyb", torch.device("cpu"))
     assert len(tables) == 4 and tables[3].dtype == torch.uint8
     assert np.array_equal(tables[3].numpy(), perm_cuda.packed_weights("hyb"))
     assert tables[2].numel() == sum(v.size for v in perm_cuda.hyb_tables().values()
                                     if v.dtype == np.uint8)
     assert not np.array_equal(perm_cuda.packed_weights("hyb"), perm_cuda.packed_weights("hybp"))
-    assert "hyb" not in perm_cuda._SCRATCH and "hyb13" in perm_cuda._SCRATCH
 
     real = perm_cuda._device_tables
     monkeypatch.setattr(perm_cuda, "_device_tables",
@@ -486,23 +509,50 @@ def test_hyb_takes_packed_weights_and_no_scratch(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=7))
     monkeypatch.setattr(perm_cuda, "launches", dict.fromkeys(perm_cuda.SCHEDULES, 0))
     x = torch.zeros((5, 16, 3), dtype=torch.int32)
-    for schedule in ("hyb", "hybp", "hyb13"):
+    chained = ("hyb", "hybp", "hyb13", "hybp13")
+    for schedule in chained:
         perm_cuda._launch(x, torch.empty_like(x), convert=True, schedule=schedule)
-    hyb, hybp, hyb13 = (calls[f"hades_perm_{s}_launch"] for s in ("hyb", "hybp", "hyb13"))
     # x, out, B, convert; consts, weights, chain, packed; the stream
-    assert len(hyb) == len(hybp) == 9 and hyb[-1] == hybp[-1] == 7
-    assert hyb[2:4] == (3, 1) and hyb[4:8] == tuple(t.data_ptr() for t in tables)
-    # consts, weights, chain, then the scratch and its size
-    assert len(hyb13) == 10 and hyb13[8] == 128 * 2112
+    for schedule in chained:
+        args = calls[f"hades_perm_{schedule}_launch"]
+        assert len(args) == 9 and args[2:4] == (3, 1) and args[-1] == 7
+    assert calls["hades_perm_hyb_launch"][4:8] == tuple(t.data_ptr() for t in tables)
+    assert calls["hades_perm_hyb13_launch"][4:8] == tuple(t.data_ptr() for t in tables)
+    assert perm_cuda.launches == {**dict.fromkeys(perm_cuda.SCHEDULES, 0),
+                                  **dict.fromkeys(chained, 1)}
+
+
+@pytest.mark.parametrize("schedule", ["hyb13", "hybp13"])
+def test_base13_schedules_take_the_base_schedules_tables(schedule):
+    """hyb13 and hybp13 launch with hyb's and hybp's tables, packed jobs
+    included (perm_pallas.py:1333-1342: the `13` schedules take the same
+    constants); they differ from the other base's."""
+    base = schedule.removesuffix("13")
+    other = "hybp" if base == "hyb" else "hyb"
+    cpu = torch.device("cpu")
+    got, want = perm_cuda._device_tables(schedule, cpu), perm_cuda._device_tables(base, cpu)
+    assert len(got) == len(want) == 4
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(got[3], perm_cuda._device_tables(other, cpu)[3])
+
+
+def test_packed_weights_follow_the_base_schedule():
+    """packed_weights decides the split from the base schedule: hybp13's
+    jobs are hybp's, hyb13's hyb's, and the two tables differ."""
+    hybp, hyb = perm_cuda.packed_weights("hybp"), perm_cuda.packed_weights("hyb")
+    assert np.array_equal(perm_cuda.packed_weights("hybp13"), hybp)
+    assert np.array_equal(perm_cuda.packed_weights("hyb13"), hyb)
+    assert not np.array_equal(hybp, hyb)
+    with pytest.raises(ValueError):
+        perm_cuda.packed_weights("mxu8")
 
 
 def test_source_hash_covers_every_source():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = sorted(p.name for p in _build.CSRC.glob("*.cu*"))
-    assert names == ["field.cuh", "mma_tile.cuh", "perm.cu", "perm.cuh", "perm_dense.cuh",
-                     "perm_dense_block.cuh", "perm_hyb.cu", "perm_hyb.cuh", "perm_hyb13.cu",
-                     "perm_hyb_block.cuh", "perm_hybp.cu", "perm_hybp.cuh", "perm_mxu.cu",
+    assert names == ["field.cuh", "perm.cu", "perm.cuh", "perm_dense.cuh",
+                     "perm_dense_block.cuh", "perm_hybp.cu", "perm_hybp.cuh", "perm_mxu.cu",
                      "perm_mxu8.cu", "perm_mxu8.cuh", "wgmma.cuh"]
 
 
@@ -675,16 +725,15 @@ def test_chip_smoke_bound(schedule):
         assert one["bytes_ms"] - mxu8["bytes_ms"] == pytest.approx(
             320 * 160 / chip_smoke.HBM_BYTES_PER_S * 1e3)
     if schedule.endswith("13"):
-        # the first port's block: hyb's 401 REDCs as a (32, 32) and a (63, 32) dot each,
-        # 215 operations of carries each on the cores (117,663 for the state with the
-        # 32-bit S-box), and 99 S-boxes of 1,420 operations in place of 136; hybp13 adds
-        # the split's 17-limb sums
-        hybp = chip_smoke.bound("hybp", 1 << 14)
-        assert one["tensor_ms"] == pytest.approx(
-            hybp["tensor_ms"] + 2 * 401 * 3040 * (1 << 14) / chip_smoke.INT8_OPS_PER_S * 1e3)
-        assert one["bytes_ms"] == chip_smoke.bound(schedule.removesuffix("13"), 1 << 14)["bytes_ms"]
-        extra = 99 * (1420 - 136) + (58 * (2 * 63 + 17) if schedule == "hybp13" else 0)
-        assert one["cores_ms"] == pytest.approx(cores_ms(117_663 + extra))
+        # hyb's and hybp's block with 99 S-boxes of 1,420 operations in place of 136:
+        # 191,045 operations a state on the cores, the same for both; the tensor cores
+        # and the bytes are their base's
+        base = chip_smoke.bound(schedule.removesuffix("13"), 1 << 14)
+        assert one["cores_ms"] == pytest.approx(cores_ms(191_045))
+        assert one["cores_ms"] == pytest.approx(cores_ms(63_929 + 99 * (1420 - 136)))
+        assert one["tensor_ms"] == base["tensor_ms"] and one["bytes_ms"] == base["bytes_ms"]
+        other = chip_smoke.bound("hybp13" if schedule == "hyb13" else "hyb13", 1 << 14)
+        assert one["cores_ms"] == other["cores_ms"] and one["tensor_ms"] == other["tensor_ms"]
 
 
 def test_chip_smoke_damage_leaves_the_level_below_whole(tmp_path):

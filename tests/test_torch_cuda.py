@@ -53,14 +53,14 @@ def test_kernel_matches_plain(cuda_device, b, schedule, convert):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [5, 63, 65, 127, 129, (1 << 14) + 1])
-@pytest.mark.parametrize("schedule", ["naive", "opt", "hyb", "hybp", "mxu8", "mxu"])
+@pytest.mark.parametrize("schedule", perm_cuda.SCHEDULES)
 @pytest.mark.parametrize("convert", [True, False])
 def test_ragged_edges_of_lane_groups_and_small_blocks(cuda_device, b, schedule, convert):
     """naive and opt run a group of lanes a state (4 lanes, 32 states a
-    block, at most of these sizes, fewer above), hyb and hybp 64 states a
-    block, and mxu8 and mxu one warpgroup of 128: batches that end inside a
-    group, a warp, a warpgroup or a block, against the plain version and,
-    for opt, the native engine's sparse schedule."""
+    block, at most of these sizes, fewer above), hyb, hybp, hyb13 and
+    hybp13 64 states a block, and mxu8 and mxu one warpgroup of 128: batches
+    that end inside a group, a warp, a warpgroup or a block, against the
+    plain version and, for opt, the native engine's sparse schedule."""
     from hades252_tpu_torch.utils import native
 
     x = _elements((b, 5), 40 + b)
@@ -132,18 +132,6 @@ def test_mxu_dot_matches_float64_matmul(cuda_device, m, k, n):
     want = torch.matmul(w.double(), x.double()).to(cuda_device)
     assert got.dtype == torch.int32 and got.shape == (m, n)
     assert torch.equal(got.double(), want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(16, 32, 8), (64, 160, 128), (320, 160, 1000), (45, 70, 129)])
-def test_block_dot_matches_float64_matmul(cuda_device, m, k, n):
-    """The block tile product that hyb13 and hybp13 still run."""
-    g = torch.Generator().manual_seed(m * k + n + 2)
-    w = torch.randint(0, 256, (m, k), dtype=torch.uint8, generator=g)
-    x = torch.randint(0, 256, (k, n), dtype=torch.uint8, generator=g)
-    got = perm_cuda.block_dot(w.to(cuda_device), x.to(cuda_device))
-    assert got.dtype == torch.int32 and got.shape == (m, n)
-    assert torch.equal(got.double(), torch.matmul(w.double(), x.double()).to(cuda_device))
 
 
 @pytest.mark.cuda
@@ -228,19 +216,6 @@ def test_native_engine_agrees_with_the_kernels(cuda_device):
     leaves = _elements((256,), 802)
     assert np.array_equal(native.merkle_root_digits(leaves.numpy()),
                           merkle.merkle_root(leaves.to(cuda_device)).cpu().numpy())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(64, 1024, 128), (64, 2048, 1000), (320, 2080, 300),
-                                   (45, 70, 129)])
-def test_hyb_dot_matches_float64_matmul(cuda_device, m, k, n):
-    g = torch.Generator().manual_seed(m * k + n)
-    w = torch.randint(0, 256, (m, k), dtype=torch.uint8, generator=g)
-    x = torch.randint(0, 256, (k, n), dtype=torch.uint8, generator=g)
-    got = perm_cuda.hyb_dot(w.to(cuda_device), x.to(cuda_device))
-    want = torch.matmul(w.double(), x.double()).to(cuda_device)
-    assert got.dtype == torch.int32 and got.shape == (m, n)
-    assert torch.equal(got.double(), want)
 
 
 @pytest.mark.cuda

@@ -353,20 +353,7 @@ def test_hyb_kernel_tables_layout():
         assert chain.size % 16 == 0
 
 
-def test_hyb_dot_on_cpu():
-    rng = np.random.default_rng(14)
-    w = torch.from_numpy(rng.integers(0, 256, (20, 2080)).astype(np.uint8))
-    x = torch.from_numpy(rng.integers(0, 256, (2080, 7)).astype(np.uint8))
-    got = perm_cuda.hyb_dot(w, x)
-    assert got.dtype == torch.int32
-    assert np.array_equal(got.numpy(), w.numpy().astype(np.int64) @ x.numpy().astype(np.int64))
-    with pytest.raises(ValueError):
-        perm_cuda.hyb_dot(w.to(torch.int32), x)
-    with pytest.raises(ValueError):
-        perm_cuda.hyb_dot(w, x[:100])
-
-
-@pytest.mark.parametrize("dot", [perm_cuda.mxu8_dot, perm_cuda.mxu_dot, perm_cuda.block_dot])
+@pytest.mark.parametrize("dot", [perm_cuda.mxu8_dot, perm_cuda.mxu_dot])
 def test_mxu8_dot_on_cpu(dot):
     rng = np.random.default_rng(12)
     w = torch.from_numpy(rng.integers(0, 256, (20, 40)).astype(np.uint8))

@@ -22,8 +22,9 @@ and the base at B = 2^10, 2^16 and 2^18. The SASS of a kernel that holds
 one `mont_mul` is counted by opcode (`cuobjdump -sass`).
 
 Part 2, the first port's `perm_hyb.cu` (`hyb`, and `hybp` in the oldest
-sources; the sources after `--csrc`, of a commit that still has that
-kernel there), B = 2^14: `clock64()` sums of thread 0
+sources), B = 2^14, only with `--csrc` naming a tree that still has that
+file (an earlier commit's sources; this tree has none, and the part says so
+and is skipped): `clock64()` sums of thread 0
 of every block, a section at a time (the wide dot with its stage copies and
 barriers; the small dots; the barriers of `put` and `done`; `recombine`;
 `mul_wide`; `ladder9`), divided by the number of blocks. The sections are
@@ -36,7 +37,8 @@ Part 3, on this tree's sources. `perm.cu`: `hades_perm_opt` and
 2^10 .. 2^18, outputs held against `opt`'s, which is where the thresholds
 (`kGroup4Max`, `kGroup2Max`, `kNaiveGroup4Max`, `kNaiveGroup2Max`) come
 from; and `naive` at 4 and 2 lanes with row 4 of the MDS whole in every
-lane (`g4w`, `g2w`) in place of a share a lane summed over the group. `perm_hybp.cu`, `hybp` and `hyb`: `clock64()` sums of the first
+lane (`g4w`, `g2w`) in place of a share a lane summed over the group.
+`perm_hybp.cu`, `hybp`, `hyb`, `hybp13` and `hyb13`: `clock64()` sums of the first
 consumer thread and the first producer thread of every block, a section at
 a time (consumer: the wait for a job's sums, the small dot, `recombine`, the
 big reduction, the S-box, the MDS dots; producer: the waits for a basis
@@ -56,10 +58,11 @@ shared memory) through `mma.sync` m16n8k32 u8 on a warp's 32 states and
 through `wgmma` m64n64k32 u8 and m64n64k16 bf16 on a warpgroup's 128, at 1
 to 4 warps a scheduler.
 
-Part 5: the kernels that a change of `naive` and `hyb` must not move
-(`opt`, `hybp`, `mxu8`, `mxu`, `hyb13`, `hybp13`), each built from the
-sources after `--csrc` and from this tree's and timed in turns in one
-process (parent, change, change, parent) at B = 2^14, outputs compared.
+Part 5: every kernel (`COMPARE`), each built from the sources after
+`--csrc` and from this tree's, from whichever source file of each tree
+exports its launch, and timed in turns in one process (parent, change,
+change, parent) at B = 2^14, outputs compared: what a change moved and
+what it must not move.
 
 Part 6: the dense kernels' variants (`DENSE_VARIANTS`: the MDS layer's five
 values reduced together after the last dot, as the sources do, or each
@@ -70,6 +73,14 @@ Part 7, `perm.cu`'s one-thread-a-state `naive` (the sources after
 and its time at B = 2^10 and 2^14 as it is and with `#pragma unroll 1` over
 `mds_layer`'s rows, over `full_round`'s words, and over both: whether
 instruction fetch holds it back.
+
+Part 8, the base-2^13 S-box's code shape in the `hyb13` and `hybp13`
+kernels (`S13_VARIANTS`): sbox13 inlined at each call site as written
+(the chain's and each full-round loop's), one copy of it behind a
+`__noinline__` call, its three products rolled into one loop of the
+general product, and both; for each the kernels' registers, SASS
+instruction counts and times at B = 2^10 and 2^14 (outputs against the
+plain `opt`), and the consumer's clocks by section at 2^14 as in part 3.
 
 Everything is printed, with the card's name and power limit on every line
 that carries a time, and written to `probe_chains.txt` (and the SASS of one
@@ -104,6 +115,7 @@ REPORTS = Path(sys.argv[sys.argv.index("--out") + 1]).resolve() if "--out" in sy
 LINES: list[str] = []
 BASE: dict = {}  # the unpatched naive launch, part 2's reference
 STARTED: dict = {}  # variant -> its running compiler
+FINISHED: dict = {}  # variant -> its library, once its compiler is done (part 5)
 
 
 def say(msg: str) -> None:
@@ -257,6 +269,8 @@ HYBP_PATCHES = [
      "  PROF(4);\n  redc_steps<kT>(t);\n  mxu8::ladder9<RUNGS>"),
     ("field.cuh", "  uint32_t x2[kLimbs], x4[kLimbs];\n  mont_sqr(x2, x);",
      "  PROF(5);\n  uint32_t x2[kLimbs], x4[kLimbs];\n  mont_sqr(x2, x);"),
+    ("field.cuh", "HADES_FN void sbox13(uint32_t r[kLimbs], const uint32_t x[kLimbs]) {\n",
+     "HADES_FN void sbox13(uint32_t r[kLimbs], const uint32_t x[kLimbs]) {\n  PROF(5);\n"),
     (HYBP, "  __device__ __forceinline__ void mds_run(int k) {\n",
      "  __device__ __forceinline__ void mds_run(int k) {\n    PROF(6);\n"),
     (HYBP, "  __device__ __forceinline__ void lin_wait() { mbar_wait(bars + kBarLin, lins++ & 1); }",
@@ -511,8 +525,71 @@ LOOP_VARIANTS = {
                   ("perm.cuh", FULL_WORDS_OLD, FULL_WORDS_OLD.replace("unroll", "unroll 1"))],
 }
 
-COMPARE = {"perm.cu": ("opt",), HYBP: ("hybp",), "perm_mxu8.cu": ("mxu8",),
-           "perm_mxu.cu": ("mxu",), "perm_hyb13.cu": ("hyb13", "hybp13")}
+COMPARE = ("opt", "naive", "hybp", "hyb", "mxu8", "mxu", "hyb13", "hybp13")
+
+# Part 8: the base-2^13 S-box's code shape. "inline": field.cuh as it is;
+# "once": one copy of sbox13 behind a __noinline__ call that takes and
+# returns the value in registers; "rolled": its three products as one loop
+# of the general product (400 multiply-adds each, squares included);
+# "rolled_once": both.
+SBOX_OF_13 = "  if constexpr (kSbox13) {\n    sbox13(r, x);"
+SBOX13_ONCE = """struct Fe13 {
+  uint32_t v[kLimbs];
+};
+static __device__ __noinline__ Fe13 sbox13_call(Fe13 x) {
+  Fe13 r;
+  sbox13(r.v, x.v);
+  return r;
+}
+HADES_FN void sbox13_once(uint32_t r[kLimbs], const uint32_t x[kLimbs]) {
+  Fe13 in;
+  for (int j = 0; j < kLimbs; ++j) in.v[j] = x[j];
+  const Fe13 out = sbox13_call(in);
+  for (int j = 0; j < kLimbs; ++j) r[j] = out.v[j];
+}
+
+// The S-box of a kernel"""
+SBOX13_BODY = """  uint32_t a[kD13], b[kD13], t[2 * kLimbs], x4[kLimbs];
+  to13(a, x);
+  mul13<true>(t, a, a);
+  redc(x4, t);  // x^2
+  to13(a, x4);
+  mul13<true>(t, a, a);
+  redc(x4, t);
+  to13(a, x4);
+  to13(b, x);
+  mul13<false>(t, a, b);
+  redc(r, t);
+}"""
+SBOX13_ROLLED = """  uint32_t a[kD13], b[kD13], t[2 * kLimbs], y[kLimbs], z[kLimbs];
+  copy(y, x);
+#pragma unroll 1
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) z[j] = i < 2 ? y[j] : x[j];
+    to13(a, y);
+    to13(b, z);
+    mul13<false>(t, a, b);
+    redc(y, t);
+  }
+  copy(r, y);
+}"""
+S13_ONCE_PATCHES = [("field.cuh", "// The S-box of a kernel", SBOX13_ONCE),
+                    ("field.cuh", SBOX_OF_13, SBOX_OF_13.replace("sbox13(r, x)", "sbox13_once(r, x)"))]
+S13_VARIANTS = {
+    "inline": [],
+    "once": S13_ONCE_PATCHES,
+    "rolled": [("field.cuh", SBOX13_BODY, SBOX13_ROLLED)],
+    "rolled_once": [("field.cuh", SBOX13_BODY, SBOX13_ROLLED)] + S13_ONCE_PATCHES,
+}
+
+
+def source_of(kernel: str, tree: Path) -> str | None:
+    """The source file of a tree that exports a kernel's launch."""
+    for path in sorted(tree.glob("*.cu")):
+        if f"hades_perm_{kernel}_launch(" in path.read_text():
+            return path.name
+    return None
 
 
 def start_variant(name: str, patches, flags, source: str, csrc: Path | None = None):
@@ -643,6 +720,20 @@ def sass_sizes(lib_path: Path) -> dict[str, int]:
     return out
 
 
+def kernel_sass(lib_path: Path, kernel: str) -> list[str]:
+    """The SASS instructions of a kernel's instances in a library (all its
+    template instances), without addresses."""
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass", str(lib_path)],
+                          capture_output=True, text=True).stdout
+    name = f"hades_perm_{kernel}"
+    mangled = re.compile(rf"_Z{len(name)}{name}[IP]")
+    out = []
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        if mangled.match(body.split("\n", 1)[0].strip()):
+            out += re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", body)
+    return out
+
+
 def part7(smi: str) -> None:
     """The naive kernel's loop shapes: instructions, registers and times."""
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -749,36 +840,82 @@ def part3(smi: str) -> None:
     if lib is None or ref is None:
         return
     say(f"[probe] hybpclk: ptxas {ptxas(report)}")
-    for kernel in ("hybp", "hyb"):
-        fn = getattr(lib, f"hades_perm_{kernel}_launch")
-        fn.argtypes = [p, p, i64, i32, p, p, p, p, p]
-        tabs = [torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
-                for t in (*perm_cuda.hyb_kernel_tables(kernel), perm_cuda.packed_weights(kernel))]
-        for b in (1 << 10, 1 << 14):
+
+    def reference(x, b):
+        want = torch.empty_like(x)
+        ref(x.data_ptr(), want.data_ptr(), b, 0, stream)
+        return want
+
+    chain_sections(smi, "hybpclk", lib, ("hybp", "hyb", "hybp13", "hyb13"), (1 << 10, 1 << 14),
+                   reference)
+
+
+def chain_launch(lib, kernel: str):
+    """The launch of a chained kernel of this tree's interface (perm_hybp.cu)
+    with its tables on the card, as a function of (x, out, b)."""
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = getattr(lib, f"hades_perm_{kernel}_launch")
+    fn.argtypes = [p, p, i64, i32, p, p, p, p, p]
+    base = kernel.removesuffix("13")
+    tabs = [torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
+            for t in (*perm_cuda.hyb_kernel_tables(base), perm_cuda.packed_weights(base))]
+    return lambda x, out, b: fn(x.data_ptr(), out.data_ptr(), b, 0, *(t.data_ptr() for t in tabs),
+                                stream)
+
+
+def chain_sections(smi: str, name: str, lib, kernels, sizes, reference) -> None:
+    """The chained kernels of an instrumented build (HYBP_PATCHES) by section:
+    the first consumer thread's and the first producer thread's clocks a
+    block, outputs against reference(x, b)."""
+    for kernel in kernels:
+        run = chain_launch(lib, kernel)
+        for b in sizes:
             x = states(b, 3)
-            out, want = torch.empty_like(x), torch.empty_like(x)
-
-            def launch():
-                return fn(x.data_ptr(), out.data_ptr(), b, 0, *(t.data_ptr() for t in tabs),
-                          stream)
-
-            ref(x.data_ptr(), want.data_ptr(), b, 0, stream)
-            if launch() != 0:
-                say(f"[probe] hybpclk {kernel}: the launch failed; skipped")
+            out = torch.empty_like(x)
+            want = reference(x, b)
+            if run(x, out, b) != 0:
+                say(f"[probe] {name} {kernel}: the launch failed; skipped")
                 break
             torch.cuda.synchronize()
             ok = torch.equal(out, want)
             clk = (ctypes.c_ulonglong * 16)()
             lib.hades_prof_read(clk)  # the first launch's
-            ms = cuda_ms(launch, reps=3)
+            ms = cuda_ms(lambda: run(x, out, b), reps=3)
             lib.hades_prof_read(clk)
             per = [c / (4 * -(-b // 64)) for c in clk]  # warm-up + 3 timed launches
-            say(f"[probe] hybpclk {kernel} B={b}: outputs {'==' if ok else '!='} opt; {ms:.4f} ms "
+            say(f"[probe] {name} {kernel} B={b}: outputs {'==' if ok else '!='} opt; {ms:.4f} ms "
                 f"instrumented | {smi}")
-            for i, (name, c) in enumerate(zip(HYBP_SECTIONS, per)):
+            for i, (section, c) in enumerate(zip(HYBP_SECTIONS, per)):
                 side = per[0] if i < 8 else per[8]  # the consumer's sections, then the producer's
-                say(f"[probe]   {kernel} {name}: {c:,.0f} clocks a block "
+                say(f"[probe]   {kernel} {section}: {c:,.0f} clocks a block "
                     f"({c / max(side, 1):.3f} of its side's)")
+
+
+def part8(smi: str) -> None:
+    """The base-2^13 S-box's code shapes: registers, SASS instructions, times
+    and the consumer's sections of hyb13 and hybp13."""
+    def reference(x, b):
+        return perm_cuda.permute_planar_plain(x, convert=False, schedule="opt")
+
+    for variant in S13_VARIANTS:
+        lib, report = finish_variant(f"s13_{variant}", STARTED[f"s13_{variant}"])
+        if lib is not None:
+            sizes = {k: v for k, v in sass_sizes(OUT / f"s13_{variant}" / f"libs13_{variant}.so").items()
+                     if "hades_perm" in k}
+            say(f"[probe] s13_{variant}: ptxas {ptxas(report)}; SASS instructions {sizes}")
+            for kernel in ("hyb13", "hybp13"):
+                run = chain_launch(lib, kernel)
+                for b in (1 << 10, 1 << 14):
+                    x = states(b, 8)
+                    out = torch.empty_like(x)
+                    ms = cuda_ms(lambda: run(x, out, b))
+                    same = "==" if torch.equal(out, reference(x, b)) else "!="
+                    say(f"[probe] s13_{variant} {kernel} B={b}: {ms:.4f} ms, "
+                        f"{ms / b * (1 << 14):.4f} ms a 2^14; outputs {same} plain opt | {smi}")
+        lib, report = finish_variant(f"s13clk_{variant}", STARTED[f"s13clk_{variant}"])
+        if lib is not None:
+            chain_sections(smi, f"s13clk_{variant}", lib, ("hyb13", "hybp13"), (1 << 14,), reference)
 
 
 def part4(smi: str) -> None:
@@ -855,60 +992,79 @@ def dense_sections(smi: str, variant: str, kernels, sections) -> None:
 
 
 def part5(smi: str) -> None:
-    """The kernels that must not move: the parent's build and this tree's, in
-    turns, at B = 2^14, outputs compared."""
+    """Every kernel of COMPARE: the parent's build and this tree's, in turns,
+    at B = 2^14, outputs compared."""
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     stream = torch.cuda.current_stream().cuda_stream
     b = 1 << 14
     x = states(b, 5)
     tables = perm_cuda.kernel_tables()
-    for source, kernels in COMPARE.items():
-        libs = [finish_variant(f"{tag}_{Path(source).stem}", STARTED[f"{tag}_{Path(source).stem}"])[0]
-                for tag in ("parent", "change")]
+    for kernel in COMPARE:
+        sources = [source_of(kernel, tree) for tree in (CSRC, _build.CSRC)]
+        if None in sources:
+            say(f"[probe] compare {kernel}: no source exports its launch in both trees; skipped")
+            continue
+        names = [f"{tag}_{Path(src).stem}" for tag, src in zip(("parent", "change"), sources)]
+        for name in names:
+            if name not in FINISHED:
+                FINISHED[name] = finish_variant(name, STARTED[name])[0]
+        libs = [FINISHED[name] for name in names]
         if None in libs:
             continue
-        for kernel in kernels:
-            launches, outs = [], []
-            for lib in libs:
-                fn = getattr(lib, f"hades_perm_{kernel}_launch")
-                out = torch.empty_like(x)
-                if kernel in ("naive", "opt"):
-                    lib.hades_init.argtypes = [p, i64]
-                    lib.hades_init(tables.ctypes.data, tables.size)
-                    fn.argtypes = [p, p, i64, i32, p]
-                    args = ()
-                elif kernel in ("mxu8", "mxu"):
-                    tabs = [torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
-                            for t in perm_cuda.dense_kernel_tables(kernel)]
-                    fn.argtypes = [p, p, i64, i32, p, p, p]
-                    args = tuple(t.data_ptr() for t in tabs)
+        sass = [kernel_sass(OUT / name / f"lib{name}.so", kernel) for name in names]
+        launches, outs = [], []
+        for lib, source, tree in zip(libs, sources, (CSRC, _build.CSRC)):
+            fn = getattr(lib, f"hades_perm_{kernel}_launch")
+            out = torch.empty_like(x)
+            if kernel in ("naive", "opt"):
+                lib.hades_init.argtypes = [p, i64]
+                lib.hades_init(tables.ctypes.data, tables.size)
+                fn.argtypes = [p, p, i64, i32, p]
+                tabs, args = [], ()
+            elif kernel in ("mxu8", "mxu"):
+                tabs = [torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
+                        for t in perm_cuda.dense_kernel_tables(kernel)]
+                fn.argtypes = [p, p, i64, i32, p, p, p]
+                args = tuple(t.data_ptr() for t in tabs)
+            else:
+                base = kernel.removesuffix("13")
+                tabs = [torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
+                        for t in perm_cuda.hyb_kernel_tables(base)]
+                if "scratch_bytes" in (tree / source).read_text():
+                    # the first port's block: a scratch tensor for the basis
+                    scratch = torch.empty(-(-b // 128) * 128 * 2112, dtype=torch.uint8,
+                                          device="cuda")
+                    tabs.append(scratch)
+                    fn.argtypes = [p, p, i64, i32, p, p, p, p, i64, p]
+                    args = (*(t.data_ptr() for t in tabs), scratch.numel())
                 else:
-                    tabs = [torch.from_numpy(t.view(np.int32) if t.dtype == np.uint32 else t).cuda()
-                            for t in perm_cuda.hyb_kernel_tables(kernel.removesuffix("13"))]
-                    if kernel in ("hyb", "hybp"):
-                        tabs.append(torch.from_numpy(perm_cuda.packed_weights(kernel)).cuda())
-                        fn.argtypes = [p, p, i64, i32, p, p, p, p, p]
-                        args = tuple(t.data_ptr() for t in tabs)
-                    else:
-                        scratch = torch.empty(-(-b // 128) * 128 * 2112, dtype=torch.uint8,
-                                              device="cuda")
-                        tabs.append(scratch)
-                        fn.argtypes = [p, p, i64, i32, p, p, p, p, i64, p]
-                        args = (*(t.data_ptr() for t in tabs), scratch.numel())
+                    tabs.append(torch.from_numpy(perm_cuda.packed_weights(base)).cuda())
+                    fn.argtypes = [p, p, i64, i32, p, p, p, p, p]
+                    args = tuple(t.data_ptr() for t in tabs)
 
-                def launch(fn=fn, out=out, args=args):
-                    return fn(x.data_ptr(), out.data_ptr(), b, 0, *args, stream)
+            # the launch holds its tables: args holds only their addresses
+            def launch(fn=fn, out=out, args=args, tabs=tabs):
+                return fn(x.data_ptr(), out.data_ptr(), b, 0, *args, stream)
 
-                launches.append(launch)
-                outs.append(out)
-            times = {0: [], 1: []}
-            for i in (0, 1, 1, 0):
-                times[i].append(cuda_ms(launches[i]))
-            same = torch.equal(outs[0], outs[1])
-            mean = [statistics.mean(times[i]) for i in (0, 1)]
-            say(f"[probe] compare {kernel} B={b}: parent {times[0][0]:.4f}, {times[0][1]:.4f} ms; "
-                f"change {times[1][0]:.4f}, {times[1][1]:.4f} ms; change / parent "
-                f"{mean[1] / mean[0]:.4f}; outputs {'==' if same else '!='} | {smi}")
+            launches.append(launch)
+            outs.append(out)
+        times = {0: [], 1: []}
+        for i in (0, 1, 1, 0):
+            times[i].append(cuda_ms(launches[i]))
+        same = torch.equal(outs[0], outs[1])
+        if not same:
+            # which build is right: each against the kernel's plain version
+            want = perm_cuda.permute_planar_plain(x, convert=False, schedule=kernel)
+            for tag, out in zip(("parent", "change"), outs):
+                bad = int((out != want).any(dim=(0, 1)).sum())
+                say(f"[probe] compare {kernel}: the {tag}'s outputs differ from the plain "
+                    f"version's in {bad} of {b} states")
+        mean = [statistics.mean(times[i]) for i in (0, 1)]
+        say(f"[probe] compare {kernel} B={b} ({sources[0]} / {sources[1]}): parent "
+            f"{times[0][0]:.4f}, {times[0][1]:.4f} ms; change {times[1][0]:.4f}, "
+            f"{times[1][1]:.4f} ms; change / parent {mean[1] / mean[0]:.4f}; outputs "
+            f"{'==' if same else '!='}; SASS {'identical' if sass[0] == sass[1] else 'differs'} "
+            f"| {smi}")
 
 
 def part6(smi: str) -> None:
@@ -952,7 +1108,11 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     OUT.mkdir(parents=True, exist_ok=True)
     parts = sys.argv[sys.argv.index("--parts") + 1].split(",") if "--parts" in sys.argv \
-        else ["1", "2", "3", "4", "5", "6", "7"]
+        else ["1", "2", "3", "4", "5", "6", "7", "8"]
+    if "2" in parts and not (CSRC / "perm_hyb.cu").exists():
+        say("[probe] part 2 probes the first port's perm_hyb.cu, which this tree does not have: "
+            "name a tree that has it (an earlier commit's sources) with --csrc; skipped")
+        parts.remove("2")
     # every variant's compiler at once: one takes a minute or two. Part 2
     # checks against the unpatched naive of part 1 or part 7.
     part1_runs = "1" in parts or ("2" in parts and "7" not in parts)
@@ -983,10 +1143,17 @@ def main() -> int:
                 STARTED[f"{kernel}_{variant}"] = start_variant(
                     f"{kernel}_{variant}", patches, [], f"perm_{kernel}.cu", _build.CSRC)
     if "5" in parts:
-        for source in COMPARE:
-            for tag, tree in (("parent", CSRC), ("change", _build.CSRC)):
+        for tag, tree in (("parent", CSRC), ("change", _build.CSRC)):
+            for source in {source_of(kernel, tree) for kernel in COMPARE} - {None}:
                 STARTED[f"{tag}_{Path(source).stem}"] = start_variant(
                     f"{tag}_{Path(source).stem}", [], [], source, tree)
+    if "8" in parts:
+        for variant, patches in S13_VARIANTS.items():
+            STARTED[f"s13_{variant}"] = start_variant(f"s13_{variant}", patches, [], HYBP,
+                                                      _build.CSRC)
+            STARTED[f"s13clk_{variant}"] = start_variant(f"s13clk_{variant}",
+                                                         HYBP_PATCHES + patches, [], HYBP,
+                                                         _build.CSRC)
     if part1_runs:
         part1(smi)
     if "7" in parts:
@@ -1001,8 +1168,10 @@ def main() -> int:
         part5(smi)
     if "6" in parts:
         part6(smi)
+    if "8" in parts:
+        part8(smi)
     REPORTS.mkdir(parents=True, exist_ok=True)
-    name = "probe_chains.txt" if len(parts) == 7 else f"probe_chains_{'_'.join(parts)}.txt"
+    name = "probe_chains.txt" if len(parts) == 8 else f"probe_chains_{'_'.join(parts)}.txt"
     (REPORTS / name).write_text("\n".join(LINES) + "\n")
     return 0
 
