@@ -64,6 +64,20 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      `perm_batch_digits` against the `opt` kernel, the 4096-leaf root of
      phase 5 against `merkle_root_digits`; prints its single-thread
      rates with the host CPU's model name;
+  7d. drives the batched PLONK prover (`prover_cuda.prove_batched`) on its
+     default device, the card, at the width of bench.py's plonk mode: 64
+     instances of the 973-gate permutation-preimage circuit (numpy seed 0,
+     n = 1024, the 4n = 4096 coset), keyed by `plonk.preprocess`. The 16
+     proofs of B = 16 must equal the host `plonk.prove`'s field by field
+     and verify; B = 64's first 16 must equal them and all 64 verify; a
+     proof with one `t` coefficient changed must fail `plonk.verify`, and
+     composers of two circuits must raise ValueError. The path launches no
+     permutation kernel (its transcripts permute on the host), and its
+     counts must say so. Then the NTT: `ops.ntt.ntt_batched` over 64 rows
+     of 2^12 and 2^14 points inverts to its input, rows 0-1 at 2^12 equal
+     the host `plonk.ntt`, 4 rows of 2^10 equal the same call on the CPU,
+     and the coset transforms at 2^12 round-trip (row 0 equal to the host
+     `plonk._coset_eval`);
   8. times the kernels, their plain versions, the trees, the openings,
      the sponge, the cipher and the checkpointed build (beside the plain
      `merkle_root` through the same kernel, so the cost of the ten
@@ -71,7 +85,12 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      cross-check tree over 2^16 leaves beside `opt`'s, with CUDA events
      (median of 5 after a warm-up), and works out each kernel's bound: the
      least time the card could take for the same states (`bound`); every
-     kernel also at B = 2^10, 2^16 and 2^18.
+     kernel also at B = 2^10, 2^16 and 2^18. The prover: proofs/s at B = 16
+     and 64 (host clock around the call, median of 3 after a warm-up), the
+     split into its three device phases (CUDA events around each) and the
+     host's share, the peak device memory, the host `plonk.prove`'s rate on
+     the same host, `field.invert` over the grand product's denominators
+     and `ntt_batched` over 64 rows of 2^12 and 2^14 points.
 
 Each path of phases 5-7b runs with the launch counts set to 0 just before
 it and read just after; the kernels' JSON line reports their sum. The
@@ -83,8 +102,9 @@ single PyTorch call computes a 255-bit modular permutation, so the line's
 With `--profile` it also traces one warm call of the tree, the sponge and
 the cipher through `opt`, of the 2^16-leaf tree through `naive` and `opt`,
 of the cipher through `mxu8`, of each of the
-openings' paths, of the checkpointed build (through `mxu`) and of its two
-resumes (through `hyb13` and `hybp13`, the damage included) with
+openings' paths, of the checkpointed build (through `mxu`), of its two
+resumes (through `hyb13` and `hybp13`, the damage included) and of one
+`prove_batched` at B = 16 with
 `torch.profiler` (phase 9) and prints, per path, the span of
 its device work, the time the device was busy, the idle share, the
 permutation kernel's share and the plain-torch glue's.
@@ -118,10 +138,10 @@ except ModuleNotFoundError as e:
     sys.exit("chip_smoke: needs the package directory hades252_tpu_torch/ beside it: run it "
              "from the root of a checkout")
 
-from hades252_tpu_torch import selftest
+from hades252_tpu_torch import field, plonk, prover_cuda, selftest
+from hades252_tpu_torch.gadget import Composer, Constraint, GadgetStrategy
 from hades252_tpu_torch.models import cipher, merkle, sponge
-from hades252_tpu_torch.ops import _build, make_perm_mont_fn, perm_cuda
-from hades252_tpu_torch import field
+from hades252_tpu_torch.ops import _build, make_perm_mont_fn, ntt, perm_cuda
 from hades252_tpu_torch.params import P, WIDTH, mxu8_tables
 from hades252_tpu_torch.strategy import ScalarStrategy
 from hades252_tpu_torch.utils import checkpoint, native
@@ -162,6 +182,11 @@ REPLACES = {
 RAGGED = (1, 5, 127, 129, PERM_BATCH + 1)
 TIMED_SIZES = (1 << 10, 1 << 16, 1 << 18)   # beside PERM_BATCH
 CKPT_KEEP = 4               # the damage: level files above it go, its own is cut short
+PLONK_BATCHES = (16, 64)    # bench.py's plonk mode: B instances of one 973-gate circuit
+PLONK_SEED = 0
+PLONK_REPS = 3
+NTT_ROWS, NTT_SIZES = 64, (1 << 12, 1 << 14)
+PROVER_PHASES = ("_phase1_wires", "_phase2_grand_product", "_phase3_quotient")
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): dense int8 and
 # dense bf16 on the tensor cores, and device memory. Its 32-bit integer rate is not published:
@@ -333,6 +358,158 @@ def int_cipher(key2: list[int], nonce: int, msg: list[int]) -> tuple[list[int], 
             state[1 + i] = c
         state = strat.perm(state)
     return ct, state[1]
+
+
+def preimage_instances(b: int, seed: int) -> list:
+    """b instances of bench.py's plonk circuit: the permutation gadget on 5
+    seeded words, each output bound to its value through the public-input
+    column (973 + 5 gates)."""
+    rng, strat = np.random.default_rng(seed), ScalarStrategy()
+    out = []
+    for _ in range(b):
+        x = [int.from_bytes(rng.bytes(40), "little") % P for _ in range(WIDTH)]
+        expected = strat.perm(list(x))
+        c = Composer()
+        ws = [c.append_witness(w) for w in x]
+        GadgetStrategy.gadget(c, ws)
+        for w, e in zip(ws, expected):
+            c.append_gate(Constraint().left(1).a(w).public(-e))
+        out.append(c)
+    return out
+
+
+def timed_prove(composers: list, key) -> tuple:
+    """One prove_batched on the card with CUDA events around each of its
+    three device phases: (proofs, wall seconds, {phase: device ms}). The
+    host's share is the wall time less the phases'."""
+    events, originals = {}, {name: getattr(prover_cuda, name) for name in PROVER_PHASES}
+
+    def timed(name, fn):
+        def run_phase(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            events[name] = (start, end)
+            return out
+        return run_phase
+
+    try:
+        for name, fn in originals.items():
+            setattr(prover_cuda, name, timed(name, fn))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proofs = prover_cuda.prove_batched(composers, key)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(prover_cuda, name, fn)
+    return proofs, wall, {name: start.elapsed_time(end) for name, (start, end) in events.items()}
+
+
+def same_proof(a, b) -> bool:
+    return (a.wires, a.z, a.t, a.commitments) == (b.wires, b.z, b.t, b.commitments)
+
+
+def int_rows(digits: torch.Tensor) -> list:
+    return [[int(v) for v in row] for row in digits_to_ints(digits.cpu().numpy())]
+
+
+def prover_phase(dev: torch.device, rng: np.random.Generator) -> dict:
+    """Phase 7d: the batched prover and the NTT on the card, held against
+    the host prover and the host transforms. Returns what phase 8 times."""
+    t0 = time.perf_counter()
+    composers = preimage_instances(max(PLONK_BATCHES), PLONK_SEED)
+    key = plonk.preprocess(composers[0])
+    setup_s = time.perf_counter() - t0
+    check(key.n == 1024 and len(composers[0].gates) == 978, "the plonk circuit must be 978 gates, n = 1024")
+    pis = [[g.pi for g in c.gates] for c in composers]
+    b = PLONK_BATCHES[0]
+    first, counts = drive(lambda: prover_cuda.prove_batched(composers[:b], key))
+    check(not any(counts.values()), f"prove_batched B={b}: launches {counts}, none expected")
+    t0 = time.perf_counter()
+    host = [plonk.prove(c, key) for c in composers[:b]]
+    host_s = (time.perf_counter() - t0) / b
+    for i, (got, want) in enumerate(zip(first, host)):
+        for name in ("wires", "z", "t", "commitments"):
+            check(getattr(got, name) == getattr(want, name),
+                  f"prove_batched B={b}, proof {i}: {name} != host plonk.prove's")
+        check(plonk.verify(key, got, pis[i]), f"prove_batched B={b}, proof {i} does not verify")
+    every, counts = drive(lambda: prover_cuda.prove_batched(composers, key))
+    check(not any(counts.values()), f"prove_batched B={len(composers)}: launches {counts}, none expected")
+    check(len(every) == len(composers) and all(same_proof(a, c) for a, c in zip(every, first)),
+          f"prove_batched B={len(composers)}: the first {b} proofs != B={b}'s")
+    t0 = time.perf_counter()
+    check(all(plonk.verify(key, pr, pi) for pr, pi in zip(every, pis)),
+          f"prove_batched B={len(composers)}: a proof does not verify")
+    verify_s = (time.perf_counter() - t0) / len(every)
+    bad = plonk.Proof(wires=every[0].wires, z=every[0].z,
+                      t=[(every[0].t[0] + 1) % P] + every[0].t[1:], commitments=every[0].commitments)
+    check(not plonk.verify(key, bad, pis[0]), "a proof with one t coefficient changed must fail")
+    other = Composer()
+    a = other.append_witness(3)
+    other.gate_mul(Constraint().mult(1).a(a).b(a))
+    try:
+        prover_cuda.prove_batched([composers[0], other], key)
+    except ValueError as e:
+        check("circuit structure" in str(e), f"mixed circuits: unexpected refusal {e}")
+    else:
+        check(False, "composers of two circuits must be refused")
+    log(f"[prover] {len(composers)} instances of the {len(composers[0].gates)}-gate permutation-"
+        f"preimage circuit (n = {key.n}, built and keyed in {setup_s:.1f} s): B = {b} on the card "
+        f"== host plonk.prove field by field ({host_s:.3f} s a host proof), all verify; "
+        f"B = {len(composers)}: first {b} == B = {b}'s, all verify ({verify_s:.4f} s a verify); "
+        "a changed t coefficient fails; mixed circuits refused")
+
+    xs = {n: torch.from_numpy(random_elements((NTT_ROWS, n), rng)).to(dev) for n in NTT_SIZES}
+    for n, x in xs.items():
+        check(torch.equal(ntt.ntt_batched(ntt.ntt_batched(x), invert=True), x),
+              f"ntt_batched {NTT_ROWS} x {n}: the inverse does not undo the forward")
+    x = xs[NTT_SIZES[0]]
+    rows = int_rows(x[:2])
+    check(int_rows(ntt.ntt_batched(x[:2])) == [plonk.ntt(r) for r in rows],
+          f"ntt_batched rows 0-1 at {NTT_SIZES[0]}: card != host plonk.ntt")
+    part = x[:4, :1024]
+    check(torch.equal(ntt.ntt_batched(part).cpu(), ntt.ntt_batched(part.cpu())),
+          "ntt_batched 4 x 1024: card != CPU")
+    ev = ntt.coset_eval_batched(x, prover_cuda.QUOTIENT_SHIFT)
+    check(torch.equal(ntt.coset_interp_batched(ev, prover_cuda.QUOTIENT_SHIFT), x),
+          f"coset transforms {NTT_ROWS} x {NTT_SIZES[0]}: no round trip")
+    check(int_rows(ev[:1]) == [plonk._coset_eval(rows[0], NTT_SIZES[0], prover_cuda.QUOTIENT_SHIFT)],
+          f"coset_eval_batched row 0 at {NTT_SIZES[0]}: card != host plonk._coset_eval")
+    log(f"[ntt] {NTT_ROWS} rows x {', '.join(map(str, NTT_SIZES))} points on the card: inverse "
+        f"undoes forward; rows 0-1 at {NTT_SIZES[0]} == host plonk.ntt; 4 x 1024 == the CPU; coset "
+        f"eval/interp round-trips, row 0 == host plonk._coset_eval")
+    return {"dev": dev, "composers": composers, "key": key, "host_s": host_s, "xs": xs}
+
+
+def prover_timings(ctx: dict, smi: str) -> None:
+    """Phase 8 for the prover: proofs/s, the phase split, peak memory, the
+    inversion and the NTT, each line with the card's name and power limit."""
+    composers, key = ctx["composers"], ctx["key"]
+    for b in PLONK_BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        timed_prove(composers[:b], key)  # the warm-up
+        peak = torch.cuda.max_memory_allocated()
+        runs = [timed_prove(composers[:b], key) for _ in range(PLONK_REPS)]
+        wall = statistics.median(r[1] for r in runs)
+        split = {name: statistics.median(r[2][name] for r in runs) for name in PROVER_PHASES}
+        phases_ms = sum(split.values())
+        log(f"[time] prove_batched B={b}, 978 gates, n = {key.n}: {b / wall:.4f} proofs/s, "
+            f"{wall:.6f} s a batch (median of {PLONK_REPS} after a warm-up; walls "
+            f"{', '.join(f'{r[1]:.6f}' for r in runs)} s); device phases: wires "
+            f"{split['_phase1_wires']:.3f} ms, grand product {split['_phase2_grand_product']:.3f} ms, "
+            f"quotient {split['_phase3_quotient']:.3f} ms; host {wall * 1e3 - phases_ms:.3f} ms "
+            f"(transcripts, commitments, int conversion, copies); peak device memory "
+            f"{peak / 2**30:.3f} GiB; host plonk.prove {1 / ctx['host_s']:.4f} proofs/s on the "
+            f"same host | {smi}")
+        den = torch.from_numpy(random_elements((b, key.n), np.random.default_rng(b))).to(ctx["dev"])
+        log(f"[time] field.invert over ({b}, {key.n}) elements (phase 2's denominators): "
+            f"{cuda_ms(lambda: field.invert(den)):.3f} ms | {smi}")
+    for n, x in ctx["xs"].items():
+        log(f"[time] ntt_batched {NTT_ROWS} x {n}: forward {cuda_ms(lambda: ntt.ntt_batched(x)):.3f} "
+            f"ms, inverse {cuda_ms(lambda: ntt.ntt_batched(x, invert=True)):.3f} ms | {smi}")
 
 
 def profile_path(name: str, fn) -> None:
@@ -718,6 +895,9 @@ def run(ckpt_root: str) -> int:
         f"{cpu_model()}")
     log(f"[launches] main path, summed: {main_launches}")
 
+    # 7d. the batched prover and the NTT on the card
+    prover = prover_phase(dev, rng)
+
     # 8. timings at the main path's shapes
     x = torch.from_numpy(random_elements((WIDTH, PERM_BATCH), rng).transpose(0, 2, 1).copy()).to(dev)
     ms, plain_ms, bounds = {}, {}, {}
@@ -782,6 +962,8 @@ def run(ckpt_root: str) -> int:
             f"{enc_ms:.3f} ms = {CIPHER_STREAMS * CIPHER_LEN / enc_ms * 1e3:,.0f} elements/s "
             f"| {smi}")
 
+    prover_timings(prover, smi)
+
     # 9. on request: where the openings' paths spend their device time
     if "--profile" in sys.argv[1:]:
         for name, fn in (("merkle_root 2^20 (opt)", lambda: merkle.merkle_root(leaves)),
@@ -801,7 +983,10 @@ def run(ckpt_root: str) -> int:
                          (f"merkle_verify_batched {OPENINGS} (opt)", verify_many(None)),
                          ("merkle_root_checkpointed 2^20 (mxu)", checkpointed_build),
                          (f"resume from level {CKPT_KEEP - 1} (hyb13)", resume(hyb13_fn)),
-                         (f"resume from level {CKPT_KEEP - 1} (hybp13)", resume(hybp13_fn))):
+                         (f"resume from level {CKPT_KEEP - 1} (hybp13)", resume(hybp13_fn)),
+                         (f"prove_batched B={PLONK_BATCHES[0]} (978 gates)",
+                          lambda: prover_cuda.prove_batched(
+                              prover["composers"][:PLONK_BATCHES[0]], prover["key"]))):
             profile_path(f"{name} | {smi}", fn)
 
     kernels = [

@@ -299,3 +299,51 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda_device, monkeypatch, schedu
     # an input the kernel cannot take raises instead of falling back
     with pytest.raises(ValueError):
         perm_cuda.permute_planar(x[:, :, ::2], schedule=schedule)
+
+
+def _chain_circuit(values):
+    """A circuit of 2 len(values) gates with shared wires and a public
+    output."""
+    from hades252_tpu_torch.gadget import Composer, Constraint
+
+    c = Composer()
+    ws = [c.append_witness(v) for v in values]
+    acc = ws[0]
+    for w in ws[1:]:
+        prod = c.gate_mul(Constraint().mult(1).a(acc).b(w))
+        acc = c.gate_add(Constraint().left(1).a(prod).right(2).b(w).fourth(3).d(ws[0]).constant(5))
+    c.append_gate(Constraint().left(1).a(acc).public(-c.value(acc)))
+    return c
+
+
+@pytest.mark.cuda
+def test_prove_batched_on_the_card_equals_the_cpu(cuda_device):
+    """The batched prover on its default device, the card, against the
+    same torch code on the CPU and the host prover: the same proofs."""
+    from hades252_tpu_torch import plonk, prover_cuda
+
+    rng = np.random.default_rng(7)
+    cs = [_chain_circuit([int(v) for v in rng.integers(0, 1 << 62, 30)]) for _ in range(4)]
+    key = plonk.preprocess(cs[0])
+    on_card = prover_cuda.prove_batched(cs, key)
+    on_cpu = prover_cuda.prove_batched(cs, key, device="cpu")
+    host = plonk.prove(cs[0], key)
+    for a, b in zip(on_card, on_cpu):
+        assert (a.wires, a.z, a.t, a.commitments) == (b.wires, b.z, b.t, b.commitments)
+    assert (on_card[0].t, on_card[0].commitments) == (host.t, host.commitments)
+    assert all(plonk.verify(key, pr, [g.pi for g in c.gates]) for c, pr in zip(cs, on_card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 64, 1024])
+def test_ntt_on_the_card_equals_the_cpu(cuda_device, n):
+    from hades252_tpu_torch.ops import ntt
+
+    x = _elements((3, n), 700 + n)
+    for invert in (False, True):
+        got = ntt.ntt_batched(x.to(cuda_device), invert=invert)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), ntt.ntt_batched(x, invert=invert))
+    ev = ntt.coset_eval_batched(x.to(cuda_device), 7)
+    assert torch.equal(ev.cpu(), ntt.coset_eval_batched(x, 7))
+    assert torch.equal(ntt.coset_interp_batched(ev, 7).cpu(), x)

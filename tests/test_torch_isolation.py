@@ -27,12 +27,21 @@ for name in names:
 import chip_smoke  # its main does not run on import
 assert not any(k == "jax" or k.startswith(("jax.", "hades252_tpu."))
                for k, v in sys.modules.items() if v is not None)
-for name in ("utils.checkpoint", "utils.native", "utils.encoding"):
+for name in ("utils.checkpoint", "utils.native", "utils.encoding", "gadget", "circuits",
+             "plonk", "utils.asset_gen", "ops.ntt", "prover_cuda"):
     assert "hades252_tpu_torch." + name in names, name
 from hades252_tpu_torch.utils import checkpoint, encoding, native
 assert encoding.scalar_from_bytes(encoding.scalar_to_bytes(5)) == 5
 assert checkpoint.highest_saved_level("no-such-directory", 2, 16) is None
 assert native._opt_payload()  # the port's own schedule, without the JAX package
+from hades252_tpu_torch import plonk, prover_cuda
+from hades252_tpu_torch.gadget import Composer, Constraint
+c = Composer()
+a = c.append_witness(3)
+c.gate_mul(Constraint().mult(1).a(a).b(a))
+key = plonk.preprocess(c)
+proof, = prover_cuda.prove_batched([c], key, device="cpu")
+assert plonk.verify(key, proof, [g.pi for g in c.gates])
 print(len(names))
 """
 
@@ -42,8 +51,9 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # every module of the package: the cipher, the checkpoint, the native binding
-    assert int(proc.stdout.strip()) >= 18
+    # every module of the package: the cipher, the checkpoint, the native
+    # binding, the host proof layers, the NTT and the batched prover
+    assert int(proc.stdout.strip()) >= 24
 
 
 def test_kat_gate_on_cpu_takes_the_plain_path():
