@@ -78,6 +78,28 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      the host `plonk.ntt`, 4 rows of 2^10 equal the same call on the CPU,
      and the coset transforms at 2^12 round-trip (row 0 equal to the host
      `plonk._coset_eval`);
+  7e. drives the succinct DEEP-FRI argument (`fri`) and its aggregation
+     (`aggregate`) with their commitment trees, leaf-block sponges,
+     proof-of-work grinding and pooled multiproof checks on the kernels,
+     through `fri_cuda.device_pool_perm`, and holds every path against the
+     same path through the native engine (`fri.default_pcs_perm()`): the
+     first instance of phase 7d's circuit, keyed by `fri.preprocess_succinct`
+     at the default preset (blowup 8, 35 queries, final degree 64, 16 PoW
+     bits), is proved 3 times through `opt`, each proof byte-identical
+     through `serialize.proof_to_bytes` to the native engine's, the key's
+     and the proof's bytes round-trip and the decoded proof verifies through
+     `hybp`; the same with `zk=True` and one seeded generator on each side;
+     16 instances proved at bench.py verify mode's "fast" preset (blowup 4,
+     16 queries, final degree 64, 8 PoW bits) by the native engine in a pool
+     of host processes, two of them spoiled (a changed claimed evaluation,
+     a changed byte through `proof_from_bytes`), are verified together by
+     `verify_succinct_batched` through `hybp`: false in those two slots
+     only, and equal to the native engine's verdicts; the aggregate of 4
+     instances through `opt` is byte-identical through
+     `serialize.aggregate_to_bytes` to the native engine's, verifies through
+     `hybp`, and fails with a changed claimed evaluation. Each path must
+     launch its kernel exactly as often as the native engine is called on
+     the same path (no call falls back), and no other kernel;
   8. times the kernels, their plain versions, the trees, the openings,
      the sponge, the cipher and the checkpointed build (beside the plain
      `merkle_root` through the same kernel, so the cost of the ten
@@ -90,10 +112,16 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      split into its three device phases (CUDA events around each) and the
      host's share, the peak device memory, the host `plonk.prove`'s rate on
      the same host, `field.invert` over the grand product's denominators
-     and `ntt_batched` over 64 rows of 2^12 and 2^14 points.
+     and `ntt_batched` over 64 rows of 2^12 and 2^14 points. The succinct
+     paths of phase 7e (timed there, printed here): the seconds of a "prod"
+     proof through the card beside the native engine's (median of 3, host
+     clock), of the pooled verification of 16 "fast" proofs (median of 3)
+     and of the aggregate of 4 instances (one run each), each with its
+     permutation launches' device ms (CUDA events around every launch) and
+     their share of the wall.
 
-Each path of phases 5-7b runs with the launch counts set to 0 just before
-it and read just after; the kernels' JSON line reports their sum. The
+Each path of phases 5-7b and 7e runs with the launch counts set to 0 just
+before it and read just after; the kernels' JSON line reports their sum. The
 earlier paths run at the depth they had: the `naive` and `mxu8` cross-check
 trees over 2^16 leaves, everything else at full size. No
 single PyTorch call computes a 255-bit modular permutation, so the line's
@@ -104,8 +132,8 @@ the cipher through `opt`, of the 2^16-leaf tree through `naive` and `opt`,
 of the cipher through `mxu8`, of each of the
 openings' paths, of the checkpointed build (through `mxu`), of its two
 resumes (through `hyb13` and `hybp13`, the damage included) and of one
-`prove_batched` at B = 16 with
-`torch.profiler` (phase 9) and prints, per path, the span of
+`prove_batched` at B = 16 and of one "prod" `fri.prove_succinct` through
+`opt` with `torch.profiler` (phase 9) and prints, per path, the span of
 its device work, the time the device was busy, the idle share, the
 permutation kernel's share and the plain-torch glue's.
 
@@ -117,8 +145,10 @@ power limit, and the one before that the kernels' JSON summary.
 
 from __future__ import annotations
 
+import concurrent.futures
 import itertools
 import json
+import multiprocessing
 import os
 import platform
 import statistics
@@ -138,7 +168,8 @@ except ModuleNotFoundError as e:
     sys.exit("chip_smoke: needs the package directory hades252_tpu_torch/ beside it: run it "
              "from the root of a checkout")
 
-from hades252_tpu_torch import field, plonk, prover_cuda, selftest
+from hades252_tpu_torch import aggregate, field, fri, fri_cuda, plonk, prover_cuda, selftest
+from hades252_tpu_torch import serialize
 from hades252_tpu_torch.gadget import Composer, Constraint, GadgetStrategy
 from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import _build, make_perm_mont_fn, ntt, perm_cuda
@@ -187,6 +218,15 @@ PLONK_SEED = 0
 PLONK_REPS = 3
 NTT_ROWS, NTT_SIZES = 64, (1 << 12, 1 << 14)
 PROVER_PHASES = ("_phase1_wires", "_phase2_grand_product", "_phase3_quotient")
+# the succinct argument (phase 7e): the reference's default preset ("prod"),
+# bench.py verify mode's "fast" preset for the pooled verification of 16
+# proofs, an aggregate of 4 instances
+SUCCINCT_PROD = fri.FriParams()
+SUCCINCT_FAST = fri.FriParams(blowup=4, n_queries=16, final_degree=64, pow_bits=8)
+SUCCINCT_REPS = 3
+POOLED_PROOFS = 16
+AGG_INSTANCES = 4
+ZK_SEED = 0x2C
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): dense int8 and
 # dense bf16 on the tensor cores, and device memory. Its 32-bit integer rate is not published:
@@ -510,6 +550,205 @@ def prover_timings(ctx: dict, smi: str) -> None:
     for n, x in ctx["xs"].items():
         log(f"[time] ntt_batched {NTT_ROWS} x {n}: forward {cuda_ms(lambda: ntt.ntt_batched(x)):.3f} "
             f"ms, inverse {cuda_ms(lambda: ntt.ntt_batched(x, invert=True)):.3f} ms | {smi}")
+
+
+def kernel_timed(fn):
+    """Run fn once with CUDA events around every permutation launch:
+    (its result, wall seconds by the host clock, the launches' device ms)."""
+    events, launch = [], perm_cuda._launch
+
+    def timed_launch(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+
+    perm_cuda._launch = timed_launch
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        perm_cuda._launch = launch
+    return out, wall, sum(start.elapsed_time(end) for start, end in events)
+
+
+def on_card(name: str, fn, schedule: str, want: int) -> tuple:
+    """Drive one path of phase 7e through the kernel of `schedule`: it must
+    launch exactly `want` times (the host perm's calls on the same path)
+    and nothing else. Returns (result, wall s, kernel device ms, launches)."""
+    (out, wall, kernel_ms), counts = drive(lambda: kernel_timed(fn))
+    expected = {s: want if s == schedule else 0 for s in perm_cuda.SCHEDULES}
+    check(want > 0 and counts == expected, f"{name}: launches {counts} != {expected}")
+    log(f"[launches] {name}: {counts}")
+    return out, wall, kernel_ms, counts
+
+
+def on_host(fn, host) -> tuple:
+    """fn(perm) through the native engine: (result, wall s, the calls that
+    permuted at least one state: a kernel launches for those only)."""
+    calls = 0
+
+    def perm(states):
+        nonlocal calls
+        calls += bool(len(states))
+        return host(states)
+
+    t0 = time.perf_counter()
+    out = fn(perm)
+    return out, time.perf_counter() - t0, calls
+
+
+def prove_on_host(job):
+    """One succinct proof through the native engine: a task of phase 7e's
+    pool of host processes (it touches no card)."""
+    composer, pk = job
+    return fri.prove_succinct(composer, pk, fri.default_pcs_perm())
+
+
+def succinct_phase(composers: list) -> dict:
+    """Phase 7e: the succinct and aggregated DEEP-FRI argument with its
+    trees, leaf sponges, grinding and pooled multiproof checks on the
+    card's kernels (fri_cuda.device_pool_perm), held byte for byte and
+    verdict for verdict against the same paths through the native engine.
+    Returns what phase 8 prints."""
+    host = fri.default_pcs_perm()
+    check(host in (fri._pcs_perm_native, fri._pcs_perm_native_mt),
+          "the succinct paths' reference must be the native engine")
+    card, pool = fri_cuda.device_pool_perm("opt"), fri_cuda.device_pool_perm("hybp")
+    c, times, launches = composers[0], {}, {s: 0 for s in perm_cuda.SCHEDULES}
+
+    def add(counts):
+        for s, n in counts.items():
+            launches[s] += n
+
+    # the "prod" proof: card and native engine in turns, each run held equal
+    t0 = time.perf_counter()
+    pk, vk = fri.preprocess_succinct(c, SUCCINCT_PROD, host)
+    preprocess_s = time.perf_counter() - t0
+    check(vk.n == 1024 and vk.n_gates == 978 and vk.params == fri.FriParams(blowup=8, n_queries=35,
+          final_degree=64, pow_bits=16), "the prod preset's key: 978 gates, n = 1024, defaults")
+    pis = [g.pi for g in c.gates]
+    card_runs, host_runs = [], []
+    for rep in range(SUCCINCT_REPS):
+        proof, host_s, calls = on_host(lambda perm: fri.prove_succinct(c, pk, perm), host)
+        want = serialize.proof_to_bytes(proof, vk)
+        mine, wall, kernel_ms, counts = on_card(f"prove_succinct prod, run {rep}",
+                                                lambda: fri.prove_succinct(c, pk, card), "opt", calls)
+        data = serialize.proof_to_bytes(mine, vk)
+        check(data == want, f"prove_succinct prod, run {rep}: card bytes != native engine's")
+        card_runs.append((wall, kernel_ms, calls))
+        host_runs.append(host_s)
+        if rep == 0:
+            add(counts)
+    check(serialize.vk_from_bytes(serialize.vk_to_bytes(vk)) == vk, "vk bytes do not round-trip")
+    back = serialize.proof_from_bytes(data, vk)
+    check(serialize.proof_to_bytes(back, vk) == data, "proof_from_bytes does not invert proof_to_bytes")
+    check(fri.verify_succinct(vk, back, pis, pool), "the card's prod proof does not verify")
+    times["prove"] = (card_runs, host_runs)
+    log(f"[succinct] prod preset ({vk.params}), 978 gates, n = {vk.n}, keyed in {preprocess_s:.1f} s: "
+        f"{SUCCINCT_REPS} proofs through opt == the native engine's byte for byte ({len(data):,} "
+        f"bytes, {card_runs[0][2]} permutation calls a proof); vk and proof bytes round-trip; "
+        "the decoded proof verifies through hybp")
+
+    # zk: one seeded generator for each side
+    pkz, vkz = fri.preprocess_succinct(c, fri.FriParams(zk=True), host)
+    zk_host, _, calls = on_host(
+        lambda perm: fri.prove_succinct(c, pkz, perm, rng=np.random.default_rng(ZK_SEED)), host)
+    zk_card, _, _, counts = on_card("prove_succinct prod zk", lambda: fri.prove_succinct(
+        c, pkz, card, rng=np.random.default_rng(ZK_SEED)), "opt", calls)
+    add(counts)
+    data = serialize.proof_to_bytes(zk_card, vkz)
+    check(data == serialize.proof_to_bytes(zk_host, vkz), "prove_succinct zk: card bytes != native's")
+    check(serialize.proof_to_bytes(serialize.proof_from_bytes(data, vkz), vkz) == data
+          and serialize.vk_from_bytes(serialize.vk_to_bytes(vkz)) == vkz,
+          "zk proof or key bytes do not round-trip")
+    check(fri.verify_succinct(vkz, zk_card, pis, host), "the card's zk proof does not verify")
+    log(f"[succinct] zk, the same seeded generator on both sides: card == native engine byte for "
+        f"byte ({len(data):,} bytes); bytes round-trip; verifies")
+
+    # pooled verification of 16 "fast" proofs through hybp, two of them spoiled
+    pkf, vkf = fri.preprocess_succinct(c, SUCCINCT_FAST, host)
+    # the proofs are host work: one process a core (spawned, so no process
+    # inherits the card's context), all ended when the pool closes
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(POOLED_PROOFS, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool_of_hosts:
+        proofs = list(pool_of_hosts.map(prove_on_host,
+                                        [(ci, pkf) for ci in composers[:POOLED_PROOFS]]))
+    proving_s = time.perf_counter() - t0
+    statements = [[g.pi for g in ci.gates] for ci in composers[:POOLED_PROOFS]]
+    check(all(fri.verify_succinct_batched(vkf, proofs, statements, pool)),
+          f"an honest proof of the {POOLED_PROOFS} failed pooled verification through hybp")
+    bad_eval, bad_byte = 3, 9
+    proofs[bad_eval].evals["a"] = (proofs[bad_eval].evals["a"] + 1) % P
+    blob = bytearray(serialize.proof_to_bytes(proofs[bad_byte], vkf))
+    blob[len(serialize.MAGIC_PROOF) + serialize._PROOF_HEADER.size] ^= 1  # the first root's low byte
+    proofs[bad_byte] = serialize.proof_from_bytes(bytes(blob), vkf)
+    expect = [i not in (bad_eval, bad_byte) for i in range(POOLED_PROOFS)]
+    card_runs, host_runs = [], []
+    for rep in range(SUCCINCT_REPS):
+        want, host_s, calls = on_host(
+            lambda perm: fri.verify_succinct_batched(vkf, proofs, statements, perm), host)
+        got, wall, kernel_ms, counts = on_card(
+            f"verify_succinct_batched {POOLED_PROOFS} fast, run {rep}",
+            lambda: fri.verify_succinct_batched(vkf, proofs, statements, pool), "hybp", calls)
+        check([bool(v) for v in got] == expect, f"pooled verdicts {list(got)} != {expect}")
+        check([bool(v) for v in want] == expect, "pooled verdicts through the native engine differ")
+        card_runs.append((wall, kernel_ms, calls))
+        host_runs.append(host_s)
+        if rep == 0:
+            add(counts)
+    times["verify"] = (card_runs, host_runs)
+    log(f"[succinct] pooled verification of {POOLED_PROOFS} fast-preset proofs ({vkf.params}, "
+        f"proved by the native engine in {proving_s:.1f} s on {os.cpu_count()} host processes) "
+        f"through hybp: the honest ones true; a changed claimed evaluation (slot {bad_eval}) and a "
+        f"changed byte (slot {bad_byte}) false in their slots only; == the native engine's")
+
+    # the aggregate of 4 instances at the prod preset
+    cs = composers[:AGG_INSTANCES]
+    agg_pis = [[g.pi for g in ci.gates] for ci in cs]
+    agg_host, host_s, calls = on_host(lambda perm: aggregate.prove_aggregate(cs, pk, perm), host)
+    agg, wall, kernel_ms, counts = on_card(f"prove_aggregate {AGG_INSTANCES}",
+                                           lambda: aggregate.prove_aggregate(cs, pk, card), "opt",
+                                           calls)
+    add(counts)
+    data = serialize.aggregate_to_bytes(agg, vk)
+    check(data == serialize.aggregate_to_bytes(agg_host, vk),
+          "prove_aggregate: card bytes != native engine's")
+    back = serialize.aggregate_from_bytes(data, vk)
+    check(serialize.aggregate_to_bytes(back, vk) == data, "aggregate bytes do not round-trip")
+    check(aggregate.verify_aggregate(vk, back, agg_pis, pool), "the card's aggregate does not verify")
+    back.evals[2]["z"] = (back.evals[2]["z"] + 1) % P
+    check(not aggregate.verify_aggregate(vk, back, agg_pis, pool),
+          "an aggregate with a changed claimed evaluation must fail")
+    times["aggregate"] = ([(wall, kernel_ms, calls)], [host_s])
+    log(f"[succinct] aggregate of {AGG_INSTANCES} instances, prod preset: card == native engine "
+        f"byte for byte ({len(data):,} bytes); bytes round-trip; verifies through hybp; a changed "
+        "claimed evaluation fails")
+    return {"times": times, "launches": launches, "pk": pk, "card": card, "c": c}
+
+
+def succinct_timings(ctx: dict, smi: str) -> None:
+    """Phase 8 for the succinct paths: wall seconds through the card and
+    through the native engine, and the permutation launches' device ms
+    with their share of the card's wall time."""
+    names = {"prove": f"prove_succinct prod (median of {SUCCINCT_REPS})",
+             "verify": f"verify_succinct_batched of {POOLED_PROOFS} fast proofs (median of "
+                       f"{SUCCINCT_REPS})",
+             "aggregate": f"prove_aggregate of {AGG_INSTANCES} instances, prod"}
+    for key, name in names.items():
+        card_runs, host_runs = ctx["times"][key]
+        wall, kernel_ms, calls = sorted(card_runs)[len(card_runs) // 2]
+        log(f"[time] {name}: card {wall:.6f} s (walls "
+            f"{', '.join(f'{r[0]:.6f}' for r in card_runs)}), of which permutation kernels "
+            f"{kernel_ms:.3f} ms in {calls} launches = {kernel_ms / 1e3 / wall:.5f} of the wall; "
+            f"native engine {statistics.median(host_runs):.6f} s (walls "
+            f"{', '.join(f'{t:.6f}' for t in host_runs)}) | {smi}")
 
 
 def profile_path(name: str, fn) -> None:
@@ -898,6 +1137,12 @@ def run(ckpt_root: str) -> int:
     # 7d. the batched prover and the NTT on the card
     prover = prover_phase(dev, rng)
 
+    # 7e. the succinct and aggregated argument on the kernels
+    succinct = succinct_phase(prover["composers"])
+    for s, n in succinct["launches"].items():
+        main_launches[s] += n
+    log(f"[launches] main path with phase 7e, summed: {main_launches}")
+
     # 8. timings at the main path's shapes
     x = torch.from_numpy(random_elements((WIDTH, PERM_BATCH), rng).transpose(0, 2, 1).copy()).to(dev)
     ms, plain_ms, bounds = {}, {}, {}
@@ -963,6 +1208,7 @@ def run(ckpt_root: str) -> int:
             f"| {smi}")
 
     prover_timings(prover, smi)
+    succinct_timings(succinct, smi)
 
     # 9. on request: where the openings' paths spend their device time
     if "--profile" in sys.argv[1:]:
@@ -986,7 +1232,9 @@ def run(ckpt_root: str) -> int:
                          (f"resume from level {CKPT_KEEP - 1} (hybp13)", resume(hybp13_fn)),
                          (f"prove_batched B={PLONK_BATCHES[0]} (978 gates)",
                           lambda: prover_cuda.prove_batched(
-                              prover["composers"][:PLONK_BATCHES[0]], prover["key"]))):
+                              prover["composers"][:PLONK_BATCHES[0]], prover["key"])),
+                         ("prove_succinct prod (opt)", lambda: fri.prove_succinct(
+                             succinct["c"], succinct["pk"], succinct["card"]))):
             profile_path(f"{name} | {smi}", fn)
 
     kernels = [

@@ -1,5 +1,6 @@
 """hades252_tpu_torch: the Hades252 permutation in PyTorch, with hand-written
-CUDA kernels for the NVIDIA H100 (sm_90a), and the batched PLONK prover.
+CUDA kernels for the NVIDIA H100 (sm_90a), the batched PLONK prover and the
+succinct DEEP-FRI argument.
 
 A port of `hades252_tpu` (JAX, TPU), which stays the reference. This
 package imports neither JAX nor `hades252_tpu`: the GPU host has neither.
@@ -13,7 +14,10 @@ kernel for each of the eight permutation schedules (`ops/perm_cuda.py`,
 cipher, the checkpointed tree build and the native engine's binding; the
 host proof layers (`gadget`, `circuits`, `plonk`, `utils/asset_gen`), the
 batched NTT (`ops/ntt.py`) and the batched prover (`prover_cuda.py`),
-whose three phases run as torch ops on the card.
+whose three phases run as torch ops on the card; the succinct and
+aggregated argument with its wire format (`fri`, `aggregate`,
+`serialize`), whose trees, leaf sponges, grinding and pooled multiproof
+checks run on the kernels through `fri_cuda.device_pool_perm`.
 """
 
 from .params import N_DIGITS, P, WIDTH  # noqa: F401

@@ -9,7 +9,9 @@ single-thread naive schedule is the pinned `vs_baseline` denominator.
 The source and the asset blobs are read by path and never copied. The
 library is built at first use with the host C++ compiler into
 `build/hades252_tpu_torch/`, never under `native/`. Where it cannot be
-built, `NativeUnavailable` is raised and `available()` is false.
+built or loaded (no compiler, a build directory that cannot be made or
+written, a library the loader refuses), `NativeUnavailable` is raised and
+`available()` is false, so the transcripts fall back to the int oracle.
 """
 
 from __future__ import annotations
@@ -66,14 +68,16 @@ def _build() -> Path:
     cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
     if cxx is None:
         raise NativeUnavailable("cannot build native engine: no C++ compiler")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f".{so.stem}.{os.getpid()}.so")
     try:
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([cxx, *CXXFLAGS, "-shared", "-o", str(tmp), str(_SOURCE)],
                        check=True, capture_output=True, text=True)
         os.replace(tmp, so)
     except subprocess.CalledProcessError as e:
         raise NativeUnavailable(f"cannot build native engine: {e.stderr}") from e
+    except OSError as e:  # a build directory that cannot be made or written
+        raise NativeUnavailable(f"cannot build native engine: {e}") from e
     finally:
         tmp.unlink(missing_ok=True)
     return so
@@ -83,7 +87,10 @@ def _build() -> Path:
 def _lib() -> ctypes.CDLL:
     if os.environ.get("HADES_NO_NATIVE"):
         raise NativeUnavailable("disabled via HADES_NO_NATIVE")
-    lib = ctypes.CDLL(str(_build()))
+    try:
+        lib = ctypes.CDLL(str(_build()))
+    except OSError as e:
+        raise NativeUnavailable(f"cannot load native engine: {e}") from e
     lib.hades_init.restype = ctypes.c_int
     lib.hades_init.argtypes = [
         ctypes.c_char_p,

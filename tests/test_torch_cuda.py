@@ -347,3 +347,60 @@ def test_ntt_on_the_card_equals_the_cpu(cuda_device, n):
     ev = ntt.coset_eval_batched(x.to(cuda_device), 7)
     assert torch.equal(ev.cpu(), ntt.coset_eval_batched(x, 7))
     assert torch.equal(ntt.coset_interp_batched(ev, 7).cpu(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 1000, 4096])
+@pytest.mark.parametrize("schedule", ["opt", "hybp"])
+def test_device_pool_perm_equals_the_native_engine(cuda_device, b, schedule):
+    """The succinct argument's card seam on seeded canonical states: the
+    kernel's launch, no padding, the native engine's outputs."""
+    from hades252_tpu_torch import fri_cuda
+    from hades252_tpu_torch.utils import native
+
+    states = field.np_random_elements((b, 5), np.random.default_rng(900 + b)).astype(np.uint32)
+    perm = fri_cuda.device_pool_perm(schedule)
+    before = perm_cuda.launches[schedule]
+    got = perm(states)
+    assert perm_cuda.launches[schedule] == before + 1
+    assert got.dtype == np.uint32 and got.shape == (b, 5, 16)
+    assert np.array_equal(got, native.perm_batch_digits(states))
+
+
+@pytest.mark.cuda
+def test_prove_succinct_through_the_card_equals_the_native_engine(cuda_device):
+    """A "fast"-preset succinct proof whose trees, leaf sponges and grind
+    run on the card: byte-identical to the native engine's, and verified
+    through the card."""
+    from hades252_tpu_torch import fri, fri_cuda, serialize
+
+    rng = np.random.default_rng(11)
+    c = _chain_circuit([int(v) for v in rng.integers(0, 1 << 62, 30)])
+    params = fri.FriParams(blowup=4, n_queries=16, final_degree=64, pow_bits=8)
+    pk, vk = fri.preprocess_succinct(c, params, fri.default_pcs_perm())
+    perm = fri_cuda.device_pool_perm("opt")
+    perm_cuda.reset_launches()
+    on_card = fri.prove_succinct(c, pk, perm)
+    assert perm_cuda.launches["opt"] > 0
+    host = fri.prove_succinct(c, pk, fri.default_pcs_perm())
+    assert serialize.proof_to_bytes(on_card, vk) == serialize.proof_to_bytes(host, vk)
+    assert fri.verify_succinct(vk, on_card, [g.pi for g in c.gates],
+                               fri_cuda.device_pool_perm("hybp"))
+
+
+def test_device_pool_perm_raises_without_a_card():
+    """The card's seam never falls back: without a card its default device
+    raises; the plain version runs only when the caller asks for the CPU."""
+    from hades252_tpu_torch import fri_cuda
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fri_cuda.device_pool_perm()
+    with pytest.raises(ValueError, match="unknown schedule"):
+        fri_cuda.device_pool_perm("nope", device="cpu")
+    states = field.np_random_elements((2, 5), np.random.default_rng(3)).astype(np.uint32)
+    perm_cuda.reset_launches()
+    got = fri_cuda.device_pool_perm(device="cpu")(states)
+    assert perm_cuda.launches == _NO_LAUNCHES
+    assert np.array_equal(got, permute(torch.from_numpy(states.astype(np.int32))).numpy())

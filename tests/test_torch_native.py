@@ -141,3 +141,42 @@ def test_missing_compiler_is_unavailable(monkeypatch, tmp_path):
     with pytest.raises(native.NativeUnavailable, match="no C\\+\\+ compiler"):
         native._build()
     assert not (tmp_path / "build").exists() or os.listdir(tmp_path / "build") == []
+
+
+@pytest.mark.parametrize("fault", ["uncreatable build directory", "library the loader refuses"])
+def test_unbuildable_engine_leaves_the_transcripts_on_the_int_oracle(monkeypatch, tmp_path,
+                                                                     fault):
+    """A build directory that cannot be made, or a library that cannot be
+    loaded, makes the engine unavailable instead of raising, and the
+    transcripts fall back to ScalarStrategy: the same challenges."""
+    from hades252_tpu_torch import plonk
+    from hades252_tpu_torch.strategy import ScalarStrategy
+
+    if fault == "uncreatable build directory":
+        monkeypatch.setattr(native, "_BUILD_DIR", Path("/proc/no_such_dir/build"))
+    else:
+        bad = tmp_path / "not_a_library.so"
+        bad.write_bytes(b"not an ELF file")
+        monkeypatch.setattr(native, "_build", lambda: bad)
+    monkeypatch.setattr(plonk, "_TRANSCRIPT_PERM", None)
+    monkeypatch.setattr(plonk, "_TRANSCRIPT_PERM_BATCH", None)
+    native._lib.cache_clear()
+    try:
+        assert not native.available()
+        with pytest.raises(native.NativeUnavailable):
+            native._lib()
+        strat = ScalarStrategy()
+        label = 0x4841444553
+        tr = plonk.Transcript()
+        tr.absorb(7, 11)
+        want = strat.perm([label, 7, 11, 0, 0])
+        assert tr.challenge() == want[1]
+        bt = plonk.BatchedTranscript(2)
+        bt.absorb_each([5, 9])
+        states = [strat.perm([label, v, 0, 0, 0]) for v in (5, 9)]
+        assert bt.challenge_each() == [s[1] for s in states]
+        assert bt.states == [strat.perm(s) for s in states]
+    finally:
+        monkeypatch.undo()
+        native._lib.cache_clear()
+    assert native.available() == any(shutil.which(cxx) for cxx in ("g++", "c++"))
