@@ -100,6 +100,22 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      `hybp`, and fails with a changed claimed evaluation. Each path must
      launch its kernel exactly as often as the native engine is called on
      the same path (no call falls back), and no other kernel;
+  7f. drives the device-resident succinct prover
+     (`fri_cuda.prove_succinct_device[_batch]`: the polynomials, trees, DEEP
+     composition, folds, grinding and openings on the card, the FRI commit
+     phase as one CUDA graph) on phase 7e's keys: the prod proof of the same
+     instance, a warm-up and 3 timed runs, each byte-identical to phase 7e's
+     native-engine proof and verified through `hybp`; the FRI phase's graph
+     replay equal to its eager body on seeded inputs, tensor for tensor; the
+     zk proof with phase 7e's seeded generator, equal to its native bytes;
+     bench.py's fri mode, B = 8 instances at the "fast" preset through
+     `prove_succinct_device_batch` (a warm-up and 3 timed runs), equal to the
+     first 8 of phase 7e's pooled native proofs and verified through `hybp`;
+     composers of two circuits refused with nothing launched. Each shape's
+     graph is captured before its runs; each run must launch `opt` exactly
+     as `device_proof_launches` says (its trees' chunks and levels and its
+     grinding windows by the wrappers' counts, the FRI phase as one replay
+     of a graph that holds its launches) and no other kernel;
   8. times the kernels, their plain versions, the trees, the openings,
      the sponge, the cipher and the checkpointed build (beside the plain
      `merkle_root` through the same kernel, so the cost of the ten
@@ -118,9 +134,13 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      clock), of the pooled verification of 16 "fast" proofs (median of 3)
      and of the aggregate of 4 instances (one run each), each with its
      permutation launches' device ms (CUDA events around every launch) and
-     their share of the wall.
+     their share of the wall. The device prover of phase 7f: the seconds of
+     a prod proof (median of 3, host clock) beside phase 7e's card and
+     native walls, proofs/s at fast B = 8, the peak device memory of each,
+     the FRI phase's graph replay beside its eager body and
+     `_inv_mont_dev` over a prod proof's 2 x 32,768 points (CUDA events).
 
-Each path of phases 5-7b and 7e runs with the launch counts set to 0 just
+Each path of phases 5-7b, 7e and 7f runs with the launch counts set to 0 just
 before it and read just after; the kernels' JSON line reports their sum. The
 earlier paths run at the depth they had: the `naive` and `mxu8` cross-check
 trees over 2^16 leaves, everything else at full size. No
@@ -132,9 +152,10 @@ the cipher through `opt`, of the 2^16-leaf tree through `naive` and `opt`,
 of the cipher through `mxu8`, of each of the
 openings' paths, of the checkpointed build (through `mxu`), of its two
 resumes (through `hyb13` and `hybp13`, the damage included) and of one
-`prove_batched` at B = 16 and of one "prod" `fri.prove_succinct` through
-`opt` with `torch.profiler` (phase 9) and prints, per path, the span of
-its device work, the time the device was busy, the idle share, the
+`prove_batched` at B = 16, of one "prod" `fri.prove_succinct` through
+`opt` and of one prod `fri_cuda.prove_succinct_device` with
+`torch.profiler` (phase 9) and prints, per path, the span of its device
+work, the time the device was busy, the idle share, the
 permutation kernel's share and the plain-torch glue's.
 
 Every check is exact (integer arithmetic: tolerance 0). Any failure raises
@@ -227,6 +248,9 @@ SUCCINCT_REPS = 3
 POOLED_PROOFS = 16
 AGG_INSTANCES = 4
 ZK_SEED = 0x2C
+# the device-resident prover (phase 7f): bench.py's fri mode proves B = 8
+# instances at the "fast" preset through it (bench.py:393-470)
+DEVICE_BATCH = 8
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): dense int8 and
 # dense bf16 on the tensor cores, and device memory. Its 32-bit integer rate is not published:
@@ -649,6 +673,7 @@ def succinct_phase(composers: list) -> dict:
     check(serialize.proof_to_bytes(back, vk) == data, "proof_from_bytes does not invert proof_to_bytes")
     check(fri.verify_succinct(vk, back, pis, pool), "the card's prod proof does not verify")
     times["prove"] = (card_runs, host_runs)
+    prod_bytes = want
     log(f"[succinct] prod preset ({vk.params}), 978 gates, n = {vk.n}, keyed in {preprocess_s:.1f} s: "
         f"{SUCCINCT_REPS} proofs through opt == the native engine's byte for byte ({len(data):,} "
         f"bytes, {card_runs[0][2]} permutation calls a proof); vk and proof bytes round-trip; "
@@ -667,6 +692,7 @@ def succinct_phase(composers: list) -> dict:
           and serialize.vk_from_bytes(serialize.vk_to_bytes(vkz)) == vkz,
           "zk proof or key bytes do not round-trip")
     check(fri.verify_succinct(vkz, zk_card, pis, host), "the card's zk proof does not verify")
+    zk_bytes = data
     log(f"[succinct] zk, the same seeded generator on both sides: card == native engine byte for "
         f"byte ({len(data):,} bytes); bytes round-trip; verifies")
 
@@ -684,6 +710,8 @@ def succinct_phase(composers: list) -> dict:
     statements = [[g.pi for g in ci.gates] for ci in composers[:POOLED_PROOFS]]
     check(all(fri.verify_succinct_batched(vkf, proofs, statements, pool)),
           f"an honest proof of the {POOLED_PROOFS} failed pooled verification through hybp")
+    # phase 7f proves the first DEVICE_BATCH again on the card: their bytes before the spoiling
+    fast_bytes = [serialize.proof_to_bytes(p, vkf) for p in proofs[:DEVICE_BATCH]]
     bad_eval, bad_byte = 3, 9
     proofs[bad_eval].evals["a"] = (proofs[bad_eval].evals["a"] + 1) % P
     blob = bytearray(serialize.proof_to_bytes(proofs[bad_byte], vkf))
@@ -730,7 +758,9 @@ def succinct_phase(composers: list) -> dict:
     log(f"[succinct] aggregate of {AGG_INSTANCES} instances, prod preset: card == native engine "
         f"byte for byte ({len(data):,} bytes); bytes round-trip; verifies through hybp; a changed "
         "claimed evaluation fails")
-    return {"times": times, "launches": launches, "pk": pk, "card": card, "c": c}
+    return {"times": times, "launches": launches, "pk": pk, "card": card, "c": c, "pool": pool,
+            "keys": {"prod": (pk, vk), "zk": (pkz, vkz), "fast": (pkf, vkf)},
+            "bytes": {"prod": prod_bytes, "zk": zk_bytes, "fast": fast_bytes}}
 
 
 def succinct_timings(ctx: dict, smi: str) -> None:
@@ -749,6 +779,195 @@ def succinct_timings(ctx: dict, smi: str) -> None:
             f"{kernel_ms:.3f} ms in {calls} launches = {kernel_ms / 1e3 / wall:.5f} of the wall; "
             f"native engine {statistics.median(host_runs):.6f} s (walls "
             f"{', '.join(f'{t:.6f}' for t in host_runs)}) | {smi}")
+
+
+def device_proof_launches(vk, nonces: list) -> tuple:
+    """The kernel launches of one fri_cuda.prove_succinct_device_batch under
+    vk's parameters, for any B: (eager, in the FRI phase's graph). Eager:
+    each leaf-sponge chunk and level of the w, z and t trees, and one a
+    grinding window (as many windows as the largest nonce needed); the
+    graph: one challenge a fold and, a committed layer, its one sponge
+    chunk, its levels and its root's absorb."""
+    schema = fri.proof_schema(vk.n, vk.params)
+    widths = [2 * len(cols) for tree, cols in fri.tree_columns(vk.params.zk).items() if tree != "k"]
+    eager = sum(-(-w // 4) + schema["h_pos"] for w in widths)
+    if vk.params.pow_bits:
+        eager += max(nonces) // max(4096, min(2 << vk.params.pow_bits, 1 << 17)) + 1
+    graph = schema["n_folds"] + sum(-(-bs // 4) + h + 1 for (_, bs), h in
+                                    zip(schema["sched"], schema["layer_heights"]))
+    return eager, graph
+
+
+def device_prover_phase(composers: list, succinct: dict) -> dict:
+    """Phase 7f: the device-resident succinct prover
+    (fri_cuda.prove_succinct_device[_batch]) on phase 7e's keys, held byte
+    for byte to phase 7e's native-engine proofs, with exact launch counts:
+    the eager ones by the wrappers' counts, the FRI phase's by its graph's
+    replays times the launches the graph holds. Each shape's graph is
+    captured before its runs, so the counts hold only what the proofs
+    launched. Returns what phase 8 prints."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    c, pool = composers[0], succinct["pool"]
+    pis = [g.pi for g in c.gates]
+    launches, times = {s: 0 for s in perm_cuda.SCHEDULES}, {}
+
+    def prepare(b, vk):
+        schema = fri.proof_schema(vk.n, vk.params)
+        t0 = time.perf_counter()
+        graph = fri_cuda.fri_phase_graph(b, schema["m0"], schema["n_folds"], "opt", dev)
+        torch.cuda.synchronize()
+        return graph, time.perf_counter() - t0
+
+    def counted(name, fn, vk, graph):
+        """fn() with the counts at 0 just before it: (its proofs, wall s,
+        peak device bytes); every opt launch as device_proof_launches says,
+        none of another kernel."""
+        replays = graph.replays
+
+        def timed():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+        (proofs, wall, peak), counts = drive(timed)
+        eager, in_graph = device_proof_launches(vk, [p.pow_nonce for p in proofs])
+        only_opt = {s: 0 for s in perm_cuda.SCHEDULES}
+        check(counts == {**only_opt, "opt": eager}, f"{name}: launches {counts}, {eager} opt expected")
+        check(graph.replays == replays + 1 and graph.held == {**only_opt, "opt": in_graph},
+              f"{name}: {graph.replays - replays} replays of a graph of {graph.held}, one of "
+              f"{in_graph} opt expected")
+        for s in perm_cuda.SCHEDULES:
+            launches[s] += counts[s] + graph.held[s]
+        log(f"[launches] {name}: opt {eager} eager + {in_graph} in one replay of the FRI phase's graph")
+        return proofs, wall, peak
+
+    # prod: the first instance at phase 7e's key, a warm-up run and SUCCINCT_REPS timed ones
+    pk, vk = succinct["keys"]["prod"]
+    graph, capture_s = prepare(1, vk)
+    runs = []
+    for rep in range(1 + SUCCINCT_REPS):
+        (proof,), wall, peak = counted(f"prove_succinct_device prod, run {rep}",
+                                       lambda: [fri_cuda.prove_succinct_device(c, pk)], vk, graph)
+        check(serialize.proof_to_bytes(proof, vk) == succinct["bytes"]["prod"],
+              f"prove_succinct_device prod, run {rep}: bytes != phase 7e's native engine's")
+        check(fri.verify_succinct(vk, proof, pis, pool), f"prove_succinct_device prod, run {rep}: "
+              "does not verify through hybp")
+        runs.append((wall, peak))
+    times["prod"] = runs[1:]
+    log(f"[device prover] prod preset, {len(c.gates)} gates, n = {vk.n}: the FRI phase's graph captured in "
+        f"{capture_s:.2f} s; {1 + SUCCINCT_REPS} proofs through prove_succinct_device == phase 7e's "
+        "native-engine proof byte for byte, each verifies through hybp")
+
+    # the graph's replay against the eager body on the same inputs
+    rng = np.random.default_rng(SEED + 7)
+    schema = fri.proof_schema(vk.n, vk.params)
+    m0, n_folds = schema["m0"], schema["n_folds"]
+    f0 = torch.from_numpy(random_elements((1, m0), rng)).to(dev)
+    tr = torch.from_numpy(random_elements((1, WIDTH), rng)).to(dev)
+    consts = fri_cuda._fri_phase_consts(m0, n_folds, dev)
+
+    def eager():
+        return fri_cuda._fri_phase_body(f0, tr, *consts, fri_cuda._perm_fn("opt"))
+
+    def flat(out):
+        cur, state, evals, levels = out
+        return [cur, state, *evals, *(lv for lvs in levels for lv in lvs)]
+
+    got, want = flat(graph(f0, tr)), flat(eager())
+    check(len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want)),
+          "the FRI phase's graph replay != its eager body")
+    log(f"[device prover] the FRI phase's graph (B = 1, m0 = {m0}, {n_folds} folds, "
+        f"{graph.held['opt']} opt launches) replays the eager body's outputs bit for bit "
+        f"({len(got)} tensors)")
+
+    # zk with the seeded generator of phase 7e
+    pkz, vkz = succinct["keys"]["zk"]
+    graph_zk, _ = prepare(1, vkz)
+    (proof,), wall, peak = counted("prove_succinct_device prod zk", lambda: [fri_cuda.prove_succinct_device(
+        c, pkz, rng=np.random.default_rng(ZK_SEED))], vkz, graph_zk)
+    check(serialize.proof_to_bytes(proof, vkz) == succinct["bytes"]["zk"],
+          "prove_succinct_device zk: bytes != phase 7e's native engine's")
+    check(fri.verify_succinct(vkz, proof, pis, pool), "prove_succinct_device zk: does not verify")
+    times["zk"] = [(wall, peak)]
+    log("[device prover] zk, phase 7e's seeded generator: == the native engine's bytes; verifies "
+        "through hybp")
+
+    # bench.py's fri mode: B = 8 at the fast preset, against phase 7e's pooled native proofs
+    pkf, vkf = succinct["keys"]["fast"]
+    cs = composers[:DEVICE_BATCH]
+    graph_f, _ = prepare(DEVICE_BATCH, vkf)
+    runs = []
+    for rep in range(1 + SUCCINCT_REPS):
+        proofs, wall, peak = counted(f"prove_succinct_device_batch B={DEVICE_BATCH} fast, run {rep}",
+                                     lambda: fri_cuda.prove_succinct_device_batch(cs, pkf), vkf,
+                                     graph_f)
+        check([serialize.proof_to_bytes(p, vkf) for p in proofs] == succinct["bytes"]["fast"],
+              f"prove_succinct_device_batch B={DEVICE_BATCH}, run {rep}: bytes != phase 7e's")
+        runs.append((wall, peak))
+    check(all(fri.verify_succinct_batched(vkf, proofs, [[g.pi for g in ci.gates] for ci in cs], pool)),
+          f"prove_succinct_device_batch B={DEVICE_BATCH}: a proof does not verify through hybp")
+    times["fast"] = runs[1:]
+    log(f"[device prover] fast preset ({vkf.params}): B = {DEVICE_BATCH} through "
+        f"prove_succinct_device_batch == the first {DEVICE_BATCH} of phase 7e's pooled native "
+        f"proofs byte for byte, {1 + SUCCINCT_REPS} runs; all verify through hybp")
+
+    # rejections
+    other = Composer()
+    a = other.append_witness(3)
+    other.gate_mul(Constraint().mult(1).a(a).b(a))
+    perm_cuda.reset_launches()
+    try:
+        fri_cuda.prove_succinct_device_batch([c, other], pk)
+    except ValueError as e:
+        check("circuit structure" in str(e), f"mixed circuits: unexpected refusal {e}")
+    else:
+        check(False, "prove_succinct_device_batch: composers of two circuits must be refused")
+    check(not any(perm_cuda.launches.values()), "a refused batch must launch nothing")
+    log("[device prover] composers of two circuits refused, nothing launched; phase 7f took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    xs = fri_cuda._on_device(fri_cuda._xs_digits, (m0,), dev)
+    points = torch.from_numpy(random_elements((2,), rng)).to(dev)
+    return {"times": times, "launches": launches, "graph": graph, "eager": eager,
+            "f0": f0, "tr": tr, "capture_s": capture_s, "m0": m0,
+            "invert": lambda: fri_cuda._inv_mont_dev(xs, points), "pk": pk, "c": c}
+
+
+def device_prover_timings(ctx: dict, succinct: dict, smi: str) -> None:
+    """Phase 8 for the device prover: seconds a prod proof beside phase 7e's
+    host-orchestrated card wall and native wall, proofs/s at B = 8 fast, the
+    FRI phase's graph replay beside its eager body, the inversion, and the
+    peak device memory."""
+    def med(runs):
+        return sorted(runs)[len(runs) // 2]
+
+    card_runs, host_runs = succinct["times"]["prove"]
+    wall, peak = med(ctx["times"]["prod"])
+    log(f"[time] prove_succinct_device prod (median of {SUCCINCT_REPS} after a warm-up): "
+        f"{wall:.6f} s (walls {', '.join(f'{r[0]:.6f}' for r in ctx['times']['prod'])}), peak "
+        f"device memory {peak / 2**30:.3f} GiB; phase 7e's prove_succinct through the card "
+        f"{med(card_runs)[0]:.6f} s, through the native engine {statistics.median(host_runs):.6f} s "
+        f"| {smi}")
+    wall, peak = ctx["times"]["zk"][0]
+    log(f"[time] prove_succinct_device prod zk (one run): {wall:.6f} s, peak device memory "
+        f"{peak / 2**30:.3f} GiB | {smi}")
+    wall, peak = med(ctx["times"]["fast"])
+    log(f"[time] prove_succinct_device_batch B={DEVICE_BATCH} fast (median of {SUCCINCT_REPS} after "
+        f"a warm-up): {wall:.6f} s a batch = {DEVICE_BATCH / wall:.4f} proofs/s (walls "
+        f"{', '.join(f'{r[0]:.6f}' for r in ctx['times']['fast'])}), peak device memory "
+        f"{peak / 2**30:.3f} GiB | {smi}")
+    graph = ctx["graph"]
+    replay_ms = cuda_ms(lambda: graph(ctx["f0"], ctx["tr"]))
+    eager_ms = cuda_ms(ctx["eager"])
+    log(f"[time] the FRI phase, prod shape (B = 1, m0 = {ctx['m0']}, {graph.held['opt']} opt "
+        f"launches): graph replay {replay_ms:.3f} ms, eager body {eager_ms:.3f} ms; captured in "
+        f"{ctx['capture_s']:.3f} s | {smi}")
+    log(f"[time] _inv_mont_dev over 2 x {ctx['m0']} points (Fermat an element, the DEEP "
+        f"denominators of a prod proof): {cuda_ms(ctx['invert']):.3f} ms | {smi}")
 
 
 def profile_path(name: str, fn) -> None:
@@ -824,6 +1043,7 @@ def main() -> int:
 
 
 def run(ckpt_root: str) -> int:
+    t_run = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
@@ -1143,6 +1363,12 @@ def run(ckpt_root: str) -> int:
         main_launches[s] += n
     log(f"[launches] main path with phase 7e, summed: {main_launches}")
 
+    # 7f. the device-resident succinct prover
+    device = device_prover_phase(prover["composers"], succinct)
+    for s, n in device["launches"].items():
+        main_launches[s] += n
+    log(f"[launches] main path with phase 7f, summed: {main_launches}")
+
     # 8. timings at the main path's shapes
     x = torch.from_numpy(random_elements((WIDTH, PERM_BATCH), rng).transpose(0, 2, 1).copy()).to(dev)
     ms, plain_ms, bounds = {}, {}, {}
@@ -1209,6 +1435,7 @@ def run(ckpt_root: str) -> int:
 
     prover_timings(prover, smi)
     succinct_timings(succinct, smi)
+    device_prover_timings(device, succinct, smi)
 
     # 9. on request: where the openings' paths spend their device time
     if "--profile" in sys.argv[1:]:
@@ -1234,7 +1461,9 @@ def run(ckpt_root: str) -> int:
                           lambda: prover_cuda.prove_batched(
                               prover["composers"][:PLONK_BATCHES[0]], prover["key"])),
                          ("prove_succinct prod (opt)", lambda: fri.prove_succinct(
-                             succinct["c"], succinct["pk"], succinct["card"]))):
+                             succinct["c"], succinct["pk"], succinct["card"])),
+                         ("prove_succinct_device prod (opt)", lambda: fri_cuda.prove_succinct_device(
+                             device["c"], device["pk"]))):
             profile_path(f"{name} | {smi}", fn)
 
     kernels = [
@@ -1244,6 +1473,7 @@ def run(ckpt_root: str) -> int:
          "bound_by": bounds[s]["bound_by"], "library_ms": None}
         for s in perm_cuda.SCHEDULES
     ]
+    log(f"[run] {time.perf_counter() - t_run:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,7 +17,10 @@ batched NTT (`ops/ntt.py`) and the batched prover (`prover_cuda.py`),
 whose three phases run as torch ops on the card; the succinct and
 aggregated argument with its wire format (`fri`, `aggregate`,
 `serialize`), whose trees, leaf sponges, grinding and pooled multiproof
-checks run on the kernels through `fri_cuda.device_pool_perm`.
+checks run on the kernels through `fri_cuda.device_pool_perm`; and the
+device-resident succinct prover (`fri_cuda.prove_succinct_device[_batch]`),
+which keeps every O(m0) object of the argument on the card and runs the
+FRI commit phase as one CUDA graph.
 """
 
 from .params import N_DIGITS, P, WIDTH  # noqa: F401

@@ -388,6 +388,105 @@ def test_prove_succinct_through_the_card_equals_the_native_engine(cuda_device):
                                fri_cuda.device_pool_perm("hybp"))
 
 
+def _fast_instances(b: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [_chain_circuit([int(v) for v in rng.integers(0, 1 << 62, 30)]) for _ in range(b)]
+
+
+_FAST = dict(blowup=4, n_queries=16, final_degree=64, pow_bits=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zk", [False, True])
+@pytest.mark.parametrize("b", [1, 4])
+def test_device_prover_equals_the_native_engine(cuda_device, b, zk):
+    """The device-resident succinct prover on its default device, the card,
+    at the "fast" preset with 8 PoW bits: each proof byte-identical to the
+    native engine's fri.prove_succinct for the same instance and rng, and
+    verified through the card; only the opt kernel launches."""
+    from hades252_tpu_torch import fri, fri_cuda, serialize
+
+    cs = _fast_instances(b, 12 + b)
+    pk, vk = fri.preprocess_succinct(cs[0], fri.FriParams(**_FAST, zk=zk), fri.default_pcs_perm())
+    perm_cuda.reset_launches()
+    proofs = fri_cuda.prove_succinct_device_batch(
+        cs, pk, [np.random.default_rng(40 + k) for k in range(b)])
+    torch.cuda.synchronize()
+    assert perm_cuda.launches["opt"] > 0
+    assert all(n == 0 for s, n in perm_cuda.launches.items() if s != "opt")
+    for k, (c, proof) in enumerate(zip(cs, proofs)):
+        host = fri.prove_succinct(c, pk, fri.default_pcs_perm(), rng=np.random.default_rng(40 + k))
+        assert serialize.proof_to_bytes(proof, vk) == serialize.proof_to_bytes(host, vk)
+    assert all(fri.verify_succinct_batched(vk, proofs, [[g.pi for g in c.gates] for c in cs],
+                                           fri_cuda.device_pool_perm("hybp")))
+
+
+def _flat(out) -> list:
+    cur, state, evals, levels = out
+    return [cur, state, *evals, *(lv for lvs in levels for lv in lvs)]
+
+
+@pytest.mark.cuda
+def test_fri_phase_graph_replays_the_eager_body(cuda_device):
+    """The FRI commit phase captured as one CUDA graph: its replays equal the
+    eager body on the same inputs, tensor for tensor, for two inputs in
+    turn (the static buffers are reused); a replay calls no wrapper, and
+    the graph holds the launches the eager body makes."""
+    from hades252_tpu_torch import fri_cuda
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    b, m0, n_folds = 2, 1024, 5  # layers (1, 4) and (3, 4): trees of heights 4 and 3
+    graph = fri_cuda.fri_phase_graph(b, m0, n_folds, "opt", dev)
+    assert graph.held == {**_NO_LAUNCHES, "opt": n_folds + (1 + 4 + 1) + (1 + 3 + 1)}
+    for seed in (31, 32):
+        f0, tr = _elements((b, m0), seed).to(dev), _elements((b, 5), seed + 100).to(dev)
+        perm_cuda.reset_launches()
+        replays = graph.replays
+        got = _flat(graph(f0, tr))
+        torch.cuda.synchronize()
+        assert perm_cuda.launches == _NO_LAUNCHES and graph.replays == replays + 1
+        consts = fri_cuda._fri_phase_consts(m0, n_folds, dev)
+        want = _flat(fri_cuda._fri_phase_body(f0, tr, *consts, fri_cuda._perm_fn("opt")))
+        assert perm_cuda.launches == graph.held
+        assert len(got) == len(want) and all(torch.equal(x, y) for x, y in zip(got, want))
+        # the graph holds its own constant tables: dropping the cache's
+        # copies and reusing their memory changes no replay
+        del consts, want
+        fri_cuda._on_device.cache_clear()
+        junk = [torch.full((1 << 16, 16), 0x5A5A, dtype=torch.int32, device=dev) for _ in range(8)]
+    del junk
+
+
+@pytest.mark.cuda
+def test_device_prover_honours_the_schedule(cuda_device):
+    """schedule="hybp": every launch of the proof, eager and in the FRI
+    phase's graph, is hybp's, as many as the plan says; the bytes are the
+    default opt proof's."""
+    import sys
+    from pathlib import Path
+
+    from hades252_tpu_torch import fri, fri_cuda, serialize
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cs = _fast_instances(2, 77)
+    pk, vk = fri.preprocess_succinct(cs[0], fri.FriParams(**_FAST), fri.default_pcs_perm())
+    schema = fri.proof_schema(vk.n, vk.params)
+    graph = fri_cuda.fri_phase_graph(2, schema["m0"], schema["n_folds"], "hybp", dev)
+    perm_cuda.reset_launches()
+    replays = graph.replays
+    proofs = fri_cuda.prove_succinct_device_batch(cs, pk, schedule="hybp")
+    torch.cuda.synchronize()
+    eager, in_graph = chip_smoke.device_proof_launches(vk, [p.pow_nonce for p in proofs])
+    assert perm_cuda.launches == {**_NO_LAUNCHES, "hybp": eager}
+    assert graph.replays == replays + 1 and graph.held == {**_NO_LAUNCHES, "hybp": in_graph}
+    opt = fri_cuda.prove_succinct_device_batch(cs, pk)
+    assert [serialize.proof_to_bytes(p, vk) for p in proofs] == \
+        [serialize.proof_to_bytes(p, vk) for p in opt]
+
+
 def test_device_pool_perm_raises_without_a_card():
     """The card's seam never falls back: without a card its default device
     raises; the plain version runs only when the caller asks for the CPU."""

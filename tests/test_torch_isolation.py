@@ -49,6 +49,16 @@ pk, vk = fri.preprocess_succinct(c, fri.FriParams(blowup=4, n_queries=6, final_d
                                                   pow_bits=2))
 succinct = serialize.proof_from_bytes(serialize.proof_to_bytes(fri.prove_succinct(c, pk), vk), vk)
 assert fri.verify_succinct(vk, succinct, [g.pi for g in c.gates])
+from hades252_tpu_torch import fri_cuda
+from hades252_tpu_torch.ops import perm_cuda
+# the device prover on CPU tensors: the plain version of the opt kernel
+# (about 0.7 s a call on a CPU, so no grinding), no launch
+pk, vk = fri.preprocess_succinct(c, fri.FriParams(blowup=4, n_queries=3, final_degree=8,
+                                                  pow_bits=0))
+perm_cuda.reset_launches()
+on_cpu = fri_cuda.prove_succinct_device(c, pk, device="cpu")
+assert not any(perm_cuda.launches.values())
+assert serialize.proof_to_bytes(on_cpu, vk) == serialize.proof_to_bytes(fri.prove_succinct(c, pk), vk)
 print(len(names))
 """
 
@@ -60,7 +70,8 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     # every module of the package: the cipher, the checkpoint, the native
     # binding, the host proof layers, the NTT, the batched prover and the
-    # succinct argument with its codecs, aggregation and card seam
+    # succinct argument with its codecs, aggregation, card seam and device
+    # prover (a tiny proof through the plain version, byte-identical)
     assert int(proc.stdout.strip()) >= 28
 
 
