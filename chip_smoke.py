@@ -116,6 +116,28 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      as `device_proof_launches` says (its trees' chunks and levels and its
      grinding windows by the wrappers' counts, the FRI phase as one replay
      of a graph that holds its launches) and no other kernel;
+  7g. drives the device aggregate prover (`fri_cuda.prove_aggregate_device`:
+     one argument for B instances, its FRI phase one graph replay) and the
+     device verifiers: the aggregate of phase 7e's 4 instances at its prod
+     key (a warm-up and 3 timed runs), each byte-identical to phase 7e's
+     native-engine aggregate; bench.py's aggregate mode, 8 instances at the
+     "fast" preset (a warm-up and 3 timed runs) and the same with `zk=True`
+     and one seeded generator a side, each byte-identical to the native
+     engine's `aggregate.prove_aggregate` run here; `verify_aggregate_device`
+     through `hybp` accepting each and refusing a changed claimed
+     evaluation; `verify_succinct_device_batch` through `hybp` on phase 7e's
+     16 fast proofs (two spoiled) and on one, fused (the pooled Merkle phase
+     as one graph replay) and not (a launch a sponge chunk and a level), 3
+     runs each, the native engine's verdicts; `device_chain_fn` on 2^10
+     seeded openings of a 2^14-leaf tree (a prod proof's m0/2 positions)
+     equal to the host loop of `fri.tree_verify_batched`, a changed value
+     failing its row only; the chain's, the fused pool's and the fast
+     aggregate's FRI-phase graph replays equal to their eager bodies;
+     composers of two circuits refused with nothing launched. Every graph
+     is captured before the runs that are counted, and each run must launch
+     as `device_aggregate_launches` or `pooled_merkle_launches` says: the
+     wrappers' counts, plus each graph's replays times the launches it
+     holds, and no other kernel;
   8. times the kernels, their plain versions, the trees, the openings,
      the sponge, the cipher and the checkpointed build (beside the plain
      `merkle_root` through the same kernel, so the cost of the ten
@@ -139,8 +161,14 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      native walls, proofs/s at fast B = 8, the peak device memory of each,
      the FRI phase's graph replay beside its eager body and
      `_inv_mont_dev` over a prod proof's 2 x 32,768 points (CUDA events).
+     Phase 7g's: the seconds of a device aggregate (prod B = 4 and fast
+     B = 8, median of 3; zk one run) beside phase 7e's card and native
+     walls and the native fast aggregate, of a fused and an unfused
+     verification of 16 and of 1 (median of 3) beside phase 7e's pooled
+     path, the fused pool's graph replay beside its eager body (CUDA
+     events), and the peak device memory of each.
 
-Each path of phases 5-7b, 7e and 7f runs with the launch counts set to 0 just
+Each path of phases 5-7b, 7e, 7f and 7g runs with the launch counts set to 0 just
 before it and read just after; the kernels' JSON line reports their sum. The
 earlier paths run at the depth they had: the `naive` and `mxu8` cross-check
 trees over 2^16 leaves, everything else at full size. No
@@ -153,7 +181,8 @@ of the cipher through `mxu8`, of each of the
 openings' paths, of the checkpointed build (through `mxu`), of its two
 resumes (through `hyb13` and `hybp13`, the damage included) and of one
 `prove_batched` at B = 16, of one "prod" `fri.prove_succinct` through
-`opt` and of one prod `fri_cuda.prove_succinct_device` with
+`opt`, of one prod `fri_cuda.prove_succinct_device`, of one prod device
+aggregate of 4 and of one fused verification of 16 fast proofs with
 `torch.profiler` (phase 9) and prints, per path, the span of its device
 work, the time the device was busy, the idle share, the
 permutation kernel's share and the plain-torch glue's.
@@ -167,6 +196,8 @@ power limit, and the one before that the kernels' JSON summary.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
+import functools
 import itertools
 import json
 import multiprocessing
@@ -197,7 +228,7 @@ from hades252_tpu_torch.ops import _build, make_perm_mont_fn, ntt, perm_cuda
 from hades252_tpu_torch.params import P, WIDTH, mxu8_tables
 from hades252_tpu_torch.strategy import ScalarStrategy
 from hades252_tpu_torch.utils import checkpoint, native
-from hades252_tpu_torch.utils.encoding import digits_to_ints
+from hades252_tpu_torch.utils.encoding import digits_to_ints, ints_to_digits
 
 SEED = 0x5EED
 PERM_BATCH = 1 << 14
@@ -251,6 +282,10 @@ ZK_SEED = 0x2C
 # the device-resident prover (phase 7f): bench.py's fri mode proves B = 8
 # instances at the "fast" preset through it (bench.py:393-470)
 DEVICE_BATCH = 8
+# the device aggregate prover and verifiers (phase 7g): bench.py's aggregate
+# mode proves B = 8 instances at the "fast" preset (bench.py:488-567)
+AGG_FAST_INSTANCES = 8
+CHAIN_LEAVES, CHAIN_OPENINGS = 1 << 14, 1 << 10   # a prod proof's m0/2 positions
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): dense int8 and
 # dense bf16 on the tensor cores, and device memory. Its 32-bit integer rate is not published:
@@ -746,8 +781,8 @@ def succinct_phase(composers: list) -> dict:
                                            calls)
     add(counts)
     data = serialize.aggregate_to_bytes(agg, vk)
-    check(data == serialize.aggregate_to_bytes(agg_host, vk),
-          "prove_aggregate: card bytes != native engine's")
+    aggregate_bytes = serialize.aggregate_to_bytes(agg_host, vk)  # phase 7g's expected bytes
+    check(data == aggregate_bytes, "prove_aggregate: card bytes != native engine's")
     back = serialize.aggregate_from_bytes(data, vk)
     check(serialize.aggregate_to_bytes(back, vk) == data, "aggregate bytes do not round-trip")
     check(aggregate.verify_aggregate(vk, back, agg_pis, pool), "the card's aggregate does not verify")
@@ -760,7 +795,9 @@ def succinct_phase(composers: list) -> dict:
         "claimed evaluation fails")
     return {"times": times, "launches": launches, "pk": pk, "card": card, "c": c, "pool": pool,
             "keys": {"prod": (pk, vk), "zk": (pkz, vkz), "fast": (pkf, vkf)},
-            "bytes": {"prod": prod_bytes, "zk": zk_bytes, "fast": fast_bytes}}
+            "bytes": {"prod": prod_bytes, "zk": zk_bytes, "fast": fast_bytes,
+                      "aggregate": aggregate_bytes},
+            "pooled": (proofs, statements, expect)}
 
 
 def succinct_timings(ctx: dict, smi: str) -> None:
@@ -781,21 +818,56 @@ def succinct_timings(ctx: dict, smi: str) -> None:
             f"{', '.join(f'{t:.6f}' for t in host_runs)}) | {smi}")
 
 
+def _grind_windows(params, nonce: int) -> int:
+    """The grinding windows the device provers search to find `nonce`."""
+    if not params.pow_bits:
+        return 0
+    return nonce // max(4096, min(2 << params.pow_bits, 1 << 17)) + 1
+
+
+def _fri_graph_launches(schema: dict) -> int:
+    """The launches the FRI phase's graph holds: one challenge a fold and, a
+    committed layer, its one sponge chunk, its levels and its root's absorb."""
+    return schema["n_folds"] + sum(-(-bs // 4) + h + 1 for (_, bs), h in
+                                   zip(schema["sched"], schema["layer_heights"]))
+
+
 def device_proof_launches(vk, nonces: list) -> tuple:
     """The kernel launches of one fri_cuda.prove_succinct_device_batch under
     vk's parameters, for any B: (eager, in the FRI phase's graph). Eager:
     each leaf-sponge chunk and level of the w, z and t trees, and one a
-    grinding window (as many windows as the largest nonce needed); the
-    graph: one challenge a fold and, a committed layer, its one sponge
-    chunk, its levels and its root's absorb."""
+    grinding window (as many windows as the largest nonce needed)."""
     schema = fri.proof_schema(vk.n, vk.params)
     widths = [2 * len(cols) for tree, cols in fri.tree_columns(vk.params.zk).items() if tree != "k"]
     eager = sum(-(-w // 4) + schema["h_pos"] for w in widths)
-    if vk.params.pow_bits:
-        eager += max(nonces) // max(4096, min(2 << vk.params.pow_bits, 1 << 17)) + 1
-    graph = schema["n_folds"] + sum(-(-bs // 4) + h + 1 for (_, bs), h in
-                                    zip(schema["sched"], schema["layer_heights"]))
-    return eager, graph
+    return eager + _grind_windows(vk.params, max(nonces)), _fri_graph_launches(schema)
+
+
+def device_aggregate_launches(vk, b: int, nonce: int) -> tuple:
+    """The kernel launches of one fri_cuda.prove_aggregate_device of b
+    instances under vk's parameters: (eager, in the FRI phase's graph).
+    Eager: each leaf-sponge chunk and level of the w tree (blocks of 8b
+    values: 2b chunks), the z tree (2b values) and the t tree (2b, zk
+    2b + 2), and one a grinding window."""
+    schema = fri.proof_schema(vk.n, vk.params)
+    widths = [w for tree, w in aggregate.agg_tree_specs(vk.params.zk, b).items() if tree != "k"]
+    eager = sum(-(-w // 4) + schema["h_pos"] for w in widths)
+    return eager + _grind_windows(vk.params, nonce), _fri_graph_launches(schema)
+
+
+def pooled_merkle_launches(vk, b: int | None = None) -> int:
+    """The kernel launches of one pooled Merkle phase of the verifiers under
+    vk's parameters, fused (one graph replay) or not (one launch a call):
+    one a leaf-sponge chunk of every tree kind and FRI layer (gid), and one
+    a level of the tallest tree, for any number of proofs. b: the instances
+    of an aggregate, None for succinct proofs."""
+    schema = fri.proof_schema(vk.n, vk.params)
+    if b is None:
+        widths = [2 * len(cols) for cols in fri.tree_columns(vk.params.zk).values()]
+    else:
+        widths = list(aggregate.agg_tree_specs(vk.params.zk, b).values())
+    widths += [bs for _, bs in schema["sched"]]
+    return sum(-(-w // 4) for w in widths) + max([schema["h_pos"], *schema["layer_heights"]])
 
 
 def device_prover_phase(composers: list, succinct: dict) -> dict:
@@ -873,11 +945,7 @@ def device_prover_phase(composers: list, succinct: dict) -> dict:
     def eager():
         return fri_cuda._fri_phase_body(f0, tr, *consts, fri_cuda._perm_fn("opt"))
 
-    def flat(out):
-        cur, state, evals, levels = out
-        return [cur, state, *evals, *(lv for lvs in levels for lv in lvs)]
-
-    got, want = flat(graph(f0, tr)), flat(eager())
+    got, want = flat_tensors(graph(f0, tr)), flat_tensors(eager())
     check(len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want)),
           "the FRI phase's graph replay != its eager body")
     log(f"[device prover] the FRI phase's graph (B = 1, m0 = {m0}, {n_folds} folds, "
@@ -968,6 +1036,313 @@ def device_prover_timings(ctx: dict, succinct: dict, smi: str) -> None:
         f"{ctx['capture_s']:.3f} s | {smi}")
     log(f"[time] _inv_mont_dev over 2 x {ctx['m0']} points (Fermat an element, the DEEP "
         f"denominators of a prod proof): {cuda_ms(ctx['invert']):.3f} ms | {smi}")
+
+
+def flat_tensors(out) -> list:
+    """The tensors of a graph's or a body's output (nested lists and tuples), in order."""
+    return [out] if isinstance(out, torch.Tensor) else [t for x in out for t in flat_tensors(x)]
+
+
+def graph_replays() -> dict:
+    """Every live graph of fri_cuda with its replay count."""
+    return {g: g.replays for g in fri_cuda._LIVE_GRAPHS}
+
+
+def aggregate_verify_phase(composers: list, succinct: dict) -> dict:
+    """Phase 7g: the device aggregate prover (fri_cuda.prove_aggregate_device)
+    and the device verifiers (verify_aggregate_device,
+    verify_succinct_device_batch fused and not, device_chain_fn), held byte
+    for byte and verdict for verdict to the native engine, with exact launch
+    counts: the wrappers' counts, and each graph's replays times the
+    launches it holds. Every graph is captured before the runs that are
+    counted. Returns what phase 8 prints."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    host = fri.default_pcs_perm()
+    launches, times = {s: 0 for s in perm_cuda.SCHEDULES}, {}
+    none = {s: 0 for s in perm_cuda.SCHEDULES}
+
+    def counted(name, fn, schedule, expect):
+        """fn() with the counts at 0 just before it: (its result, wall s, peak
+        device bytes above what was allocated before it). expect(result) ->
+        (eager, in graph replays): the wrappers' launches of `schedule`, and
+        the replays' (held x replays summed over the graphs); no other
+        kernel, no graph captured."""
+        before = graph_replays()
+
+        def timed():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+        (out, wall, peak), counts = drive(timed)
+        after = graph_replays()
+        check(set(after) <= set(before), f"{name}: a graph was captured inside the run")
+        replayed = {s: sum((n - before[g]) * g.held[s] for g, n in after.items())
+                    for s in perm_cuda.SCHEDULES}
+        eager, in_graph = expect(out)
+        check(counts == {**none, schedule: eager} and replayed == {**none, schedule: in_graph},
+              f"{name}: launches {counts} and {replayed} in graph replays, {eager} and {in_graph} "
+              f"{schedule} expected")
+        for s in perm_cuda.SCHEDULES:
+            launches[s] += counts[s] + replayed[s]
+        log(f"[launches] {name}: {schedule} {eager} eager + {in_graph} in graph replays")
+        return out, wall, peak
+
+    def fri_graph(vk):  # the FRI phase's graph of an aggregate: one row
+        schema = fri.proof_schema(vk.n, vk.params)
+        return fri_cuda.fri_phase_graph(1, schema["m0"], schema["n_folds"], "opt", dev)
+
+    def device_aggregates(name, cs, pk, vk, want, reps, rng_seed=None):
+        fri_graph(vk)
+        runs = []
+        for rep in range(reps):
+            agg, wall, peak = counted(
+                f"{name}, run {rep}", lambda: fri_cuda.prove_aggregate_device(
+                    cs, pk, None if rng_seed is None else np.random.default_rng(rng_seed)),
+                "opt", lambda a: device_aggregate_launches(vk, len(cs), a.pow_nonce))
+            check(serialize.aggregate_to_bytes(agg, vk) == want,
+                  f"{name}, run {rep}: bytes != the native engine's")
+            runs.append((wall, peak))
+        return agg, runs
+
+    def verified(name, vk, agg, pis, ok=True):
+        """verify_aggregate_device through hybp: its graph captured by a
+        first run, then a counted one."""
+        fri_cuda.verify_aggregate_device(vk, agg, pis, schedule="hybp")
+        got, wall, _ = counted(name, lambda: fri_cuda.verify_aggregate_device(
+            vk, agg, pis, schedule="hybp"), "hybp",
+            lambda _: (0, pooled_merkle_launches(vk, agg.n_instances) if ok else 0))
+        check(bool(got) == ok, f"{name}: verdict {got}, {ok} expected")
+        return wall
+
+    # the aggregate of 4 at the prod preset: phase 7e's key and native bytes
+    pk, vk = succinct["keys"]["prod"]
+    cs = composers[:AGG_INSTANCES]
+    agg, runs = device_aggregates(f"prove_aggregate_device {AGG_INSTANCES} prod", cs, pk, vk,
+                                  succinct["bytes"]["aggregate"], 1 + SUCCINCT_REPS)
+    times["prod"] = runs[1:]
+    pis = [[g.pi for g in c.gates] for c in cs]
+    times["verify prod"] = verified(f"verify_aggregate_device {AGG_INSTANCES} prod", vk, agg, pis)
+    log(f"[device aggregate] prod preset, {AGG_INSTANCES} instances: {1 + SUCCINCT_REPS} runs of "
+        "prove_aggregate_device == phase 7e's native-engine aggregate byte for byte; "
+        "verify_aggregate_device through hybp accepts")
+
+    # bench.py's aggregate mode: 8 instances at "fast", against the native engine here
+    pkf, vkf = succinct["keys"]["fast"]
+    cs = composers[:AGG_FAST_INSTANCES]
+    pis = [[g.pi for g in c.gates] for c in cs]
+    t0 = time.perf_counter()
+    want = serialize.aggregate_to_bytes(aggregate.prove_aggregate(cs, pkf, host), vkf)
+    times["fast native"] = time.perf_counter() - t0
+    agg, runs = device_aggregates(f"prove_aggregate_device {AGG_FAST_INSTANCES} fast", cs, pkf,
+                                  vkf, want, 1 + SUCCINCT_REPS)
+    times["fast"] = runs[1:]
+    times["verify fast"] = verified(f"verify_aggregate_device {AGG_FAST_INSTANCES} fast", vkf,
+                                    agg, pis)
+    bad = serialize.aggregate_from_bytes(want, vkf)
+    bad.evals[5]["t"] = (bad.evals[5]["t"] + 1) % P
+    verified("verify_aggregate_device, a changed claimed evaluation", vkf, bad, pis, ok=False)
+    # the same with zk, one seeded generator on each side
+    pkz, vkz = fri.preprocess_succinct(composers[0], dataclasses.replace(SUCCINCT_FAST, zk=True), host)
+    t0 = time.perf_counter()
+    want = serialize.aggregate_to_bytes(aggregate.prove_aggregate(
+        cs, pkz, host, rng=np.random.default_rng(ZK_SEED)), vkz)
+    times["zk native"] = time.perf_counter() - t0
+    agg, runs = device_aggregates(f"prove_aggregate_device {AGG_FAST_INSTANCES} fast zk", cs,
+                                  pkz, vkz, want, 1, rng_seed=ZK_SEED)
+    times["zk"] = runs
+    verified(f"verify_aggregate_device {AGG_FAST_INSTANCES} fast zk", vkz, agg, pis)
+    log(f"[device aggregate] bench.py's aggregate mode, {AGG_FAST_INSTANCES} instances at the fast "
+        f"preset: {1 + SUCCINCT_REPS} runs == the native engine's aggregate byte for byte (native "
+        f"{times['fast native']:.1f} s); zk with one seeded generator a side: == its bytes "
+        f"(native {times['zk native']:.1f} s); verify_aggregate_device accepts each and refuses a "
+        "changed claimed evaluation")
+
+    # the FRI phase's graph of the fast aggregate (one row): replay == eager body
+    schema = fri.proof_schema(vkf.n, vkf.params)
+    rng = np.random.default_rng(SEED + 8)
+    f0 = torch.from_numpy(random_elements((1, schema["m0"]), rng)).to(dev)
+    tr = torch.from_numpy(random_elements((1, WIDTH), rng)).to(dev)
+    consts = fri_cuda._fri_phase_consts(schema["m0"], schema["n_folds"], dev)
+    got = fri_graph(vkf)(f0, tr)
+    want = fri_cuda._fri_phase_body(f0, tr, *consts, fri_cuda._perm_fn("opt"))
+    check(all(torch.equal(a, b) for a, b in zip(flat_tensors(got), flat_tensors(want), strict=True)),
+          "the fast aggregate's FRI-phase graph replay != its eager body")
+
+    # pooled verification of phase 7e's 16 fast proofs (two spoiled) through hybp
+    proofs, statements, expect = succinct["pooled"]
+    plans = []
+
+    def spy(entries):  # the plan of the 16, for the graph's check against its body
+        plans.append(fri_cuda._fused_verify_plan(entries, vkf.params.n_queries))
+        return fri.pooled_entries_verify(entries, host)
+
+    fri.verify_succinct_batched(vkf, proofs, statements, host, entries_check=spy)
+    pooled = pooled_merkle_launches(vkf)
+    for label, batch, pis, want in ((str(POOLED_PROOFS), proofs, statements, expect),
+                                    ("1", proofs[:1], statements[:1], expect[:1])):
+        fri_cuda.verify_succinct_device_batch(vkf, batch, pis, schedule="hybp")  # captures
+        for fused in (True, False):
+            runs = []
+            for rep in range(SUCCINCT_REPS):
+                got, wall, peak = counted(
+                    f"verify_succinct_device_batch {label} fast, fused={fused}, run {rep}",
+                    lambda: fri_cuda.verify_succinct_device_batch(vkf, batch, pis, fused,
+                                                                  schedule="hybp"),
+                    "hybp", lambda _: (0, pooled) if fused else (pooled, 0))
+                check([bool(v) for v in got] == want,
+                      f"verify_succinct_device_batch {label}: verdicts {list(got)} != {want}")
+                runs.append((wall, peak))
+            times[f"verify {label} fused={fused}"] = runs
+    log(f"[device verify] phase 7e's {POOLED_PROOFS} fast proofs through hybp, fused (one graph "
+        f"replay of {pooled} launches) and not ({pooled} launches), {SUCCINCT_REPS} runs each: "
+        "false in the two spoiled slots only, == the native engine's; one proof alone: true")
+
+    # the fused pool's graph: replay == eager body on the 16's plan
+    plan = plans[0]
+    flat_in, counts = fri_cuda._pool_tensors(plan)
+    on_card = tuple(x.to(dev) for x in flat_in)
+    pool_consts = fri_cuda._fused_pool_consts({b.shape[1] for b in plan[0]}, dev)
+
+    def pool_eager():
+        return fri_cuda._fused_pool_body(*fri_cuda._split(on_card, counts),
+                                         fri_cuda._perm_fn("hybp"), *pool_consts)
+
+    def pool_run():  # the plan's upload, one replay, the roots' clones
+        return fri_cuda._fused_pool_run(plan, "hybp", dev)
+
+    pool_graph = fri_cuda._pool_graph(flat_in, counts, "hybp", dev)
+
+    def pool_replay():  # the inputs already on the card
+        return pool_graph(*on_card)
+
+    got, want = pool_run(), pool_eager()
+    check(len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+          and all(torch.equal(a, b) for a, b in zip(pool_replay(), want)),
+          "the fused pool's graph replay != its eager body")
+
+    # device_chain_fn on 2^10 openings of a tree over a prod proof's m0/2 positions
+    rng = np.random.default_rng(SEED + 9)
+    values = [int(v) for v in digits_to_ints(random_elements((CHAIN_LEAVES,), rng))]
+    levels = fri.tree_build(values, host)
+    root, height = fri.tree_root(levels), len(levels) - 1
+    idx = sorted(int(i) for i in rng.choice(CHAIN_LEAVES, CHAIN_OPENINGS, replace=False))
+    sibs, poss = fri.tree_open_batched(levels, idx)
+    opened = [values[i] for i in idx]
+    chain = functools.partial(fri_cuda.device_chain_fn, schedule="hybp")
+    loop = fri.tree_verify_batched(root, opened, sibs, poss, height, idx, host)
+    fri.tree_verify_batched(root, opened, sibs, poss, height, idx, host, chain)  # captures
+    got, wall, _ = counted(f"device_chain_fn {CHAIN_OPENINGS} x height {height}",
+                           lambda: fri.tree_verify_batched(root, opened, sibs, poss, height, idx,
+                                                           host, chain),
+                           "hybp", lambda _: (0, height))
+    check(bool(loop.all()) and np.array_equal(got, loop), "device_chain_fn != the host loop")
+    bad_row = CHAIN_OPENINGS // 3
+    opened[bad_row] = (opened[bad_row] + 1) % P
+    bad, _, _ = counted("device_chain_fn, a changed value", lambda: fri.tree_verify_batched(
+        root, opened, sibs, poss, height, idx, host, chain), "hybp", lambda _: (0, height))
+    check(np.array_equal(bad, fri.tree_verify_batched(root, opened, sibs, poss, height, idx, host))
+          and not bad[bad_row] and int(bad.sum()) == CHAIN_OPENINGS - 1,
+          "device_chain_fn: a changed value must fail its own row and only it")
+    node = ints_to_digits(opened, shape=(CHAIN_OPENINGS,))
+    chain_eager = (torch.from_numpy(node.astype(np.int32)).to(dev),
+                   torch.from_numpy(sibs.astype(np.int32)).to(dev),
+                   torch.from_numpy(poss.astype(np.int64)).to(dev))
+    graph = fri_cuda.chain_graph(CHAIN_OPENINGS, height, "hybp", dev)
+    check(torch.equal(graph(*chain_eager), fri_cuda._chain_nodes_body(
+        *chain_eager, fri_cuda._perm_fn("hybp"), fri_cuda._node_tag(dev))),
+          "the chain's graph replay != its eager body")
+    times["chain"] = wall
+    log(f"[device verify] device_chain_fn over {CHAIN_OPENINGS} openings of a "
+        f"{CHAIN_LEAVES}-leaf tree (height {height}) through hybp == the host loop of "
+        "tree_verify_batched; a changed value fails its row only; the chain's, the fused "
+        "pool's and the fast aggregate's FRI-phase graphs replay their eager bodies bit for bit")
+
+    # rejections
+    other = Composer()
+    a = other.append_witness(3)
+    other.gate_mul(Constraint().mult(1).a(a).b(a))
+    perm_cuda.reset_launches()
+    try:
+        fri_cuda.prove_aggregate_device([composers[0], other], pk)
+    except ValueError as e:
+        check("circuit structure" in str(e), f"mixed circuits: unexpected refusal {e}")
+    else:
+        check(False, "prove_aggregate_device: composers of two circuits must be refused")
+    check(not any(perm_cuda.launches.values()), "a refused aggregate must launch nothing")
+    log("[device aggregate] composers of two circuits refused, nothing launched; phase 7g took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # (c) where a verification of the 16 goes: transcript replay and checks,
+    # the pooled Merkle phase, the fold algebra (fri.verify_succinct_batched's timings)
+    for fused in (True, False):
+        split = {}
+        fri.verify_succinct_batched(
+            vkf, proofs, statements, fri_cuda.device_pool_perm("hybp"),
+            entries_check=fri_cuda.fused_entries_check(vkf, schedule="hybp") if fused else None,
+            timings=split)
+        times[f"split fused={fused}"] = split
+    return {"times": times, "launches": launches, "pool": (pool_run, pool_replay, pool_eager),
+            "prod": (composers[:AGG_INSTANCES], pk),
+            "verify": lambda: fri_cuda.verify_succinct_device_batch(vkf, proofs, statements,
+                                                                    schedule="hybp")}
+
+
+def aggregate_verify_timings(ctx: dict, succinct: dict, smi: str) -> None:
+    """Phase 8 for phase 7g: seconds a device aggregate beside phase 7e's
+    host-orchestrated card wall and the native engine's, seconds a
+    verification fused and not beside phase 7e's pooled path with its split,
+    the fused pool's graph replay beside its eager body, and the peak device
+    memory of each run above what was allocated before it."""
+    def med(runs):
+        return sorted(runs)[len(runs) // 2]
+
+    def walls(runs):
+        return ", ".join(f"{r[0]:.6f}" for r in runs)
+
+    def gib(peak):
+        return f"peak device memory {peak / 2**30:.3f} GiB above what was allocated before the run"
+
+    t = ctx["times"]
+    card_runs, host_runs = succinct["times"]["aggregate"]
+    wall, peak = med(t["prod"])
+    log(f"[time] prove_aggregate_device {AGG_INSTANCES} prod (median of {SUCCINCT_REPS} after a "
+        f"warm-up): {wall:.6f} s (walls {walls(t['prod'])}), {gib(peak)}; phase 7e's "
+        f"prove_aggregate through the card {card_runs[0][0]:.6f} s, through the native engine "
+        f"{host_runs[0]:.6f} s | {smi}")
+    wall, peak = med(t["fast"])
+    log(f"[time] prove_aggregate_device {AGG_FAST_INSTANCES} fast (median of {SUCCINCT_REPS} after "
+        f"a warm-up): {wall:.6f} s = {AGG_FAST_INSTANCES / wall:.4f} instances/s (walls "
+        f"{walls(t['fast'])}), {gib(peak)}; the native engine's prove_aggregate "
+        f"{t['fast native']:.6f} s | {smi}")
+    wall, peak = t["zk"][0]
+    log(f"[time] prove_aggregate_device {AGG_FAST_INSTANCES} fast zk (one run): {wall:.6f} s, "
+        f"{gib(peak)}; the native engine's {t['zk native']:.6f} s | {smi}")
+    log(f"[time] verify_aggregate_device (fused, hybp, one run): {AGG_INSTANCES} prod "
+        f"{t['verify prod']:.6f} s, {AGG_FAST_INSTANCES} fast {t['verify fast']:.6f} s | {smi}")
+    card_runs, host_runs = succinct["times"]["verify"]
+    for label in (str(POOLED_PROOFS), "1"):
+        for fused in (True, False):
+            runs = t[f"verify {label} fused={fused}"]
+            wall, peak = med(runs)
+            log(f"[time] verify_succinct_device_batch {label} fast, fused={fused} (median of "
+                f"{SUCCINCT_REPS}): {wall:.6f} s (walls {walls(runs)}), {gib(peak)}; phase 7e's "
+                f"pooled verification of {POOLED_PROOFS} through the card "
+                f"{med(card_runs)[0]:.6f} s, native {statistics.median(host_runs):.6f} s | {smi}")
+    for fused in (True, False):
+        split = ", ".join(f"{k} {v:.6f} s" for k, v in t[f"split fused={fused}"].items())
+        log(f"[time] verify_succinct_batched {POOLED_PROOFS} fast through hybp, fused={fused}, one "
+            f"run: {split} | {smi}")
+    run, replay, eager = ctx["pool"]
+    held = pooled_merkle_launches(succinct["keys"]["fast"][1])
+    log(f"[time] the fused pool of {POOLED_PROOFS} fast proofs (hybp, {held} launches): graph "
+        f"replay {cuda_ms(replay):.3f} ms, with the plan's upload and the roots' clones "
+        f"{cuda_ms(run):.3f} ms; eager body {cuda_ms(eager):.3f} ms; device_chain_fn "
+        f"{CHAIN_OPENINGS} openings (the host's checks included) {t['chain']:.6f} s | {smi}")
 
 
 def profile_path(name: str, fn) -> None:
@@ -1369,6 +1744,12 @@ def run(ckpt_root: str) -> int:
         main_launches[s] += n
     log(f"[launches] main path with phase 7f, summed: {main_launches}")
 
+    # 7g. the device aggregate prover and the device verifiers
+    agg_verify = aggregate_verify_phase(prover["composers"], succinct)
+    for s, n in agg_verify["launches"].items():
+        main_launches[s] += n
+    log(f"[launches] main path with phase 7g, summed: {main_launches}")
+
     # 8. timings at the main path's shapes
     x = torch.from_numpy(random_elements((WIDTH, PERM_BATCH), rng).transpose(0, 2, 1).copy()).to(dev)
     ms, plain_ms, bounds = {}, {}, {}
@@ -1436,6 +1817,7 @@ def run(ckpt_root: str) -> int:
     prover_timings(prover, smi)
     succinct_timings(succinct, smi)
     device_prover_timings(device, succinct, smi)
+    aggregate_verify_timings(agg_verify, succinct, smi)
 
     # 9. on request: where the openings' paths spend their device time
     if "--profile" in sys.argv[1:]:
@@ -1463,7 +1845,11 @@ def run(ckpt_root: str) -> int:
                          ("prove_succinct prod (opt)", lambda: fri.prove_succinct(
                              succinct["c"], succinct["pk"], succinct["card"])),
                          ("prove_succinct_device prod (opt)", lambda: fri_cuda.prove_succinct_device(
-                             device["c"], device["pk"]))):
+                             device["c"], device["pk"])),
+                         (f"prove_aggregate_device {AGG_INSTANCES} prod (opt)",
+                          lambda: fri_cuda.prove_aggregate_device(*agg_verify["prod"])),
+                         (f"verify_succinct_device_batch {POOLED_PROOFS} fast, fused (hybp)",
+                          agg_verify["verify"])):
             profile_path(f"{name} | {smi}", fn)
 
     kernels = [

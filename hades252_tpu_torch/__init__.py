@@ -17,10 +17,14 @@ batched NTT (`ops/ntt.py`) and the batched prover (`prover_cuda.py`),
 whose three phases run as torch ops on the card; the succinct and
 aggregated argument with its wire format (`fri`, `aggregate`,
 `serialize`), whose trees, leaf sponges, grinding and pooled multiproof
-checks run on the kernels through `fri_cuda.device_pool_perm`; and the
-device-resident succinct prover (`fri_cuda.prove_succinct_device[_batch]`),
-which keeps every O(m0) object of the argument on the card and runs the
-FRI commit phase as one CUDA graph.
+checks run on the kernels through `fri_cuda.device_pool_perm`; the
+device-resident succinct and aggregate provers
+(`fri_cuda.prove_succinct_device[_batch]`, `prove_aggregate_device`),
+which keep every O(m0) object of the argument on the card and run the FRI
+commit phase as one CUDA graph; and the device verifiers
+(`verify_succinct_device_batch`, `verify_aggregate_device`,
+`device_chain_fn`), whose pooled Merkle phase or sibling chain is one CUDA
+graph replay.
 """
 
 from .params import N_DIGITS, P, WIDTH  # noqa: F401

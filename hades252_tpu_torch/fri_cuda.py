@@ -1,7 +1,7 @@
 """The succinct argument's device side: the counterpart of
 `hades252_tpu/fri_tpu.py`.
 
-Two parts live here.
+Four parts live here.
 
 * `device_pool_perm`: the card's permutation seam for the host-orchestrated
   paths of `fri` and `aggregate`. Their commitment trees, leaf-block
@@ -34,6 +34,15 @@ Two parts live here.
   the same code runs the kernel's plain version, which is how the tests
   hold it to the JAX package. Each proof is byte-identical to
   `fri.prove_succinct`'s for the same (composer, pk, rng).
+* `prove_aggregate_device`: the same protocol for one aggregated argument
+  over B instances (`fri_tpu.py:1187-1465`), byte-identical to
+  `aggregate.prove_aggregate`'s.
+* The device verifiers (`fri_tpu.py:1467-1821`): `device_chain_fn`, the
+  sibling chain of compact openings, and `fused_entries_check`, the whole
+  pooled leaf-sponge and multiproof phase of `fri.verify_succinct_batched`
+  and `aggregate.verify_aggregate` run blind from a host gather plan, each
+  one CUDA graph a shape on the card; `verify_succinct_device_batch` and
+  `verify_aggregate_device` give the host verifiers' verdicts.
 
 The JAX package pads every permutation batch to the kernel's block so that
 the TPU keeps one executable; the CUDA kernels mask their tail, so nothing
@@ -49,7 +58,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import field, fri, plonk, prover_cuda
+from . import aggregate, field, fri, plonk, prover_cuda
+from .aggregate import (
+    KEY_EVAL_ORDER,
+    WIRE_EVAL_ORDER,
+    AggregateProof,
+    _absorb_statement,
+    _agg_terms,
+)
 from .fri import (
     ARITY,
     DIGEST_INDEX,
@@ -88,6 +104,16 @@ def _device(device) -> torch.device:
     return dev
 
 
+def _entry_device(who: str, schedule: str, device) -> torch.device:
+    """An entry point's device after checking its schedule: _device's, with
+    the entry point's name in front of a missing card's message."""
+    _check_schedule(schedule)
+    try:
+        return _device(device)
+    except RuntimeError as e:
+        raise RuntimeError(f"{who}: {e}") from None
+
+
 def device_pool_perm(schedule: str = DEFAULT_SCHEDULE, device="cuda"):
     """A batched canonical permutation for `fri` and `aggregate`'s
     `perm_fn`: (B, WIDTH, N_DIGITS) uint32 digits in, the same out,
@@ -95,11 +121,7 @@ def device_pool_perm(schedule: str = DEFAULT_SCHEDULE, device="cuda"):
     card unless the caller asks for the CPU (device="cpu": the kernel's
     plain version, for the tests); without a card it raises, and it never
     falls back to the native engine or to the plain version."""
-    _check_schedule(schedule)
-    try:
-        dev = _device(device)
-    except RuntimeError as e:
-        raise RuntimeError(f"device_pool_perm: {e}") from None
+    dev = _entry_device("device_pool_perm", schedule, device)
 
     def perm(states):
         x = torch.from_numpy(np.asarray(states, np.uint32).astype(np.int32)).to(dev)
@@ -549,58 +571,72 @@ def _fri_phase_body(f0, tr_state, xinvs, inv2, node_tag, leaf_tags, perm_fn) -> 
     return cur, tr_state, layer_evals, layer_levels
 
 
-class FriPhaseGraph:
-    """_fri_phase_body of one (B, m0, n_folds, schedule, device) shape,
-    captured as one CUDA graph: the counterpart of the JAX package's one
-    jitted program `_fri_phase_dev`.
+def _clone(out):
+    """A graph's outputs (tensors in nested lists and tuples), cloned out of
+    its static memory."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    return type(out)(_clone(x) for x in out)
 
-    Before the capture one eager run over zero inputs (on a side stream)
-    makes every first-use upload: perm_cuda's `hades_init` and dot tables,
-    field's constants. The constant tables are device tensors before the
-    capture, so the captured work holds no host-to-device copy. A call
-    copies its inputs into the graph's static buffers, replays, and
-    returns clones of the outputs.
+
+class CudaGraph:
+    """fn(*inputs) captured as one CUDA graph: the counterpart of one jitted
+    program of the JAX package.
+
+    `inputs` are the static input buffers, on the card. The graph keeps fn,
+    and with it the constant tensors fn closes over, for its life: the
+    captured work reads their memory. Before the capture one eager run over the buffers
+    (on a side stream) makes every first-use upload: perm_cuda's
+    `hades_init` and dot tables, field's constants. A call copies its
+    arguments into the buffers, replays, and returns clones of the outputs.
 
     `held` counts the kernel launches of one replay per schedule (what the
     wrappers counted during the capture); `replays` counts the replays."""
 
-    def __init__(self, b: int, m0: int, n_folds: int, schedule: str, device: torch.device):
-        # held for the graph's life: the captured work reads their memory
-        self._consts = consts = _fri_phase_consts(m0, n_folds, device)
-        perm_fn = _perm_fn(schedule)
-        self._f0 = torch.zeros((b, m0, N_DIGITS), dtype=torch.int32, device=device)
-        self._tr = torch.zeros((b, 5, N_DIGITS), dtype=torch.int32, device=device)
+    def __init__(self, fn, inputs: tuple):
+        self._fn, self._inputs = fn, inputs
+        device = inputs[0].device
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            _fri_phase_body(self._f0, self._tr, *consts, perm_fn)
+            fn(*inputs)
         torch.cuda.current_stream(device).wait_stream(side)
         before = dict(perm_cuda.launches)
         self._graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self._graph):
-            self._out = _fri_phase_body(self._f0, self._tr, *consts, perm_fn)
+            self._out = fn(*inputs)
         self.held = {s: perm_cuda.launches[s] - before[s] for s in perm_cuda.SCHEDULES}
         self.replays = 0
+        _LIVE_GRAPHS.add(self)
 
-    def __call__(self, f0: torch.Tensor, tr_state: torch.Tensor) -> tuple:
-        self._f0.copy_(f0)
-        self._tr.copy_(tr_state)
+    def __call__(self, *args):
+        for buf, x in zip(self._inputs, args, strict=True):
+            buf.copy_(x)
         self._graph.replay()
         self.replays += 1
-        cur, tr, evals, levels = self._out
-        return (cur.clone(), tr.clone(), [e.clone() for e in evals],
-                [[lv.clone() for lv in lvls] for lvls in levels])
+        return _clone(self._out)
 
 
-#: FRI-phase graphs kept at once (each holds its shape's buffers on the card).
+#: Every graph alive, so that a caller can sum what the replays launched.
+_LIVE_GRAPHS: weakref.WeakSet = weakref.WeakSet()
+
+#: Graphs kept at once of each kind (each holds its shape's buffers on the card).
 _GRAPHS = 4
 
 
 @functools.lru_cache(maxsize=_GRAPHS)
 def fri_phase_graph(b: int, m0: int, n_folds: int, schedule: str,
-                    device: torch.device) -> FriPhaseGraph:
-    """The FRI phase's graph for this shape, captured at its first use."""
-    return FriPhaseGraph(b, m0, n_folds, schedule, device)
+                    device: torch.device) -> CudaGraph:
+    """_fri_phase_body of one (B, m0, n_folds, schedule, device) shape as one
+    CUDA graph, captured at its first use: the counterpart of the JAX
+    package's one jitted program `_fri_phase_dev`. The constant tables are
+    device tensors before the capture, so the captured work holds no
+    host-to-device copy."""
+    consts = _fri_phase_consts(m0, n_folds, device)
+    perm_fn = _perm_fn(schedule)
+    inputs = (torch.zeros((b, m0, N_DIGITS), dtype=torch.int32, device=device),
+              torch.zeros((b, 5, N_DIGITS), dtype=torch.int32, device=device))
+    return CudaGraph(lambda f0, tr: _fri_phase_body(f0, tr, *consts, perm_fn), inputs)
 
 
 def _run_fri_phase(f_dev, trs: list, m0: int, n_folds: int, schedule: str) -> tuple:
@@ -700,11 +736,7 @@ def prove_succinct_device_batch(composers, pk: ProvingKey, rngs=None, *,
     fri.prove_succinct(composers[i], pk, rng=rngs[i])'s."""
     if not composers:
         return []
-    _check_schedule(schedule)
-    try:
-        dev = _device(device)
-    except RuntimeError as e:
-        raise RuntimeError(f"prove_succinct_device_batch: {e}") from None
+    dev = _entry_device("prove_succinct_device_batch", schedule, device)
     perm_fn = _perm_fn(schedule)
     key, params = pk.key, pk.params
     n, omega = key.n, key.omega
@@ -883,3 +915,504 @@ def prove_succinct_device(composer, pk: ProvingKey, rng=None, *,
     """One instance through prove_succinct_device_batch."""
     return prove_succinct_device_batch([composer], pk, None if rng is None else [rng],
                                        schedule=schedule, device=device)[0]
+
+
+# ---------------------------------------------------------------------------
+# The device aggregate prover (aggregate.py's argument, on the device)
+# ---------------------------------------------------------------------------
+
+
+def prove_aggregate_device(composers, pk: ProvingKey, rng=None, *,
+                           schedule: str = DEFAULT_SCHEDULE, device="cuda") -> AggregateProof:
+    """ONE succinct argument for B instances of one circuit, on the device:
+    the card unless the caller asks for the CPU (device="cpu", the kernel's
+    plain version); without a card the default raises. The counterpart of
+    `fri_tpu.prove_aggregate_device`: the polynomial phases, the instance
+    block trees, the DEEP composition, the folds (one graph replay) and the
+    grinding on the device, through the kernel of `schedule`. The proof is
+    byte-identical to aggregate.prove_aggregate(composers, pk, rng=rng)'s.
+
+    Against prove_succinct_device_batch: one transcript, so the challenges
+    are shared; the w, z and t trees hold every instance's columns (w
+    poly-major then instance); one DEEP-FRI covers all B x 7 wire claims,
+    the 10 key claims and (zk) the shared mask; the zk draws come from one
+    stream (B x 4 x zkw wire coefficients instance-major, then B x zkz for
+    z, then d_bound for the mask)."""
+    if not composers:
+        raise ValueError("at least one composer required")
+    dev = _entry_device("prove_aggregate_device", schedule, device)
+    perm_fn = _perm_fn(schedule)
+    key, params = pk.key, pk.params
+    n, omega = key.n, key.omega
+    b = len(composers)
+    schema = fri.proof_schema(n, params)
+    bounds = schema["bounds"]
+    d_bound = bounds["D"]
+    m0, half0 = schema["m0"], schema["half0"]
+    final_degree, n_folds, sched = schema["final_degree"], schema["n_folds"], schema["sched"]
+    rand_field = fri._rand_field_fn(rng)
+
+    ref_idx = plonk._wire_indices(composers[0])
+    for c in composers[1:]:
+        if plonk._wire_indices(c) != ref_idx:
+            raise ValueError("prove_aggregate requires all composers to share one circuit "
+                             "structure")
+
+    def digits(vals, shape):
+        return _to_device(ints_to_digits(vals, shape=shape), dev)
+
+    def draws(count, shape):  # the host aggregate prover's one stream
+        return digits([rand_field() for _ in range(count)], shape)
+
+    def shared(v):  # one challenge for every instance
+        return digits([v] * b, (b,))
+
+    # --- witness polynomials through the batched prover's phases -----------
+    wire_evals = digits([[[c._values[idx] % P for idx in col] + [0] * (n - key.n_gates)
+                          for col in plonk._wire_indices(c)] for c in composers], (b, 4, n))
+    pi_cols = [[v % P for v in plonk._public_input_column(c, n)] for c in composers]
+    tables_n = prover_cuda._device_tables(key, dev)
+    tables_m = prover_cuda._device_tables(key, dev, m=d_bound, d_z=bounds["d_z"])
+
+    wires = prover_cuda._phase1_wires(wire_evals)                    # (B, 4, n, D)
+    if params.zk:
+        zkw = bounds["zkw"]
+        wires = _blind_dev(wires, draws(b * 4 * zkw, (b, 4, zkw)))
+
+    tr = Transcript()
+    _absorb_statement(tr, pk.digest, n, key.n_gates, pi_cols)
+    levels, roots = {}, {}
+
+    def commit(name, cols):
+        levels[name] = _build_paired_levels(cols, perm_fn)
+        roots[name] = _root_ints(levels[name])[0]
+        tr.absorb(roots[name])
+
+    wires_l0 = _coset_eval_dev(wires, m0)                            # (B, 4, m0, D)
+    # the w tree's columns: poly-major, then instance (a_0..a_{B-1}, b_0, ...)
+    w_cols = wires_l0.transpose(0, 1).reshape(1, 4 * b, m0, N_DIGITS)
+    commit("w", w_cols)
+    beta = tr.challenge()
+    gamma = tr.challenge()
+    z = prover_cuda._phase2_grand_product(wire_evals, shared(beta), shared(gamma),
+                                          tables_n["ids_mont"], tables_n["sigma_n_mont"],
+                                          tables_n["one_mont"])          # (B, n, D)
+    if params.zk:
+        z = _blind_dev(z, draws(b * bounds["zkz"], (b, bounds["zkz"])))
+    z_l0 = _coset_eval_dev(z, m0)                                    # (B, m0, D)
+    z_cols = z_l0[None]
+    commit("z", z_cols)
+    alpha = tr.challenge()
+
+    t = prover_cuda._phase3_quotient(
+        wires, z, digits(pi_cols, (b, n)), shared(beta), shared(gamma), shared(alpha),
+        tables_m["kx_mont"], tables_m["sigma_m_mont"], tables_m["q_mont"],
+        tables_m["zh_inv_mont"], tables_m["l1_mont"], tables_m["omega_mont"],
+        tables_n["one_mont"])                                        # (B, d_bound, D)
+    t_l0 = _coset_eval_dev(t, m0)
+    r = r_l0 = None
+    t_cols = t_l0[None]
+    if params.zk:
+        # ONE shared mask polynomial, drawn after every instance's z blinds
+        r = draws(d_bound, (1, d_bound))
+        r_l0 = _coset_eval_dev(r, m0)                                # (1, m0, D)
+        t_cols = torch.cat([t_cols, r_l0[:, None]], dim=1)           # (1, B + 1, m0, D)
+    commit("t", t_cols)
+    zeta = tr.challenge()
+
+    # --- claimed evaluations: one device call, one small fetch -------------
+    vals = _claimed_eval_ints(wires, z, t, None if r is None else r.expand(b, -1, -1),
+                              _pk_table(pk, _key_coeff_digits, dev), [zeta] * b, omega)
+    wire_rows = ("a", "b", "o", "d", "z", "zw", "t")
+    evals = [{name: int(vals[i, j]) for j, name in enumerate(wire_rows)} for i in range(b)]
+    key_names = SELECTOR_NAMES + SIGMA_NAMES
+    key_evals = {name: int(vals[0, len(wire_rows) + j]) for j, name in enumerate(key_names)}
+    r_eval = int(vals[0, len(wire_rows) + len(key_names)]) if params.zk else None
+    for e in evals:
+        tr.absorb(*[e[name] for name in WIRE_EVAL_ORDER])
+    tr.absorb(*[key_evals[name] for name in KEY_EVAL_ORDER])
+    if params.zk:
+        tr.absorb(r_eval)
+    gdeep = tr.challenge()
+
+    # --- one DEEP composition over all B x 7 + 10 (+1) claims ----------------
+    inst_rows = torch.cat([wires_l0, z_l0[:, None], t_l0[:, None]], dim=1)   # (B, 6, m0, D)
+    stack_parts = [inst_rows.reshape(6 * b, m0, N_DIGITS), _pk_table(pk, _pk_key_evals, dev)]
+    if params.zk:
+        stack_parts.append(r_l0)
+    stack = torch.cat(stack_parts)[None]                             # (1, 6B + 10 (+1), m0, D)
+    wire_row = {"a": 0, "b": 1, "o": 2, "d": 3, "z": 4, "t": 5}
+
+    def term_row(j, pname):
+        if pname == "r":
+            return 6 * b + len(key_names)
+        if j is None:
+            return 6 * b + key_names.index(pname)
+        return 6 * j + wire_row[pname]
+
+    terms = _agg_terms(bounds, b)
+    s_values = sorted({d_bound + 1 - dj for (*_, dj) in terms})
+    pows = torch.stack([_on_device(_pow_mont, (m0, s), dev) for s in s_values])
+    spec = [(term_row(j, pname), s_values.index(d_bound + 1 - dj), shifted)
+            for (j, pname, _, shifted, dj) in terms]
+    vs = digits([r_eval if pname == "r" else key_evals[ename] if j is None else evals[j][ename]
+                 for (j, pname, ename, _, _) in terms], (1, len(terms)))
+    gpow, g_acc = [], 1
+    for _ in terms:
+        gpow.append(g_acc * R % P)
+        g_acc = g_acc * gdeep % P
+    # both denominators' points in one Fermat pass: zeta, then omega*zeta
+    inv = _inv_mont_dev(_on_device(_xs_digits, (m0,), dev), digits([zeta, zeta * omega % P], (2,)))
+    f_dev = _deep_dev(stack, vs, digits(gpow, (1, len(terms))), pows, inv[:1], inv[1:], spec)
+
+    # --- one FRI commit phase (one graph replay on the card) and grinding -----
+    final, layer_data, layer_roots = _run_fri_phase(f_dev, [tr], m0, n_folds, schedule)
+    final_coeffs = plonk._coset_interp([int(v) for v in digits_to_ints(final[0].cpu().numpy())],
+                                       pow(G0, 1 << n_folds, P))
+    if any(c_ % P for c_ in final_coeffs[final_degree:]):
+        raise ValueError("FRI final layer exceeds its degree bound — the witness does not "
+                         "satisfy the circuit (the quotient is not a polynomial)")
+    final_coeffs = final_coeffs[:final_degree]
+    tr.absorb(*final_coeffs)
+    pow_nonce = _apply_grinding([tr], params.pow_bits, schedule, dev)[0]
+    queries = [tr.challenge() % half0 for _ in range(params.n_queries)]
+    s0 = sorted(set(queries))
+
+    # --- openings: gathers, one fetch a tree ---------------------------------
+    tree_cols = {"w": w_cols, "z": z_cols, "t": t_cols}
+    open_blocks, open_nodes = {}, {}
+    for tname in TREE_ORDER:
+        if tname == "k":  # the proving key's host levels
+            open_blocks[tname], open_nodes[tname] = fri._open_paired(
+                [pk.key_evals[c] for c in key_names], pk.key_levels, s0)
+        else:
+            open_blocks[tname] = _open_blocks_dev(tree_cols[tname], [s0])[0]
+            open_nodes[tname] = _open_nodes_dev(levels[tname], [s0])[0]
+    pos_chains = [layer_positions(q, m0, sched) for q in queries]
+    layer_blocks, layer_nodes = [], []
+    for li, (_, bs) in enumerate(sched):
+        s_k = sorted({pc[li] for pc in pos_chains})
+        cur_k, lv = layer_data[li]
+        layer_blocks.append(_open_layer_blocks(cur_k, bs, [s_k])[0])
+        layer_nodes.append(_open_nodes_dev(lv, [s_k])[0])
+
+    return AggregateProof(
+        n_instances=b, roots=roots, evals=evals, key_evals=key_evals, r_eval=r_eval,
+        pow_nonce=pow_nonce,
+        fri=FriProof(layer_roots=layer_roots[0], final_coeffs=final_coeffs,
+                     layer_blocks=layer_blocks, layer_nodes=layer_nodes),
+        open_blocks=open_blocks, open_nodes=open_nodes)
+
+
+# ---------------------------------------------------------------------------
+# The device verifiers: the sibling-opening chain and the fused pooled phase
+# ---------------------------------------------------------------------------
+
+
+def _chain_nodes_body(node, sibs, poss, perm_fn, node_tag) -> torch.Tensor:
+    """Recompute the root-level digests of K compact openings: node (K, D)
+    canonical digits of the starting entries, sibs (K, h, 3, D), poss
+    (K, h) int64. At each level the node is put back among its siblings
+    (fri._insert_at's rule; a position out of range is clamped, and the
+    host's range check rejects its row) and the K groups are hashed in one
+    permutation. The chain_fn of fri.tree_verify_batched."""
+    k, h = poss.shape
+    tag = node_tag.expand(k, 1, N_DIGITS)
+    for lvl in range(h):
+        pos, sl = poss[:, lvl], sibs[:, lvl]
+        cols = []
+        for j in range(ARITY):
+            idx = torch.clamp(j - (pos < j).long(), 0, ARITY - 2)
+            s = torch.gather(sl, 1, idx[:, None, None].expand(k, 1, N_DIGITS))[:, 0]
+            cols.append(torch.where((pos == j)[:, None], node, s))
+        node = perm_fn(torch.cat([tag, torch.stack(cols, dim=1)], dim=1))[:, DIGEST_INDEX]
+    return node
+
+
+@functools.lru_cache(maxsize=_GRAPHS)
+def chain_graph(k: int, h: int, schedule: str, device: torch.device) -> CudaGraph:
+    """_chain_nodes_body of K openings of height h as one CUDA graph, captured
+    at its first use: the counterpart of the jitted `_chain_nodes_dev`."""
+    tag, perm_fn = _node_tag(device), _perm_fn(schedule)
+    inputs = (torch.zeros((k, N_DIGITS), dtype=torch.int32, device=device),
+              torch.zeros((k, h, ARITY - 1, N_DIGITS), dtype=torch.int32, device=device),
+              torch.zeros((k, h), dtype=torch.int64, device=device))
+    return CudaGraph(lambda node, sibs, poss: _chain_nodes_body(node, sibs, poss, perm_fn, tag),
+                     inputs)
+
+
+def device_chain_fn(node, sibs, poss, *, schedule: str = DEFAULT_SCHEDULE,
+                    device="cuda") -> np.ndarray:
+    """fri.tree_verify_batched's chain_fn with the whole sibling chain on the
+    device: node (K, D), sibs (K, h, 3, D), poss (K, h) host arrays in,
+    the (K, D) uint32 root-level digests out, one fetch. On the card it is
+    one graph replay a (K, h) shape; device="cpu" runs the eager body on
+    the kernel's plain version; without a card the default raises."""
+    dev = _entry_device("device_chain_fn", schedule, device)
+    args = (torch.from_numpy(np.asarray(node, np.uint32).astype(np.int32)),
+            torch.from_numpy(np.asarray(sibs, np.uint32).astype(np.int32)),
+            torch.from_numpy(np.asarray(poss, np.int64)))
+    k, h = args[2].shape
+    if dev.type == "cuda" and k and h:
+        out = chain_graph(k, h, schedule, dev)(*args)
+    else:
+        out = _chain_nodes_body(*(a.to(dev) for a in args), _perm_fn(schedule), _node_tag(dev))
+    return out.cpu().numpy().astype(np.uint32)
+
+
+def _fused_verify_plan(entries, q_cap: int):
+    """Host index bookkeeping for the fused pooled verifier: mirror
+    fri.multiproof_verify_many's per-level merge exactly, as gather
+    programs the device runs blind. Shapes depend only on (entry count,
+    heights, block widths, q_cap), all schema facts, so one graph serves
+    every query set.
+
+    At level l the digest buffer is [pool | supplied nodes | zero row]:
+    pool rows are the previous level's permutation outputs (level 0: the
+    leaf sponges, every entry padded to q_cap rows), node rows are the
+    proof's pruned digits padded to 3x the group cap, and every padding
+    group gathers the zero row (digests no root extraction reads). Entry
+    e's level-l group cap is min(q_cap, 4^(h_e-l-1)).
+
+    Returns (leaf_blocks per gid, nodes per level, sels per level,
+    root_sels indexed by levels climbed (0 = the leaf pool, for single-leaf
+    trees), root_owner per slot). Entries must satisfy the invariants
+    fri._check_opening enforces (sorted unique in-range indices, exact
+    node counts, <= q_cap openings); a violation raises. Digits travel as
+    uint16; a digit of 16 bits or more raises rather than wraps."""
+    n_entries = len(entries)
+    heights = [int(e[5]) for e in entries]
+    max_h = max(heights) if heights else 0
+    bs_of_gid = {}
+    gid_rows = {}
+    last_gid = None
+    for e_i, e in enumerate(entries):
+        gid, _root, blocks, idx, nodes, height = e
+        if gid != last_gid and gid in gid_rows:
+            raise ValueError("entries must be grouped by gid")
+        last_gid = gid
+        bs = e[2].shape[1]
+        if bs_of_gid.setdefault(gid, bs) != bs:
+            raise ValueError("one block width per gid required")
+        gid_rows.setdefault(gid, []).append(e_i)
+        idx = [int(i) for i in idx]
+        if (not idx or sorted(set(idx)) != idx or len(idx) > q_cap
+                or min(idx) < 0 or max(idx) >= ARITY ** int(height)
+                or blocks.shape[0] != len(idx)
+                or np.asarray(nodes).reshape(-1, N_DIGITS).shape[0]
+                != fri.multiproof_nodes_total(idx, int(height))):
+            raise ValueError("malformed pooled entry (the batched verifier validates proofs "
+                             "before building entries)")
+        if ((np.asarray(blocks, np.uint32) >> 16).any()
+                or (np.asarray(nodes, np.uint32) >> 16).any()):
+            raise ValueError("non-canonical (>16-bit) digit in pooled entry")
+
+    def g_cap(h, lvl):
+        return min(q_cap, ARITY ** (h - lvl - 1)) if lvl < h else 0
+
+    # leaf sponge inputs: per gid, entries padded to q_cap rows each
+    leaf_blocks = []
+    for gid, idxs in gid_rows.items():
+        bs = bs_of_gid[gid]
+        blk = np.zeros((len(idxs) * q_cap, bs, N_DIGITS), np.uint16)
+        for k, e_i in enumerate(idxs):
+            rows = entries[e_i][2]
+            blk[k * q_cap : k * q_cap + rows.shape[0]] = rows
+        leaf_blocks.append(blk)
+
+    # static per-level geometry
+    off_out, off_nd, g_tot, n_tot = [], [], [], []
+    for lvl in range(max_h):
+        oo, on = [], []
+        go = no = 0
+        for h in heights:
+            oo.append(go)
+            on.append(no)
+            g = g_cap(h, lvl)
+            go += g
+            no += 3 * g
+        off_out.append(oo)
+        off_nd.append(on)
+        g_tot.append(go)
+        n_tot.append(no)
+
+    pool_rows = [n_entries * q_cap] + g_tot[:-1]
+    nodes_lvls = [np.zeros((n_tot[lvl], N_DIGITS), np.uint16) for lvl in range(max_h)]
+    sels = [np.full((g_tot[lvl], ARITY), pool_rows[lvl] + n_tot[lvl], np.int32)
+            for lvl in range(max_h)]
+    root_sels = [[] for _ in range(max_h + 1)]
+    root_owner = [[] for _ in range(max_h + 1)]
+
+    for e_i, (gid, root, blocks, idx, nodes, height) in enumerate(entries):
+        plan = fri.multiproof_plan(idx, height)
+        nodes = np.asarray(nodes, np.uint32).reshape(-1, N_DIGITS)
+        # per-level merge of known rows with supplied nodes: known and node
+        # indices are disjoint and each level's survivor count is a
+        # multiple of ARITY, so one argsort of the concatenated keys gives
+        # multiproof_verify_many's sorted merge, and the groups a reshape
+        keys = np.asarray(idx, np.int64)
+        vals = e_i * q_cap + np.arange(len(idx), dtype=np.int64)
+        off = 0
+        for lvl in range(height):
+            need = np.asarray(plan[lvl], np.int64).reshape(-1)
+            base = off_nd[lvl][e_i]
+            k = len(need)
+            nodes_lvls[lvl][base : base + k] = nodes[off : off + k]
+            off += k
+            all_keys = np.concatenate([keys, need])
+            all_vals = np.concatenate([vals, pool_rows[lvl] + base + np.arange(k, dtype=np.int64)])
+            order = np.argsort(all_keys)  # keys are disjoint, so unique
+            out0 = off_out[lvl][e_i]
+            g = len(all_keys) // ARITY
+            sels[lvl][out0 : out0 + g] = all_vals[order].reshape(g, ARITY)
+            keys = all_keys[order][::ARITY] >> 2
+            vals = out0 + np.arange(g, dtype=np.int64)
+        # root row: the entry's one level-(h-1) group output, or its lone
+        # leaf digest for a single-leaf tree (height 0)
+        row = off_out[height - 1][e_i] if height else e_i * q_cap
+        root_sels[height].append(row)
+        root_owner[height].append(e_i)
+
+    return (leaf_blocks, nodes_lvls, sels,
+            [np.asarray(r, np.int32) for r in root_sels], root_owner)
+
+
+def _widen(digits16: torch.Tensor) -> torch.Tensor:
+    """uint16 digits uploaded as their int16 view -> int32 digits."""
+    return digits16.to(torch.int32) & 0xFFFF
+
+
+def _fused_pool_body(leaf_blocks, nodes_lvls, sels, root_sels, perm_fn, node_tag,
+                     leaf_tags: dict) -> tuple:
+    """The verifier's whole pooled Merkle phase: every gid's leaf sponges,
+    then one permutation a tree level over the plan's gather program
+    (_fused_verify_plan). leaf_blocks and nodes_lvls are the plan's uint16
+    digits as int16 tensors (widened here), sels and root_sels its int64
+    index tensors; leaf_tags maps each block width to its sponge's
+    capacity word. Returns the extracted root digests a slot."""
+    digs = [_sponge_digests_body(_widen(blk), perm_fn, leaf_tags[blk.shape[1]])
+            for blk in leaf_blocks]
+    pool = torch.cat(digs)
+    zero = pool.new_zeros((1, N_DIGITS))
+    roots = [pool[root_sels[0]]]  # single-leaf trees: the root is the leaf digest
+    for lvl, sel in enumerate(sels):
+        children = torch.cat([pool, _widen(nodes_lvls[lvl]), zero])[sel]   # (G, ARITY, D)
+        states = torch.cat([node_tag.expand(children.shape[0], 1, N_DIGITS), children], dim=1)
+        pool = perm_fn(states)[:, DIGEST_INDEX]
+        roots.append(pool[root_sels[lvl + 1]])
+    return tuple(roots)
+
+
+def _pool_tensors(plan) -> tuple:
+    """The plan's arrays as CPU tensors, flat: the leaf blocks and the
+    level nodes as int16 views of their uint16 digits, the selections as
+    int64; then the counts that split the flat tuple back."""
+    leaf_blocks, nodes_lvls, sels, root_sels = plan[:4]
+    flat = ([torch.from_numpy(b.view(np.int16)) for b in leaf_blocks]
+            + [torch.from_numpy(x.view(np.int16)) for x in nodes_lvls]
+            + [torch.from_numpy(s.astype(np.int64)) for s in sels]
+            + [torch.from_numpy(r.astype(np.int64)) for r in root_sels])
+    return tuple(flat), (len(leaf_blocks), len(sels))
+
+
+def _split(flat: tuple, counts: tuple) -> tuple:
+    n_gid, n_lvl = counts
+    return (flat[:n_gid], flat[n_gid : n_gid + n_lvl], flat[n_gid + n_lvl : n_gid + 2 * n_lvl],
+            flat[n_gid + 2 * n_lvl :])
+
+
+def _fused_pool_consts(widths, device: torch.device) -> tuple:
+    """The node tag and the leaf tag of every block width, on device."""
+    return _node_tag(device), {bs: _leaf_tag(bs, device) for bs in widths}
+
+
+@functools.lru_cache(maxsize=_GRAPHS)
+def fused_pool_graph(shapes: tuple, counts: tuple, schedule: str,
+                     device: torch.device) -> CudaGraph:
+    """_fused_pool_body of one plan shape as one CUDA graph, captured at its
+    first use: the counterpart of the jitted `_fused_pool_dev`. shapes:
+    (shape, dtype) of every flat input of _pool_tensors; the plan's shapes
+    depend only on schema facts, so one graph serves every query set of a
+    batch shape. The selections are graph inputs, like the digits."""
+    inputs = tuple(torch.zeros(shape, dtype=dtype, device=device) for shape, dtype in shapes)
+    node_tag, leaf_tags = _fused_pool_consts({blk.shape[1] for blk in inputs[: counts[0]]}, device)
+    perm_fn = _perm_fn(schedule)
+
+    def run(*flat):
+        return _fused_pool_body(*_split(flat, counts), perm_fn, node_tag, leaf_tags)
+
+    return CudaGraph(run, inputs)
+
+
+def _pool_graph(flat: tuple, counts: tuple, schedule: str, device: torch.device) -> CudaGraph:
+    """The fused pool's graph for the shapes of _pool_tensors' flat tuple."""
+    shapes = tuple((tuple(x.shape), x.dtype) for x in flat)
+    return fused_pool_graph(shapes, counts, schedule, device)
+
+
+def _fused_pool_run(plan, schedule: str, device: torch.device) -> tuple:
+    """The fused pooled phase of a plan on device: one graph replay on the
+    card, the eager body on the CPU. Returns the root digests a slot."""
+    flat, counts = _pool_tensors(plan)
+    if device.type == "cuda":
+        return _pool_graph(flat, counts, schedule, device)(*flat)
+    consts = _fused_pool_consts({b.shape[1] for b in plan[0]}, device)
+    return _fused_pool_body(*_split(flat, counts), _perm_fn(schedule), *consts)
+
+
+def fused_entries_check(vk, pool_fn=None, *, schedule: str = DEFAULT_SCHEDULE, device="cuda"):
+    """The entries_check of fri.verify_succinct_batched and
+    aggregate.verify_aggregate with the whole pooled leaf-sponge and
+    multiproof phase on the device: one graph replay on the card and one
+    fetch of the roots, which are compared on the host. Verdicts equal
+    fri.pooled_entries_verify's: the gather program replays
+    multiproof_verify_many's merge order. pool_fn(plan) -> root digests a
+    slot overrides the default run (the tests pass the eager body); without
+    a card the default device raises."""
+    dev = _entry_device("fused_entries_check", schedule, device)
+    q_cap = vk.params.n_queries
+
+    def check(entries):
+        ok = np.zeros(len(entries), bool)
+        if not entries:
+            return ok
+        plan = _fused_verify_plan(entries, q_cap)
+        roots = (pool_fn(plan) if pool_fn is not None
+                 else _fused_pool_run(plan, schedule, dev))
+        got = torch.cat(roots).cpu().numpy().astype(np.uint32)  # one fetch
+        row = 0
+        for slot, owners in enumerate(plan[4]):
+            for e_i in owners:
+                root = entries[e_i][1]
+                want = (ints_to_digits([int(root)], shape=(1,))[0]
+                        if isinstance(root, (int, np.integer)) else np.asarray(root, np.uint32))
+                ok[e_i] = bool(np.array_equal(got[row], want))
+                row += 1
+        return ok
+
+    return check
+
+
+def verify_succinct_device_batch(vk, proofs, public_inputs_list, fused: bool = True, *,
+                                 schedule: str = DEFAULT_SCHEDULE, device="cuda") -> np.ndarray:
+    """fri.verify_succinct_batched with the pooled Merkle phase on the
+    device: the card unless the caller asks for the CPU (device="cpu", the
+    kernel's plain version); without a card the default raises. Verdicts
+    are identical: the transcript replay, proof-of-work gate and fold
+    algebra are the same host code. fused=True runs the whole leaf-sponge
+    and multiproof phase as one graph replay and one fetch
+    (fused_entries_check); fused=False the host-pooled path with one kernel
+    launch a sponge chunk and a level (device_pool_perm)."""
+    pool = device_pool_perm(schedule, device)
+    check = fused_entries_check(vk, schedule=schedule, device=device) if fused else None
+    return fri.verify_succinct_batched(vk, proofs, public_inputs_list, pool, entries_check=check)
+
+
+def verify_aggregate_device(vk, proof, public_inputs_list, *, schedule: str = DEFAULT_SCHEDULE,
+                            device="cuda") -> bool:
+    """aggregate.verify_aggregate with its pooled Merkle phase as one graph
+    replay on the device (fused_entries_check): the same verdict. The card
+    unless the caller asks for the CPU; without a card the default raises."""
+    return aggregate.verify_aggregate(
+        vk, proof, public_inputs_list, device_pool_perm(schedule, device),
+        entries_check=fused_entries_check(vk, schedule=schedule, device=device))

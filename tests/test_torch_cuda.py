@@ -503,3 +503,141 @@ def test_device_pool_perm_raises_without_a_card():
     got = fri_cuda.device_pool_perm(device="cpu")(states)
     assert perm_cuda.launches == _NO_LAUNCHES
     assert np.array_equal(got, permute(torch.from_numpy(states.astype(np.int32))).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zk", [False, True])
+@pytest.mark.parametrize("b", [1, 4])
+def test_device_aggregate_equals_the_native_engine(cuda_device, b, zk):
+    """The device aggregate prover on its default device, the card, at the
+    "fast" preset: byte-identical to the native engine's
+    aggregate.prove_aggregate for the same instances and generator, and
+    accepted by the device verifier; only the opt kernel launches."""
+    from hades252_tpu_torch import aggregate, fri, fri_cuda, serialize
+
+    cs = _fast_instances(b, 50 + b)
+    pk, vk = fri.preprocess_succinct(cs[0], fri.FriParams(**_FAST, zk=zk), fri.default_pcs_perm())
+    perm_cuda.reset_launches()
+    agg = fri_cuda.prove_aggregate_device(cs, pk, np.random.default_rng(60 + b))
+    torch.cuda.synchronize()
+    assert perm_cuda.launches["opt"] > 0
+    assert all(n == 0 for s, n in perm_cuda.launches.items() if s != "opt")
+    host = aggregate.prove_aggregate(cs, pk, fri.default_pcs_perm(), rng=np.random.default_rng(60 + b))
+    assert serialize.aggregate_to_bytes(agg, vk) == serialize.aggregate_to_bytes(host, vk)
+    assert fri_cuda.verify_aggregate_device(vk, agg, [[g.pi for g in c.gates] for c in cs],
+                                            schedule="hybp")
+
+
+def _spoiled_fast_proofs(zk: bool):
+    """Four fast proofs, the second with a changed pruned node (caught in the
+    pooled Merkle phase), the fourth with a changed claimed evaluation."""
+    from dataclasses import replace
+
+    from hades252_tpu_torch import fri
+    from hades252_tpu_torch.params import P
+
+    cs = _fast_instances(4, 90)
+    pk, vk = fri.preprocess_succinct(cs[0], fri.FriParams(**_FAST, zk=zk), fri.default_pcs_perm())
+    proofs = [fri.prove_succinct(c, pk, fri.default_pcs_perm()) for c in cs]
+    nodes = {k: np.array(v, copy=True) for k, v in proofs[1].open_nodes.items()}
+    nodes["t"][0, 0] ^= 1
+    proofs[1] = replace(proofs[1], open_nodes=nodes)
+    proofs[3] = replace(proofs[3], evals={**proofs[3].evals, "a": (proofs[3].evals["a"] + 1) % P})
+    return vk, proofs, [[g.pi for g in c.gates] for c in cs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zk", [False, True])
+def test_device_verifiers_equal_the_host(cuda_device, zk):
+    """verify_succinct_device_batch, fused (one graph replay) and not (a
+    launch a call), through hybp: the native engine's verdicts, false in the
+    two spoiled slots only; the fused phase launches only in its graph."""
+    import sys
+    from pathlib import Path
+
+    from hades252_tpu_torch import fri, fri_cuda
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    vk, proofs, pis = _spoiled_fast_proofs(zk)
+    want = fri.verify_succinct_batched(vk, proofs, pis, fri.default_pcs_perm())
+    assert list(want) == [True, False, True, False]
+    perm_cuda.reset_launches()
+    unfused = fri_cuda.verify_succinct_device_batch(vk, proofs, pis, False, schedule="hybp")
+    assert perm_cuda.launches == {**_NO_LAUNCHES, "hybp": chip_smoke.pooled_merkle_launches(vk)}
+    fri_cuda.verify_succinct_device_batch(vk, proofs, pis, schedule="hybp")  # captures the graph
+    graphs = {g: g.replays for g in fri_cuda._LIVE_GRAPHS}
+    perm_cuda.reset_launches()
+    fused = fri_cuda.verify_succinct_device_batch(vk, proofs, pis, schedule="hybp")
+    torch.cuda.synchronize()
+    assert perm_cuda.launches == _NO_LAUNCHES
+    (graph,) = [g for g in fri_cuda._LIVE_GRAPHS if g.replays != graphs.get(g, 0)]
+    assert graph.replays == graphs[graph] + 1
+    assert graph.held == {**_NO_LAUNCHES, "hybp": chip_smoke.pooled_merkle_launches(vk)}
+    assert np.array_equal(unfused, want) and np.array_equal(fused, want)
+    assert list(fri_cuda.verify_succinct_device_batch(vk, proofs[:1], pis[:1])) == [True]
+
+
+@pytest.mark.cuda
+def test_verifier_graphs_replay_their_eager_bodies(cuda_device):
+    """The chain's and the fused pool's graphs: their replays equal the
+    eager bodies on the same inputs, tensor for tensor, for two inputs in
+    turn; the graph holds the launches its body makes."""
+    from hades252_tpu_torch import fri, fri_cuda
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(5)
+    for k, h in ((64, 3), (1000, 7)):
+        graph = fri_cuda.chain_graph(k, h, "opt", dev)
+        assert graph.held == {**_NO_LAUNCHES, "opt": h}
+        for _ in range(2):
+            node = _elements((k,), int(rng.integers(1 << 30))).to(dev)
+            sibs = _elements((k, h, 3), int(rng.integers(1 << 30))).to(dev)
+            poss = torch.from_numpy(rng.integers(0, 4, (k, h))).to(dev)
+            got = graph(node, sibs, poss)
+            want = fri_cuda._chain_nodes_body(node, sibs, poss, fri_cuda._perm_fn("opt"),
+                                              fri_cuda._node_tag(dev))
+            assert torch.equal(got, want)
+
+    vk, proofs, pis = _spoiled_fast_proofs(False)
+    plans = []
+
+    def spy(entries):
+        plans.append(fri_cuda._fused_verify_plan(entries, vk.params.n_queries))
+        return fri.pooled_entries_verify(entries, fri.default_pcs_perm())
+
+    fri.verify_succinct_batched(vk, proofs[:2], pis[:2], entries_check=spy)
+    fri.verify_succinct_batched(vk, proofs[2:], pis[2:], entries_check=spy)
+    for plan in plans:
+        got = fri_cuda._fused_pool_run(plan, "hybp", dev)
+        flat, counts = fri_cuda._pool_tensors(plan)
+        consts = fri_cuda._fused_pool_consts({b.shape[1] for b in plan[0]}, dev)
+        want = fri_cuda._fused_pool_body(*fri_cuda._split(tuple(x.to(dev) for x in flat), counts),
+                                         fri_cuda._perm_fn("hybp"), *consts)
+        assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_device_chain_fn_equals_the_host_loop(cuda_device):
+    from hades252_tpu_torch import fri, fri_cuda
+
+    rng = np.random.default_rng(8)
+    leaves = [int(v) for v in rng.integers(0, 1 << 62, 4096)]
+    levels = fri.tree_build(leaves, fri.default_pcs_perm())
+    idx = sorted(int(i) for i in rng.choice(4096, 100, replace=False))
+    sibs, poss = fri.tree_open_batched(levels, idx)
+    values = [leaves[i] for i in idx]
+    values[7] += 1
+    args = (fri.tree_root(levels), values, sibs, poss, len(levels) - 1, idx,
+            fri.default_pcs_perm())
+    for schedule in ("hybp", "opt"):
+        def chain(n, s, p, schedule=schedule):
+            return fri_cuda.device_chain_fn(n, s, p, schedule=schedule)
+
+        fri.tree_verify_batched(*args, chain)  # captures the (100, 6) graph
+        perm_cuda.reset_launches()
+        got = fri.tree_verify_batched(*args, chain)
+        assert perm_cuda.launches == _NO_LAUNCHES  # a graph replay, no wrapper
+        assert np.array_equal(got, fri.tree_verify_batched(*args))
+        assert not got[7] and int(got.sum()) == 99

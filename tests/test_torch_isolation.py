@@ -59,6 +59,18 @@ perm_cuda.reset_launches()
 on_cpu = fri_cuda.prove_succinct_device(c, pk, device="cpu")
 assert not any(perm_cuda.launches.values())
 assert serialize.proof_to_bytes(on_cpu, vk) == serialize.proof_to_bytes(fri.prove_succinct(c, pk), vk)
+# the device verifiers' entry points, and the fused plan on the tiny proof's entries
+assert all(callable(f) for f in (fri_cuda.prove_aggregate_device, fri_cuda.device_chain_fn,
+                                 fri_cuda.fused_entries_check, fri_cuda.verify_succinct_device_batch,
+                                 fri_cuda.verify_aggregate_device))
+seen = []
+def spy(entries):
+    seen.append(fri_cuda._fused_verify_plan(entries, vk.params.n_queries))
+    return fri.pooled_entries_verify(entries, fri.default_pcs_perm())
+assert fri.verify_succinct_batched(vk, [on_cpu], [[g.pi for g in c.gates]], entries_check=spy)[0]
+leaf_blocks, nodes_lvls, sels, root_sels, root_owner = seen[0]
+assert len(leaf_blocks) == 4 + len(fri.proof_schema(vk.n, vk.params)["sched"])
+assert sorted(e for slot in root_owner for e in slot) == list(range(len(leaf_blocks)))
 print(len(names))
 """
 
@@ -71,7 +83,8 @@ def test_port_imports_without_jax():
     # every module of the package: the cipher, the checkpoint, the native
     # binding, the host proof layers, the NTT, the batched prover and the
     # succinct argument with its codecs, aggregation, card seam and device
-    # prover (a tiny proof through the plain version, byte-identical)
+    # prover (a tiny proof through the plain version, byte-identical), and
+    # the device verifiers' fused plan on that proof's entries
     assert int(proc.stdout.strip()) >= 28
 
 
