@@ -18,7 +18,8 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
   4. holds each kernel against its plain PyTorch version on the card at
      B = 2^14, 4096 and a ragged 1000, both `convert` values, and `naive`,
      `opt`, `mxu8`, `mxu`, `hyb`, `hyb13` and `hybp13` at the first Merkle
-     level's B = 2^18 on the Montgomery path; every kernel, `naive` and
+     level's B = 2^18 on the Montgomery path (one plain run covers several
+     batches side by side, as states are independent); every kernel, `naive` and
      `opt` (a group of lanes a state), `hyb`, `hybp`, `hyb13` and `hybp13`
      (64 states a block), `mxu8` and `mxu` (a warpgroup of 128), also at
      B = 1, 5, 127, 129 and 2^14 + 1, where `opt` is held against the
@@ -138,13 +139,31 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      as `device_aggregate_launches` or `pooled_merkle_launches` says: the
      wrappers' counts, plus each graph's replays times the launches it
      holds, and no other kernel;
+  7h. drives the sharded paths (`parallel/dist.py` and the `mesh` of the
+     provers and verifiers) on a world-1 NCCL group in this process (TCP on
+     127.0.0.1, destroyed at the end): `merkle_root_sharded` over phase 5's
+     2^20 leaves (the root and the counters), `permute_sharded` at 2^14
+     against `permute_cuda`, `sponge_hash_sharded` and `cipher_sharded`
+     against phases 6 and 7, `prove_batched(mesh=)` at B = 16 against phase
+     7d's proofs, `prove_succinct_device_batch(mesh=)` and
+     `prove_aggregate_device(mesh=)` at the fast preset, B = 8, against
+     phases 7f's and 7g's bytes, `verify_succinct_device_batch(mesh=)`
+     through `hybp` on phase 7e's 16 fast proofs (two spoiled), and
+     `fri_cuda.mesh_chain_fn` through `hybp` on phase 7g's 2^10 openings
+     against `device_chain_fn`, each with its launches counted as in phase
+     7g; then two ranks spawned on cuda:0 over gloo build the 2^20-leaf tree
+     and prove B = 16, every rank's root and proofs equal to phases 5's and
+     7d's (10 `opt` launches a rank); on a host with two or more cards, two
+     or four NCCL ranks, one card each, build the tree too;
   8. times the kernels, their plain versions, the trees, the openings,
      the sponge, the cipher and the checkpointed build (beside the plain
      `merkle_root` through the same kernel, so the cost of the ten
      device-to-host copies and file writes is a number), and the `naive`
      cross-check tree over 2^16 leaves beside `opt`'s, with CUDA events
      (median of 5 after a warm-up), and works out each kernel's bound: the
-     least time the card could take for the same states (`bound`); every
+     least time the card could take for the same states, the resource
+     that binds it and the share of the kernel's time it is
+     (`utils/roofline.roofline`); every
      kernel also at B = 2^10, 2^16 and 2^18. The prover: proofs/s at B = 16
      and 64 (host clock around the call, median of 3 after a warm-up), the
      split into its three device phases (CUDA events around each) and the
@@ -166,10 +185,15 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      walls and the native fast aggregate, of a fused and an unfused
      verification of 16 and of 1 (median of 3) beside phase 7e's pooled
      path, the fused pool's graph replay beside its eager body (CUDA
-     events), and the peak device memory of each.
+     events), and the peak device memory of each. Phase 7h's: the sharded
+     tree's wall on one NCCL rank beside `merkle_root`'s and on two gloo
+     ranks (host clock, median of 5 after a warm-up), `dist.collective_bytes`,
+     and where the host has two or more cards the N-card wall and BASELINE
+     config 5's scaling efficiency.
 
-Each path of phases 5-7b, 7e, 7f and 7g runs with the launch counts set to 0 just
-before it and read just after; the kernels' JSON line reports their sum. The
+Each path of phases 5-7b and 7e-7h runs with the launch counts set to 0 just
+before it and read just after; the kernels' JSON line reports their sum (the
+spawned ranks' counts of their first tree included). The
 earlier paths run at the depth they had: the `naive` and `mxu8` cross-check
 trees over 2^16 leaves, everything else at full size. No
 single PyTorch call computes a 255-bit modular permutation, so the line's
@@ -183,9 +207,10 @@ resumes (through `hyb13` and `hybp13`, the damage included) and of one
 `prove_batched` at B = 16, of one "prod" `fri.prove_succinct` through
 `opt`, of one prod `fri_cuda.prove_succinct_device`, of one prod device
 aggregate of 4 and of one fused verification of 16 fast proofs with
-`torch.profiler` (phase 9) and prints, per path, the span of its device
-work, the time the device was busy, the idle share, the
-permutation kernel's share and the plain-torch glue's.
+`torch.profiler` (phase 9, through `utils/profiling.trace`, which writes each
+path's Chrome trace to `build/profile/<n>/trace.json`) and prints, per path,
+the span of its device work, the time the device was busy, the idle share,
+the permutation kernel's share and the plain-torch glue's.
 
 Every check is exact (integer arithmetic: tolerance 0). Any failure raises
 and the script exits non-zero. The last line of standard output is
@@ -203,6 +228,7 @@ import json
 import multiprocessing
 import os
 import platform
+import socket
 import statistics
 import subprocess
 import sys
@@ -211,6 +237,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 try:
     import hades252_tpu_torch  # noqa: F401
@@ -225,9 +252,10 @@ from hades252_tpu_torch import serialize
 from hades252_tpu_torch.gadget import Composer, Constraint, GadgetStrategy
 from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import _build, make_perm_mont_fn, ntt, perm_cuda
+from hades252_tpu_torch.parallel import dist, multihost
 from hades252_tpu_torch.params import P, WIDTH, mxu8_tables
 from hades252_tpu_torch.strategy import ScalarStrategy
-from hades252_tpu_torch.utils import checkpoint, native
+from hades252_tpu_torch.utils import checkpoint, metrics, native, profiling, roofline
 from hades252_tpu_torch.utils.encoding import digits_to_ints, ints_to_digits
 
 SEED = 0x5EED
@@ -286,15 +314,16 @@ DEVICE_BATCH = 8
 # mode proves B = 8 instances at the "fast" preset (bench.py:488-567)
 AGG_FAST_INSTANCES = 8
 CHAIN_LEAVES, CHAIN_OPENINGS = 1 << 14, 1 << 10   # a prod proof's m0/2 positions
-
-# The card's published peaks (NVIDIA H100 SXM data sheet): dense int8 and
-# dense bf16 on the tensor cores, and device memory. Its 32-bit integer rate is not published:
-# 132 SMs x 64 INT32 lanes x the 1.98 GHz boost clock, one multiply-add a
-# lane a clock.
-INT8_OPS_PER_S = 1979e12
-BF16_OPS_PER_S = 989e12
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# the sharded paths (phase 7h): two ranks on one card over gloo; NCCL over two
+# or four cards where the host has them
+GLOO_RANKS, MAX_CARDS = 2, 4
+GROUP_TIMEOUT_S = 120       # a collective's wait for the other ranks
+RANKS_WALL_S = 300          # spawned ranks: all must report and exit within it
+# the plain versions' slice, which bounds their int64 temporaries (phase 4
+# prints their peak)
+PLAIN_SLICE = 1 << 16
+# --profile: each traced path's Chrome trace, <n>/trace.json, beside the builds
+PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
 
 
 def log(msg: str) -> None:
@@ -315,11 +344,11 @@ def random_elements(shape, rng: np.random.Generator) -> np.ndarray:
 
 
 def plain_planar(x: torch.Tensor, *, convert: bool, schedule: str) -> torch.Tensor:
-    """The plain version of a kernel over planar x, in slices of PERM_BATCH
+    """The plain version of a kernel over planar x, in slices of PLAIN_SLICE
     states (each state is independent), which bounds its int64 temporaries."""
-    return torch.cat([perm_cuda.permute_planar_plain(x[:, :, i : i + PERM_BATCH],
+    return torch.cat([perm_cuda.permute_planar_plain(x[:, :, i : i + PLAIN_SLICE],
                                                      convert=convert, schedule=schedule)
-                      for i in range(0, x.shape[2], PERM_BATCH)], dim=2)
+                      for i in range(0, x.shape[2], PLAIN_SLICE)], dim=2)
 
 
 def plain_mont_fn(schedule: str):
@@ -345,75 +374,6 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def bound(schedule: str, b: int) -> dict:
-    """The least time the card could take for b states through `schedule`,
-    canonical in and out: the largest of (i) the byte multiply-adds of its
-    dots over the int8 peak (for mxu, whose dots are bf16, the bf16 peak),
-    (ii) the 32-bit integer operations of its
-    CUDA-core work over the int32 rate, and (iii) its bytes over the memory
-    rate. Counted per state from the sources (csrc/field.cuh, perm.cuh,
-    perm_dense.cuh, perm_hybp.cuh):
-
-    - a Montgomery product is 136 multiply-adds: 64 for a b and 72 for the
-      reduction (8 steps of 6 multiply-adds by the limbs of p that are not 1
-      or 2^32 - 1, a negate and two adds for those two); a square needs 36
-      for a^2 (the 28 products above the diagonal once, the 8 on it), so 108.
-      naive runs 1,982 products and opt 1,054 (the 10 conversion products
-      included), 198 of them the squares of the 99 S-boxes, with 1,675 and
-      984 modular adds of 16 adds and subtracts. What opt's lanes compute
-      twice over is the kernel's choice, not work the function needs;
-    - the byte-dot kernels run 99 S-boxes of two 36- and one 64-multiply-add
-      raw product and the 10 conversion products; every REDC (632 in mxu8
-      and mxu, 401 in the chained kernels) runs on the CUDA cores, 72
-      multiply-adds and a 9-limb subtract; the tensor cores run the dots
-      with constant weights: an MDS dot is (315, 160), round r of the chain
-      (63, 32 (6 + r)), the exit (315, 2080), each with 2 adds per
-      recombined column on the cores; the chain's 64 big REDCs end in five
-      9-limb subtracts; hybp's small dot adds onto the big one's sums in the
-      MMA, so hyb's count is hybp's;
-    - mxu runs mxu8's schedule: the same counts, its MDS dots at the bf16
-      rate (widening the bytes is the kernel's choice, not work the function
-      needs);
-    - hyb13 and hybp13 run hyb's and hybp's work with the base-2^13 S-box,
-      1,420 operations in place of 136: 2 x 210 + 400 narrow multiply-adds, 2 x
-      39 column doublings, 4 x 20 digit windows of 3 operations (shift,
-      merge, mask), and for each of the 3 products 39 shift-and-adds of two
-      operations into the 64-bit accumulator and 16 limbs written;
-    - every state is 320 B read and 320 B written, and the tables are read
-      once.
-    """
-    full, partial = 8, 59
-    cores = tensor = 0
-    sboxes = 5 * full + partial
-    if schedule in ("naive", "opt"):
-        products, adds = (1982, 1675) if schedule == "naive" else (1054, 984)
-        cores = 136 * (products - 2 * sboxes) + 108 * 2 * sboxes + 16 * adds
-        table_bytes = perm_cuda.kernel_tables().nbytes
-    else:
-        base = schedule.removesuffix("13")
-        dense = full + partial if base in ("mxu8", "mxu") else full
-        chain = 0 if base in ("mxu8", "mxu") else partial
-        sbox_ops = 2 * 210 + 400 + 2 * 39 + 4 * 20 * 3 + 3 * (2 * 39 + 16) if base != schedule \
-            else 2 * 36 + 64
-        redcs = 3 * sboxes + 5 * dense + (chain + 5 if chain else 0)
-        dot_cols = 5 * 63 * dense + (63 * (chain + 5) if chain else 0)
-        tensor = dense * 315 * 160
-        cores = sboxes * sbox_ops + 10 * 136 + redcs * (72 + 9) + 2 * dot_cols + 16 * 5 * dense
-        if chain:
-            tensor += sum(63 * 32 * (6 + r) for r in range(chain)) + 315 * 2080
-            cores += (chain + 5) * 5 * 9
-        tables = (perm_cuda.hyb_kernel_tables(base) if chain
-                  else perm_cuda.dense_kernel_tables(schedule))
-        table_bytes = sum(t.nbytes for t in tables)
-    tensor_rate = BF16_OPS_PER_S if schedule == "mxu" else INT8_OPS_PER_S
-    times = {"tensor_ms": 2 * tensor * b / tensor_rate * 1e3,
-             "cores_ms": cores * b / INT32_OPS_PER_S * 1e3,
-             "bytes_ms": (2 * WIDTH * 16 * 4 * b + table_bytes) / HBM_BYTES_PER_S * 1e3}
-    bound_ms = max(times.values())
-    return {"bound_ms": bound_ms,
-            "bound_by": "bytes" if bound_ms == times["bytes_ms"] else "operations", **times}
 
 
 def int_merkle_root(leaves: list[int]) -> int:
@@ -580,7 +540,8 @@ def prover_phase(dev: torch.device, rng: np.random.Generator) -> dict:
     log(f"[ntt] {NTT_ROWS} rows x {', '.join(map(str, NTT_SIZES))} points on the card: inverse "
         f"undoes forward; rows 0-1 at {NTT_SIZES[0]} == host plonk.ntt; 4 x 1024 == the CPU; coset "
         f"eval/interp round-trips, row 0 == host plonk._coset_eval")
-    return {"dev": dev, "composers": composers, "key": key, "host_s": host_s, "xs": xs}
+    return {"dev": dev, "composers": composers, "key": key, "host_s": host_s, "xs": xs,
+            "proofs": first}
 
 
 def prover_timings(ctx: dict, smi: str) -> None:
@@ -1137,7 +1098,7 @@ def aggregate_verify_phase(composers: list, succinct: dict) -> dict:
     cs = composers[:AGG_FAST_INSTANCES]
     pis = [[g.pi for g in c.gates] for c in cs]
     t0 = time.perf_counter()
-    want = serialize.aggregate_to_bytes(aggregate.prove_aggregate(cs, pkf, host), vkf)
+    want = fast_bytes = serialize.aggregate_to_bytes(aggregate.prove_aggregate(cs, pkf, host), vkf)
     times["fast native"] = time.perf_counter() - t0
     agg, runs = device_aggregates(f"prove_aggregate_device {AGG_FAST_INSTANCES} fast", cs, pkf,
                                   vkf, want, 1 + SUCCINCT_REPS)
@@ -1242,6 +1203,7 @@ def aggregate_verify_phase(composers: list, succinct: dict) -> dict:
                                                            host, chain),
                            "hybp", lambda _: (0, height))
     check(bool(loop.all()) and np.array_equal(got, loop), "device_chain_fn != the host loop")
+    chain_case = (root, list(opened), sibs, poss, height, idx)  # phase 7h shards it
     bad_row = CHAIN_OPENINGS // 3
     opened[bad_row] = (opened[bad_row] + 1) % P
     bad, _, _ = counted("device_chain_fn, a changed value", lambda: fri.tree_verify_batched(
@@ -1289,7 +1251,8 @@ def aggregate_verify_phase(composers: list, succinct: dict) -> dict:
     return {"times": times, "launches": launches, "pool": (pool_run, pool_replay, pool_eager),
             "prod": (composers[:AGG_INSTANCES], pk),
             "verify": lambda: fri_cuda.verify_succinct_device_batch(vkf, proofs, statements,
-                                                                    schedule="hybp")}
+                                                                    schedule="hybp"),
+            "fast aggregate": fast_bytes, "chain": chain_case}
 
 
 def aggregate_verify_timings(ctx: dict, succinct: dict, smi: str) -> None:
@@ -1345,18 +1308,282 @@ def aggregate_verify_timings(ctx: dict, succinct: dict, smi: str) -> None:
         f"{CHAIN_OPENINGS} openings (the host's checks included) {t['chain']:.6f} s | {smi}")
 
 
-def profile_path(name: str, fn) -> None:
-    """Trace one warm call of fn with torch.profiler and print where its
-    device time went: the span from the first device operation's start to
-    the last one's end, the busy time (the union of the operations'
-    intervals), the idle share of the span, the permutation kernels and
-    the rest (the plain-torch glue)."""
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def host_walls(fn, reps: int = REPS) -> list:
+    """Seconds of reps calls of fn() by the host clock, each ending in a
+    synchronisation of the card, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def sharded_rank(rank: int, world: int, coord: str, backend: str, leaves: np.ndarray,
+                 prove: bool, out) -> None:
+    """One spawned rank of phase 7h: joins a group of `world` over
+    `backend` (gloo: every rank on cuda:0; nccl: rank r on cuda:r), builds
+    the sharded tree over `leaves` with its launches and collective bytes
+    counted, times it, and with `prove` runs prove_batched(mesh=) over
+    phase 7d's first PLONK_BATCHES[0] instances. Puts (rank, result) on
+    `out`, or (rank, the traceback) when it fails."""
+    import traceback
+
+    try:
+        multihost.initialize(coord, world, rank, backend=backend, timeout_s=GROUP_TIMEOUT_S)
+        try:
+            mesh = multihost.global_mesh(device=torch.device("cuda", 0 if backend == "gloo"
+                                                             else rank))
+            x = torch.from_numpy(leaves).to(mesh.device)
+            metrics.reset()
+            metrics.enable()
+            root, counts = drive(lambda: dist.merkle_root_sharded(x, mesh))
+            metrics.disable()
+            res = {"root": root.cpu().numpy(), "launches": counts,
+                   "collective_bytes": metrics.snapshot()["counters"]["dist.collective_bytes"],
+                   "walls": host_walls(lambda: dist.merkle_root_sharded(x, mesh))}
+            if prove:
+                composers = preimage_instances(PLONK_BATCHES[0], PLONK_SEED)
+                key = plonk.preprocess(composers[0])
+                proofs, n = drive(lambda: prover_cuda.prove_batched(composers, key, mesh=mesh))
+                res["proofs"] = [(p.wires, p.z, p.t, p.commitments) for p in proofs]
+                res["launches"] = {s: counts[s] + n[s] for s in perm_cuda.SCHEDULES}
+        finally:
+            tdist.destroy_process_group()
+        out.put((rank, res))
+    except BaseException:
+        out.put((rank, traceback.format_exc()))
+        raise
+
+
+def run_ranks(world: int, backend: str, leaves: np.ndarray, prove: bool) -> list:
+    """sharded_rank on `world` spawned processes; every rank must report and
+    exit 0 within RANKS_WALL_S. Returns their results in rank order; every
+    process is ended before it returns."""
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    coord = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=sharded_rank, args=(r, world, coord, backend, leaves, prove, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline, results = time.monotonic() + RANKS_WALL_S, {}
+    try:
+        for _ in procs:
+            rank, res = out.get(timeout=max(1.0, deadline - time.monotonic()))
+            check(isinstance(res, dict), f"{backend} rank {rank} of {world} failed:\n{res}")
+            results[rank] = res
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"{backend} ranks of {world}: exit codes {[p.exitcode for p in procs]}")
+    return [results[r] for r in range(world)]
+
+
+def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) -> dict:
+    """Phase 7h: the sharded paths (parallel/dist.py, the provers' and
+    verifiers' mesh) on the card. A world-1 NCCL group in this process
+    drives each path at full width against phases 5-7g's outputs, each
+    with its launches counted; two ranks spawned on cuda:0 over gloo build
+    the 2^20-leaf tree and prove B = 16; on a host with two or more cards,
+    two or four NCCL ranks with one card each build the tree for BASELINE
+    config 5's scaling efficiency. Returns what phase 8 prints."""
+    t_phase = time.perf_counter()
+    launches, times = {s: 0 for s in perm_cuda.SCHEDULES}, {}
+    leaves, root = inputs["leaves"], inputs["root"]
+
+    def counted(name, fn, want):
+        """fn() with the counts at 0 just before it: the wrappers' launches
+        and the graph replays' (held x replays) must equal want ({schedule:
+        launches}, or a function of fn's result giving it); no graph may be
+        captured inside it."""
+        before = graph_replays()
+        out, counts = drive(fn)
+        after = graph_replays()
+        check(set(after) <= set(before), f"{name}: a graph was captured inside the run")
+        total = {s: counts[s] + sum((n - before[g]) * g.held[s] for g, n in after.items())
+                 for s in perm_cuda.SCHEDULES}
+        want = want(out) if callable(want) else want
+        want = {s: want.get(s, 0) for s in perm_cuda.SCHEDULES}
+        check(total == want, f"{name}: launches {total} != {want}")
+        for s in perm_cuda.SCHEDULES:
+            launches[s] += total[s]
+        log(f"[launches] {name}: {total}")
+        return out
+
+    levels = merkle.tree_levels(MERKLE_LEAVES)
+    chunks = 1 + CIPHER_LEN // cipher.RATE
+    states = torch.from_numpy(random_elements((PERM_BATCH, WIDTH), np.random.default_rng(SEED + 10)))
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                         timeout_s=GROUP_TIMEOUT_S)
+    try:
+        mesh = multihost.global_mesh()
+        check(mesh.device.type == "cuda" and mesh.shape == {dist.AXIS: 1},
+              f"the world-1 NCCL mesh: {mesh}")
+        metrics.reset()
+        metrics.enable()
+        got = counted("merkle_root_sharded 2^20 (opt), 1 rank",
+                      lambda: dist.merkle_root_sharded(leaves, mesh), {"opt": levels})
+        metrics.disable()
+        check(torch.equal(got, root), "merkle_root_sharded over NCCL != phase 5's root")
+        counters = metrics.snapshot()["counters"]
+        check(counters == {"dist.merkle_builds": 1, "perms.executed": (MERKLE_LEAVES - 1) // 3,
+                           "dist.collective_bytes": 0}, f"sharded build's counters {counters}")
+        x = states.to(mesh.device)
+        got = counted(f"permute_sharded {PERM_BATCH} (opt)", lambda: dist.permute_sharded(x, mesh),
+                      {"opt": 1})
+        check(torch.equal(got, perm_cuda.permute_cuda(x)), "permute_sharded != permute_cuda")
+        got = counted(f"sponge_hash_sharded {SPONGE_STREAMS} x {SPONGE_LEN} (opt)",
+                      lambda: dist.sponge_hash_sharded(inputs["msgs"], mesh),
+                      {"opt": SPONGE_LEN // sponge.RATE})
+        check(torch.equal(got, inputs["digests"]), "sponge_hash_sharded != phase 6's digests")
+        got = counted(f"cipher_sharded {CIPHER_STREAMS} x {CIPHER_LEN} (opt)",
+                      lambda: dist.cipher_sharded(*inputs["cipher"], mesh), {"opt": chunks})
+        check(all(torch.equal(a, b) for a, b in zip(got, inputs["ciphertext"], strict=True)),
+              "cipher_sharded != phase 7's ciphertexts and tags")
+
+        composers, key = prover["composers"][:PLONK_BATCHES[0]], prover["key"]
+        proofs = counted(f"prove_batched B={PLONK_BATCHES[0]}, mesh of 1",
+                         lambda: prover_cuda.prove_batched(composers, key, mesh=mesh), {})
+        check(len(proofs) == len(prover["proofs"])
+              and all(same_proof(a, b) for a, b in zip(proofs, prover["proofs"])),
+              "prove_batched(mesh=) != phase 7d's proofs")
+
+        pkf, vkf = succinct["keys"]["fast"]
+        schema = fri.proof_schema(vkf.n, vkf.params)
+        cs = composers[:DEVICE_BATCH]
+        fri_cuda.fri_phase_graph(DEVICE_BATCH, schema["m0"], schema["n_folds"], "opt", mesh.device)
+        fri_cuda.fri_phase_graph(1, schema["m0"], schema["n_folds"], "opt", mesh.device)
+        proofs = counted(f"prove_succinct_device_batch B={DEVICE_BATCH} fast, mesh of 1",
+                         lambda: fri_cuda.prove_succinct_device_batch(cs, pkf, mesh=mesh),
+                         lambda out: {"opt": sum(device_proof_launches(
+                             vkf, [p.pow_nonce for p in out]))})
+        check([serialize.proof_to_bytes(p, vkf) for p in proofs] == succinct["bytes"]["fast"],
+              "prove_succinct_device_batch(mesh=) != phase 7f's bytes")
+        cs = composers[:AGG_FAST_INSTANCES]
+        agg = counted(f"prove_aggregate_device {AGG_FAST_INSTANCES} fast, mesh of 1",
+                      lambda: fri_cuda.prove_aggregate_device(cs, pkf, mesh=mesh),
+                      lambda out: {"opt": sum(device_aggregate_launches(vkf, len(cs),
+                                                                        out.pow_nonce))})
+        check(serialize.aggregate_to_bytes(agg, vkf) == agg_verify["fast aggregate"],
+              "prove_aggregate_device(mesh=) != phase 7g's bytes")
+
+        proofs_16, statements, expect = succinct["pooled"]
+        fri_cuda.verify_succinct_device_batch(vkf, proofs_16, statements, schedule="hybp",
+                                              mesh=mesh)  # its graph, if it was let go
+        got = counted(f"verify_succinct_device_batch {POOLED_PROOFS} fast, mesh of 1 (hybp)",
+                      lambda: fri_cuda.verify_succinct_device_batch(
+                          vkf, proofs_16, statements, schedule="hybp", mesh=mesh),
+                      {"hybp": pooled_merkle_launches(vkf)})
+        check([bool(v) for v in got] == expect, f"verify_succinct_device_batch(mesh=): {list(got)}")
+        croot, opened, sibs, poss, height, idx = agg_verify["chain"]
+        host = fri.default_pcs_perm()
+        node = ints_to_digits(opened, shape=(len(opened),))
+        chain = fri_cuda.mesh_chain_fn(mesh, schedule="hybp")
+        got = counted(f"mesh_chain_fn {CHAIN_OPENINGS} x height {height} (hybp)",
+                      lambda: chain(node, sibs, poss), {"hybp": height})
+        check(got.dtype == np.uint32 and np.array_equal(
+            got, fri_cuda.device_chain_fn(node, sibs, poss, schedule="hybp")),
+              "mesh_chain_fn's digests != device_chain_fn's")
+        verdicts = fri.tree_verify_batched(croot, opened, sibs, poss, height, idx, host, chain)
+        check(bool(verdicts.all()), "tree_verify_batched through mesh_chain_fn rejected an opening")
+        log(f"[sharded] a world-1 NCCL group: merkle_root_sharded over 2^20 leaves == phase 5's "
+            f"root (counters {counters}); permute_sharded {PERM_BATCH} == permute_cuda; the "
+            f"sponge and the cipher == phases 6 and 7; prove_batched B={PLONK_BATCHES[0]} == phase "
+            f"7d's proofs; prove_succinct_device_batch B={DEVICE_BATCH} and prove_aggregate_device "
+            f"{AGG_FAST_INSTANCES} fast == phases 7f's and 7g's bytes; verify_succinct_device_batch "
+            f"of {POOLED_PROOFS} == phase 7e's verdicts; mesh_chain_fn over {CHAIN_OPENINGS} "
+            "openings == device_chain_fn, and tree_verify_batched through it accepts")
+        times["tree 1"] = host_walls(lambda: dist.merkle_root_sharded(leaves, mesh))
+        times["tree"] = host_walls(lambda: merkle.merkle_root(leaves))
+    finally:
+        tdist.destroy_process_group()
+
+    leaves_np = leaves.cpu().numpy()
+    ranks = run_ranks(GLOO_RANKS, "gloo", leaves_np, prove=True)
+    for r, res in enumerate(ranks):
+        check(np.array_equal(res["root"], root.cpu().numpy()),
+              f"gloo rank {r}: the sharded root != phase 5's")
+        check(res["proofs"] == [(p.wires, p.z, p.t, p.commitments) for p in prover["proofs"]],
+              f"gloo rank {r}: prove_batched(mesh=) != phase 7d's proofs")
+        check(res["launches"] == {**{s: 0 for s in perm_cuda.SCHEDULES}, "opt": levels},
+              f"gloo rank {r}: launches {res['launches']}")
+        for s in perm_cuda.SCHEDULES:
+            launches[s] += res["launches"][s]
+    times["gloo"] = [res["walls"] for res in ranks]
+    times["gloo bytes"] = ranks[0]["collective_bytes"]
+    log(f"[sharded] {GLOO_RANKS} ranks spawned on cuda:0 over gloo: each rank's root == phase "
+        f"5's, its {PLONK_BATCHES[0]} proofs == phase 7d's; launches {ranks[0]['launches']} a "
+        f"rank; dist.collective_bytes {times['gloo bytes']} a rank")
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = 1 << (min(cards, MAX_CARDS).bit_length() - 1)  # the tree's leaves divide by it
+        ranks = run_ranks(world, "nccl", leaves_np, prove=False)
+        check(all(np.array_equal(res["root"], root.cpu().numpy()) for res in ranks),
+              f"nccl ranks of {world}: a root != phase 5's")
+        times["cards"] = (world, [res["walls"] for res in ranks])
+        log(f"[sharded] {world} NCCL ranks on {world} cards: every root == phase 5's")
+    else:
+        log("[sharded] one card on this host: BASELINE config 5 (the tree's scaling efficiency "
+            "from 1 to N cards) stays unmeasured")
+    log(f"[sharded] phase 7h took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "times": times}
+
+
+def sharded_timings(ctx: dict, smi: str) -> None:
+    """Phase 8 for phase 7h: the sharded tree's wall on one NCCL rank beside
+    merkle_root's, on two gloo ranks on one card, and on N cards with the
+    scaling efficiency where the host has them (host clock, median of 5
+    after a warm-up)."""
+    t = ctx["times"]
+
+    def walls(runs):
+        return ", ".join(f"{w:.6f}" for w in runs)
+
+    one, plain = statistics.median(t["tree 1"]), statistics.median(t["tree"])
+    log(f"[time] merkle_root_sharded 2^20 leaves (opt), 1 NCCL rank: {one:.6f} s (walls "
+        f"{walls(t['tree 1'])}); merkle_root {plain:.6f} s (walls {walls(t['tree'])}); "
+        f"dist.collective_bytes 0 | {smi}")
+    gloo = [statistics.median(w) for w in t["gloo"]]
+    log(f"[time] merkle_root_sharded 2^20 leaves (opt), {GLOO_RANKS} gloo ranks on one card: "
+        f"{max(gloo):.6f} s, the slower rank's median (ranks' walls "
+        f"{'; '.join(walls(w) for w in t['gloo'])}); dist.collective_bytes {t['gloo bytes']} a "
+        f"rank | {smi}")
+    if "cards" in t:
+        world, runs = t["cards"]
+        t_n = max(statistics.median(w) for w in runs)
+        log(f"[time] merkle_root_sharded 2^20 leaves (opt), {world} NCCL ranks on {world} cards: "
+            f"{t_n:.6f} s; BASELINE config 5's scaling efficiency {one / (world * t_n):.4f} "
+            f"(1 rank {one:.6f} s) | {smi}")
+
+
+def profile_path(name: str, fn, log_dir: str) -> None:
+    """Trace one warm call of fn with utils/profiling.trace, which writes
+    the Chrome trace to log_dir/trace.json, and print where its device time
+    went: the span from the first device operation's start to the last
+    one's end, the busy time (the union of the operations' intervals), the
+    idle share of the span, the permutation kernels and the rest (the
+    plain-torch glue)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(log_dir) as prof:
         fn()
         torch.cuda.synchronize()
     ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -1372,7 +1599,8 @@ def profile_path(name: str, fn) -> None:
     glue = [(end - start) for start, end, op in ops if "hades_perm" not in op]
     log(f"[profile] {name}: span {span / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
         f"{1 - busy / span:.3f}, permutation kernels {sum(perm) / 1e3:.3f} ms in {len(perm)} "
-        f"launches, plain-torch glue {sum(glue) / 1e3:.3f} ms in {len(glue)} launches")
+        f"launches, plain-torch glue {sum(glue) / 1e3:.3f} ms in {len(glue)} launches; "
+        f"trace {log_dir}/trace.json")
 
 
 def drive(fn):
@@ -1419,6 +1647,9 @@ def main() -> int:
 
 def run(ckpt_root: str) -> int:
     t_run = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"[run] {what} done at {time.perf_counter() - t_run:.1f} s")
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
@@ -1449,48 +1680,71 @@ def run(ckpt_root: str) -> int:
     log(f"[kat] {', '.join(perm_cuda.SCHEDULES)} x canonical, Montgomery on "
         f"{selftest.BENCH_LANES} lanes: bit-identical to the int oracle (SURVEY KATs included)")
 
-    # 4. kernel vs plain: the sponge's, cipher's and openings' batch, the
-    # first Merkle level's batch on the Montgomery path the models use
-    # (every kernel but hybp, which covers it through its own 2^20-leaf tree
-    # in phase 5), 4096 and a ragged 1000 (the tail mask)
-    cases = [(PERM_BATCH, (True, False), perm_cuda.SCHEDULES),
-             (MERKLE_LEAVES // merkle.ARITY, (False,),
-              ("naive", "opt", "mxu8", "mxu", "hyb", "hyb13", "hybp13")),
-             (4096, (True, False), perm_cuda.SCHEDULES),
-             (1000, (True, False), perm_cuda.SCHEDULES)]
+    # 4. kernel vs plain. The plain versions are bound by their launches
+    # (one small operation after another: about a second a call at 2^14
+    # states), and states are independent, so they run over slices of
+    # PLAIN_SLICE states and each plain call covers several of a kernel's
+    # batches at once: the kernel runs at each batch's own size and its
+    # outputs are held against the slices of one plain run over their
+    # concatenation
     max_err = {s: 0 for s in perm_cuda.SCHEDULES}
-    for b, converts, schedules in cases:
-        x = torch.from_numpy(random_elements((WIDTH, b), rng).transpose(0, 2, 1).copy()).to(dev)
-        for schedule in schedules:
-            for convert in converts:
-                got = perm_cuda.permute_planar(x, convert=convert, schedule=schedule)
-                want = plain_planar(x, convert=convert, schedule=schedule)
-                err = int((got.long() - want.long()).abs().max())
-                max_err[schedule] = max(max_err[schedule], err)
-                check(err == 0, f"{schedule} kernel != plain at B={b}, convert={convert}")
-        log(f"[plain] {', '.join(schedules)} kernels == plain versions at B = {b}, "
-            f"convert in {converts}")
+    torch.cuda.reset_peak_memory_stats()
 
-    # the ragged edges of every kernel, and opt against the native
-    # engine's sparse schedule (the second, independent reference)
+    def hold(schedule: str, convert: bool, runs: list) -> None:
+        """runs: [(planar input, the kernel's output on it)], held against one
+        plain run of `schedule` over the inputs side by side."""
+        want = plain_planar(torch.cat([x for x, _ in runs], dim=2), convert=convert,
+                            schedule=schedule)
+        lo = 0
+        for x, got in runs:
+            b = x.shape[2]
+            err = int((got.long() - want[:, :, lo : lo + b].long()).abs().max())
+            max_err[schedule] = max(max_err[schedule], err)
+            check(err == 0, f"{schedule} kernel != plain at B={b}, convert={convert}")
+            lo += b
+
+    def planar(b: int) -> torch.Tensor:
+        return torch.from_numpy(random_elements((WIDTH, b), rng).transpose(0, 2, 1).copy()).to(dev)
+
+    # the sponge's, cipher's and openings' batch, every kernel, both paths
+    x = planar(PERM_BATCH)
+    for schedule in perm_cuda.SCHEDULES:
+        for convert in (True, False):
+            hold(schedule, convert,
+                 [(x, perm_cuda.permute_planar(x, convert=convert, schedule=schedule))])
+    log(f"[plain] {', '.join(perm_cuda.SCHEDULES)} kernels == plain versions at B = {PERM_BATCH}, "
+        "convert in (True, False)")
+
+    # the first Merkle level's batch on the Montgomery path the models use
+    # (every kernel but hybp, which covers it through its own 2^20-leaf tree
+    # in phase 5), each kernel's whole output
+    b = MERKLE_LEAVES // merkle.ARITY
+    x, level = planar(b), ("naive", "opt", "mxu8", "mxu", "hyb", "hyb13", "hybp13")
+    for schedule in level:
+        hold(schedule, False, [(x, perm_cuda.permute_planar(x, convert=False, schedule=schedule))])
+    log(f"[plain] {', '.join(level)} kernels == plain versions at B = {b}, convert=False")
+
+    # 4096, a ragged 1000 (the tail mask), and the ragged edges of every
+    # kernel; opt against the native engine's sparse schedule there (the
+    # second, independent reference)
+    edges = [planar(4096), planar(1000)]
     t0 = time.perf_counter()
     native._lib()  # raises NativeUnavailable where it cannot be built
     native_s = time.perf_counter() - t0
     for b in RAGGED:
         states = random_elements((b, WIDTH), rng)
         x = torch.from_numpy(states.transpose(1, 2, 0).copy()).to(dev)
-        for schedule in perm_cuda.SCHEDULES:
-            for convert in (True, False):
-                got = perm_cuda.permute_planar(x, convert=convert, schedule=schedule)
-                want = plain_planar(x, convert=convert, schedule=schedule)
-                err = int((got.long() - want.long()).abs().max())
-                max_err[schedule] = max(max_err[schedule], err)
-                check(err == 0, f"{schedule} kernel != plain at B={b}, convert={convert}")
+        edges.append(x)
         got = perm_cuda.permute_planar(x, schedule="opt").permute(2, 0, 1).cpu().numpy()
         check(np.array_equal(native.perm_batch_digits(states), got),
               f"opt kernel != native engine at B={b}")
-    log(f"[plain] {', '.join(perm_cuda.SCHEDULES)} kernels == plain versions at B in {RAGGED}, both "
-        "convert values; opt kernel == native engine there")
+    for schedule in perm_cuda.SCHEDULES:
+        for convert in (True, False):
+            hold(schedule, convert,
+                 [(x, perm_cuda.permute_planar(x, convert=convert, schedule=schedule))
+                  for x in edges])
+    log(f"[plain] {', '.join(perm_cuda.SCHEDULES)} kernels == plain versions at B = 4096, 1000 "
+        f"and {RAGGED}, both convert values; opt kernel == native engine at B in {RAGGED}")
 
     # the dense kernels' MDS products (warpgroup wgmma, u8 and bf16) against
     # a float64 matmul with w_lin and seeded byte rows at the main path's
@@ -1508,6 +1762,10 @@ def run(ckpt_root: str) -> int:
               f"{name} MDS product of all-255 operands")
     log(f"[plain] mxu8 (u8) and mxu (bf16) MDS products == float64 matmul for w_lin x {PERM_BATCH} "
         f"columns, and all-255 at 320 x 160 gives {160 * 255 * 255} everywhere")
+    log(f"[plain] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"(plain slices of {PLAIN_SLICE} states)")
+    torch.cuda.empty_cache()
+    mark("phase 4")
 
     # 5a. Merkle checks against the plain version and the int oracle
     small = torch.from_numpy(random_elements((4096,), rng)).to(dev)
@@ -1728,27 +1986,42 @@ def run(ckpt_root: str) -> int:
         f"{native.bench_perms_per_sec_opt8():,.0f} perms/s (-1: not compiled in) | "
         f"{cpu_model()}")
     log(f"[launches] main path, summed: {main_launches}")
+    mark("phase 7c")
 
     # 7d. the batched prover and the NTT on the card
     prover = prover_phase(dev, rng)
+    mark("phase 7d")
 
     # 7e. the succinct and aggregated argument on the kernels
     succinct = succinct_phase(prover["composers"])
     for s, n in succinct["launches"].items():
         main_launches[s] += n
     log(f"[launches] main path with phase 7e, summed: {main_launches}")
+    mark("phase 7e")
 
     # 7f. the device-resident succinct prover
     device = device_prover_phase(prover["composers"], succinct)
     for s, n in device["launches"].items():
         main_launches[s] += n
     log(f"[launches] main path with phase 7f, summed: {main_launches}")
+    mark("phase 7f")
 
     # 7g. the device aggregate prover and the device verifiers
     agg_verify = aggregate_verify_phase(prover["composers"], succinct)
     for s, n in agg_verify["launches"].items():
         main_launches[s] += n
     log(f"[launches] main path with phase 7g, summed: {main_launches}")
+    mark("phase 7g")
+
+    # 7h. the sharded paths
+    sharded = sharded_phase(
+        {"leaves": leaves, "root": root, "msgs": msgs, "digests": results["sponge (opt)"],
+         "cipher": (keys, nonces, plaintext), "ciphertext": results["cipher (opt)"]},
+        prover, succinct, agg_verify)
+    for s, n in sharded["launches"].items():
+        main_launches[s] += n
+    log(f"[launches] main path with phase 7h, summed: {main_launches}")
+    mark("phase 7h")
 
     # 8. timings at the main path's shapes
     x = torch.from_numpy(random_elements((WIDTH, PERM_BATCH), rng).transpose(0, 2, 1).copy()).to(dev)
@@ -1757,21 +2030,22 @@ def run(ckpt_root: str) -> int:
         ms[schedule] = cuda_ms(lambda: perm_cuda.permute_planar(x, schedule=schedule))
         plain_ms[schedule] = cuda_ms(
             lambda: perm_cuda.permute_planar_plain(x, schedule=schedule))
-        bounds[schedule] = bound(schedule, PERM_BATCH)
+        bounds[schedule] = rf = roofline.roofline(schedule, PERM_BATCH, ms[schedule])
         log(f"[time] {schedule}: kernel {ms[schedule]:.4f} ms = "
             f"{PERM_BATCH / ms[schedule] * 1e3:,.0f} perms/s; plain {plain_ms[schedule]:.1f} ms "
-            f"= {PERM_BATCH / plain_ms[schedule] * 1e3:,.0f} perms/s; bound "
-            + ", ".join(f"{k} {v:.4f}" if k != "bound_by" else f"by {v}"
-                        for k, v in bounds[schedule].items())
-            + f"; B={PERM_BATCH} | {smi}")
+            f"= {PERM_BATCH / plain_ms[schedule] * 1e3:,.0f} perms/s; bound {rf['bound_ms']:.4f} "
+            f"ms by {rf['bound_by']} ({rf['binding_resource']}: tensor {rf['tensor_ms']:.4f}, "
+            f"cores {rf['cores_ms']:.4f}, bytes {rf['bytes_ms']:.4f} ms), "
+            f"{rf['achieved_fraction']:.3f} of the time; B={PERM_BATCH} | {smi}")
     for b in TIMED_SIZES:
         xb = torch.from_numpy(random_elements((WIDTH, b), rng).transpose(0, 2, 1).copy()).to(dev)
         for schedule in perm_cuda.SCHEDULES:
             t = cuda_ms(lambda: perm_cuda.permute_planar(xb, schedule=schedule))
-            bd = bound(schedule, b)["bound_ms"]
+            rf = roofline.roofline(schedule, b, t)
             log(f"[time] {schedule}: kernel {t:.4f} ms = {b / t * 1e3:,.0f} perms/s, "
-                f"{t / b * PERM_BATCH:.4f} ms a 2^14; bound {bd:.4f} ms ({bd / t:.3f} of the "
-                f"time); B={b} | {smi}")
+                f"{t / b * PERM_BATCH:.4f} ms a 2^14; bound {rf['bound_ms']:.4f} ms by "
+                f"{rf['binding_resource']} ({rf['achieved_fraction']:.3f} of the time); B={b} "
+                f"| {smi}")
     tree_ms = cuda_ms(lambda: merkle.merkle_root(leaves))
     log(f"[time] merkle_root 2^20 leaves (opt): {tree_ms / 1e3:.6f} s/tree = "
         f"{MERKLE_LEAVES / tree_ms * 1e3:,.0f} leaves/s | {smi}")
@@ -1813,14 +2087,18 @@ def run(ckpt_root: str) -> int:
         log(f"[time] cipher.encrypt {CIPHER_STREAMS} x {CIPHER_LEN} ({schedule}): "
             f"{enc_ms:.3f} ms = {CIPHER_STREAMS * CIPHER_LEN / enc_ms * 1e3:,.0f} elements/s "
             f"| {smi}")
+    mark("phase 8's kernels, trees, sponge and cipher")
 
     prover_timings(prover, smi)
     succinct_timings(succinct, smi)
     device_prover_timings(device, succinct, smi)
     aggregate_verify_timings(agg_verify, succinct, smi)
+    sharded_timings(sharded, smi)
+    mark("phase 8")
 
     # 9. on request: where the openings' paths spend their device time
     if "--profile" in sys.argv[1:]:
+        traced = itertools.count()
         for name, fn in (("merkle_root 2^20 (opt)", lambda: merkle.merkle_root(leaves)),
                          ("merkle_root 2^16 (naive)", lambda: merkle.merkle_root(cross, naive_fn)),
                          ("merkle_root 2^16 (opt)", lambda: merkle.merkle_root(cross)),
@@ -1850,7 +2128,7 @@ def run(ckpt_root: str) -> int:
                           lambda: fri_cuda.prove_aggregate_device(*agg_verify["prod"])),
                          (f"verify_succinct_device_batch {POOLED_PROOFS} fast, fused (hybp)",
                           agg_verify["verify"])):
-            profile_path(f"{name} | {smi}", fn)
+            profile_path(f"{name} | {smi}", fn, os.path.join(PROFILE_DIR, str(next(traced))))
 
     kernels = [
         {"name": f"hades_perm_{s}", "route": "cuda", "source": SOURCES[s],

@@ -42,7 +42,13 @@ Four parts live here.
   pooled leaf-sponge and multiproof phase of `fri.verify_succinct_batched`
   and `aggregate.verify_aggregate` run blind from a host gather plan, each
   one CUDA graph a shape on the card; `verify_succinct_device_batch` and
-  `verify_aggregate_device` give the host verifiers' verdicts.
+  `verify_aggregate_device` give the host verifiers' verdicts;
+  `mesh_chain_fn` shards the sibling chain over a mesh.
+
+The provers take the JAX package's `mesh` (a `parallel/dist.Mesh`): their
+three polynomial phases then shard over the instances
+(`_select_phases`, `fri_tpu.py:827`). The sharded phases already return
+global tensors, so `fri_tpu._unshard` has no counterpart.
 
 The JAX package pads every permutation batch to the kernel's block so that
 the TPU keeps one executable; the CUDA kernels mask their tail, so nothing
@@ -85,7 +91,7 @@ from .ops import ntt, perm_cuda
 from .ops.perm_cuda import DEFAULT_SCHEDULE, _check_schedule, permute_cuda
 from .params import N_DIGITS, P, R, int_to_digits
 from .plonk import Transcript, _domain_root, statement_digest
-from .prover_cuda import _to_device
+from .prover_cuda import _select_phases, _to_device
 from .utils.encoding import digits_to_ints, ints_to_digits
 
 
@@ -104,10 +110,16 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _entry_device(who: str, schedule: str, device) -> torch.device:
-    """An entry point's device after checking its schedule: _device's, with
-    the entry point's name in front of a missing card's message."""
+def _entry_device(who: str, schedule: str, device, mesh=None) -> torch.device:
+    """An entry point's device after checking its schedule: with a mesh
+    (parallel/dist.Mesh) the mesh's, which `device` may not contradict;
+    else _device's, with the entry point's name in front of a missing
+    card's message."""
     _check_schedule(schedule)
+    if mesh is not None:
+        from .parallel.dist import mesh_device
+
+        return mesh_device(mesh, device)
     try:
         return _device(device)
     except RuntimeError as e:
@@ -726,17 +738,25 @@ def _apply_grinding(trs: list, pow_bits: int, schedule: str, device: torch.devic
 
 
 def prove_succinct_device_batch(composers, pk: ProvingKey, rngs=None, *,
-                                schedule: str = DEFAULT_SCHEDULE, device="cuda") -> list:
+                                schedule: str = DEFAULT_SCHEDULE, device="cuda",
+                                mesh=None) -> list:
     """Prove B instances of one circuit with the succinct argument, on the
     device: the card unless the caller asks for the CPU (device="cpu", the
     kernel's plain version); without a card the default raises. rngs: one
     np.random.Generator an instance (zk determinism for tests), else the
     OS's randomness. Every permutation runs through the kernel of
     `schedule`. Each returned proof is byte-identical to
-    fri.prove_succinct(composers[i], pk, rng=rngs[i])'s."""
+    fri.prove_succinct(composers[i], pk, rng=rngs[i])'s.
+
+    mesh: an optional parallel/dist.Mesh, whose every rank calls with the
+    same composers: the three polynomial phases then shard over the
+    instances (B must divide by the mesh size) and return global tensors,
+    the rest runs replicated on the mesh's device, and every rank returns
+    all B proofs."""
     if not composers:
         return []
-    dev = _entry_device("prove_succinct_device_batch", schedule, device)
+    dev = _entry_device("prove_succinct_device_batch", schedule, device, mesh)
+    phase1, phase2, phase3 = _select_phases(mesh)
     perm_fn = _perm_fn(schedule)
     key, params = pk.key, pk.params
     n, omega = key.n, key.omega
@@ -768,7 +788,7 @@ def prove_succinct_device_batch(composers, pk: ProvingKey, rngs=None, *,
     tables_n = prover_cuda._device_tables(key, dev)
     tables_m = prover_cuda._device_tables(key, dev, m=d_bound, d_z=bounds["d_z"])
 
-    wires = prover_cuda._phase1_wires(wire_evals)                    # (B, 4, n, D)
+    wires = phase1(wire_evals)                                       # (B, 4, n, D)
     if params.zk:
         # the wires a..d (zkw draws each), later z (zkz), then the mask r (D)
         wires = _blind_dev(wires, draws(4 * bounds["zkw"]).reshape(b, 4, -1, N_DIGITS))
@@ -791,15 +811,15 @@ def prove_succinct_device_batch(composers, pk: ProvingKey, rngs=None, *,
     betas = [tr.challenge() for tr in trs]
     gammas_fs = [tr.challenge() for tr in trs]
     bd, gd = digits(betas, (b,)), digits(gammas_fs, (b,))
-    z = prover_cuda._phase2_grand_product(wire_evals, bd, gd, tables_n["ids_mont"],
-                                          tables_n["sigma_n_mont"], tables_n["one_mont"])
+    z = phase2(wire_evals, bd, gd, tables_n["ids_mont"], tables_n["sigma_n_mont"],
+               tables_n["one_mont"])
     if params.zk:
         z = _blind_dev(z, draws(bounds["zkz"]))
     z_l0 = _coset_eval_dev(z, m0)                                    # (B, m0, D)
     commit("z", z_l0[:, None])
     alphas = [tr.challenge() for tr in trs]
 
-    t = prover_cuda._phase3_quotient(
+    t = phase3(
         wires, z, digits(pi_cols, (b, n)), bd, gd, digits(alphas, (b,)), tables_m["kx_mont"],
         tables_m["sigma_m_mont"], tables_m["q_mont"], tables_m["zh_inv_mont"],
         tables_m["l1_mont"], tables_m["omega_mont"], tables_n["one_mont"])  # (B, d_bound, D)
@@ -923,7 +943,8 @@ def prove_succinct_device(composer, pk: ProvingKey, rng=None, *,
 
 
 def prove_aggregate_device(composers, pk: ProvingKey, rng=None, *,
-                           schedule: str = DEFAULT_SCHEDULE, device="cuda") -> AggregateProof:
+                           schedule: str = DEFAULT_SCHEDULE, device="cuda",
+                           mesh=None) -> AggregateProof:
     """ONE succinct argument for B instances of one circuit, on the device:
     the card unless the caller asks for the CPU (device="cpu", the kernel's
     plain version); without a card the default raises. The counterpart of
@@ -937,10 +958,14 @@ def prove_aggregate_device(composers, pk: ProvingKey, rng=None, *,
     poly-major then instance); one DEEP-FRI covers all B x 7 wire claims,
     the 10 key claims and (zk) the shared mask; the zk draws come from one
     stream (B x 4 x zkw wire coefficients instance-major, then B x zkz for
-    z, then d_bound for the mask)."""
+    z, then d_bound for the mask).
+
+    mesh: as prove_succinct_device_batch's; every rank returns the one
+    aggregate."""
     if not composers:
         raise ValueError("at least one composer required")
-    dev = _entry_device("prove_aggregate_device", schedule, device)
+    dev = _entry_device("prove_aggregate_device", schedule, device, mesh)
+    phase1, phase2, phase3 = _select_phases(mesh)
     perm_fn = _perm_fn(schedule)
     key, params = pk.key, pk.params
     n, omega = key.n, key.omega
@@ -974,7 +999,7 @@ def prove_aggregate_device(composers, pk: ProvingKey, rng=None, *,
     tables_n = prover_cuda._device_tables(key, dev)
     tables_m = prover_cuda._device_tables(key, dev, m=d_bound, d_z=bounds["d_z"])
 
-    wires = prover_cuda._phase1_wires(wire_evals)                    # (B, 4, n, D)
+    wires = phase1(wire_evals)                                       # (B, 4, n, D)
     if params.zk:
         zkw = bounds["zkw"]
         wires = _blind_dev(wires, draws(b * 4 * zkw, (b, 4, zkw)))
@@ -994,9 +1019,8 @@ def prove_aggregate_device(composers, pk: ProvingKey, rng=None, *,
     commit("w", w_cols)
     beta = tr.challenge()
     gamma = tr.challenge()
-    z = prover_cuda._phase2_grand_product(wire_evals, shared(beta), shared(gamma),
-                                          tables_n["ids_mont"], tables_n["sigma_n_mont"],
-                                          tables_n["one_mont"])          # (B, n, D)
+    z = phase2(wire_evals, shared(beta), shared(gamma), tables_n["ids_mont"],
+               tables_n["sigma_n_mont"], tables_n["one_mont"])         # (B, n, D)
     if params.zk:
         z = _blind_dev(z, draws(b * bounds["zkz"], (b, bounds["zkz"])))
     z_l0 = _coset_eval_dev(z, m0)                                    # (B, m0, D)
@@ -1004,7 +1028,7 @@ def prove_aggregate_device(composers, pk: ProvingKey, rng=None, *,
     commit("z", z_cols)
     alpha = tr.challenge()
 
-    t = prover_cuda._phase3_quotient(
+    t = phase3(
         wires, z, digits(pi_cols, (b, n)), shared(beta), shared(gamma), shared(alpha),
         tables_m["kx_mont"], tables_m["sigma_m_mont"], tables_m["q_mont"],
         tables_m["zh_inv_mont"], tables_m["l1_mont"], tables_m["omega_mont"],
@@ -1158,6 +1182,34 @@ def device_chain_fn(node, sibs, poss, *, schedule: str = DEFAULT_SCHEDULE,
     else:
         out = _chain_nodes_body(*(a.to(dev) for a in args), _perm_fn(schedule), _node_tag(dev))
     return out.cpu().numpy().astype(np.uint32)
+
+
+def mesh_chain_fn(mesh, *, schedule: str = DEFAULT_SCHEDULE):
+    """fri.tree_verify_batched's chain_fn with each pooled chain group
+    sharded over a mesh (parallel/dist.chain_nodes_sharded, every rank
+    calling with the same openings): the rows are padded with zero chains
+    to a multiple of the mesh size and the padding's digests sliced off
+    (they never reach a verdict). Host arrays in, (K, D) uint32 digests
+    out, as device_chain_fn's."""
+    from .parallel import dist
+
+    _check_schedule(schedule)
+    n_dev, perm_fn = mesh.shape[dist.AXIS], _perm_fn(schedule)
+
+    def chain(node, sibs, poss):
+        node = torch.from_numpy(np.asarray(node, np.uint32).astype(np.int32))
+        sibs = torch.from_numpy(np.asarray(sibs, np.uint32).astype(np.int32))
+        poss = torch.from_numpy(np.asarray(poss, np.int64))
+        k = node.shape[0]
+        pad = (-k) % n_dev
+        if pad:
+            node = F.pad(node, (0, 0, 0, pad))
+            sibs = F.pad(sibs, (0, 0, 0, 0, 0, 0, 0, pad))
+            poss = F.pad(poss, (0, 0, 0, pad))
+        out = dist.chain_nodes_sharded(node, sibs, poss, mesh, perm_fn)
+        return out[:k].cpu().numpy().astype(np.uint32)
+
+    return chain
 
 
 def _fused_verify_plan(entries, q_cap: int):
@@ -1394,7 +1446,8 @@ def fused_entries_check(vk, pool_fn=None, *, schedule: str = DEFAULT_SCHEDULE, d
 
 
 def verify_succinct_device_batch(vk, proofs, public_inputs_list, fused: bool = True, *,
-                                 schedule: str = DEFAULT_SCHEDULE, device="cuda") -> np.ndarray:
+                                 schedule: str = DEFAULT_SCHEDULE, device="cuda",
+                                 mesh=None) -> np.ndarray:
     """fri.verify_succinct_batched with the pooled Merkle phase on the
     device: the card unless the caller asks for the CPU (device="cpu", the
     kernel's plain version); without a card the default raises. Verdicts
@@ -1402,17 +1455,22 @@ def verify_succinct_device_batch(vk, proofs, public_inputs_list, fused: bool = T
     algebra are the same host code. fused=True runs the whole leaf-sponge
     and multiproof phase as one graph replay and one fetch
     (fused_entries_check); fused=False the host-pooled path with one kernel
-    launch a sponge chunk and a level (device_pool_perm)."""
+    launch a sponge chunk and a level (device_pool_perm). A mesh gives
+    only its device, as the JAX package drops its mesh: the pooled phase is
+    already one batched call."""
+    device = _entry_device("verify_succinct_device_batch", schedule, device, mesh)
     pool = device_pool_perm(schedule, device)
     check = fused_entries_check(vk, schedule=schedule, device=device) if fused else None
     return fri.verify_succinct_batched(vk, proofs, public_inputs_list, pool, entries_check=check)
 
 
 def verify_aggregate_device(vk, proof, public_inputs_list, *, schedule: str = DEFAULT_SCHEDULE,
-                            device="cuda") -> bool:
+                            device="cuda", mesh=None) -> bool:
     """aggregate.verify_aggregate with its pooled Merkle phase as one graph
     replay on the device (fused_entries_check): the same verdict. The card
-    unless the caller asks for the CPU; without a card the default raises."""
+    unless the caller asks for the CPU; without a card the default raises.
+    A mesh gives only its device, as verify_succinct_device_batch's."""
+    device = _entry_device("verify_aggregate_device", schedule, device, mesh)
     return aggregate.verify_aggregate(
         vk, proof, public_inputs_list, device_pool_perm(schedule, device),
         entries_check=fused_entries_check(vk, schedule=schedule, device=device))

@@ -307,20 +307,46 @@ def _commit_rows(arr: np.ndarray) -> np.ndarray:
     return out.reshape(lead)
 
 
+def _select_phases(mesh) -> tuple:
+    """The three device phases, or with a mesh (parallel/dist.Mesh) their
+    drop-ins sharded over the instance axis (dist.sharded_phases: proving
+    is data parallelism, each phase's one collective the gather of its
+    output; the bits are the same). The first sharded phase refuses a
+    batch that does not divide by the mesh size, with the JAX package's
+    message."""
+    if mesh is None:
+        return _phase1_wires, _phase2_grand_product, _phase3_quotient
+    from .parallel.dist import sharded_phases
+
+    return sharded_phases(mesh)
+
+
 def prove_batched(composers: list[Composer],
                   key: CircuitKey | None = None,
-                  device="cuda") -> list[Proof]:
+                  device="cuda", mesh=None) -> list[Proof]:
     """Prove B instances of one circuit with `device` doing the polynomial
     work: the card unless the caller asks for the CPU (`device="cpu"`);
     without a card the default raises. Every composer must share the first
     one's gate/wire structure (same circuit, different witnesses); the
     returned proofs are bit-identical to [plonk.prove(c, key) for c in
-    composers]."""
+    composers].
+
+    mesh: an optional parallel/dist.Mesh. Every rank of it calls with the
+    same composers, the three device phases shard over the instances (B
+    must divide by the mesh size) on the mesh's device, which `device` may
+    not contradict ("cuda" agrees with any card's mesh; a CPU mesh needs
+    device="cpu"), and every rank returns all B proofs."""
     if not composers:
         return []
-    device = torch.device(device)
+    if mesh is None:
+        device = torch.device(device)
+    else:
+        from .parallel.dist import mesh_device
+
+        device = mesh_device(mesh, device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("prove_batched: no CUDA device; pass device='cpu' to prove on the CPU")
+    phase1, phase2, phase3 = _select_phases(mesh)
     if key is None:
         key = plonk.preprocess(composers[0])
     n = key.n
@@ -349,7 +375,7 @@ def prove_batched(composers: list[Composer],
     pi_evals = ints_to_digits(pi_cols, shape=(b, n))
 
     # phase 1: wire coefficient forms
-    wires_dev = _phase1_wires(wire_evals)
+    wires_dev = phase1(wire_evals)
     wires_host = wires_dev.cpu().numpy()
     wires_int = _digits_to_int_rows(wires_host)
     wire_cms = _commit_rows(wires_host)          # (B, 4) object ints
@@ -372,7 +398,7 @@ def prove_batched(composers: list[Composer],
     gamma_d = _to_device(ints_to_digits(gammas, shape=(b,)), device)
 
     # phase 2: grand product
-    z_dev = _phase2_grand_product(
+    z_dev = phase2(
         wire_evals, beta_d, gamma_d,
         tables["ids_mont"], tables["sigma_n_mont"], tables["one_mont"],
     )
@@ -387,7 +413,7 @@ def prove_batched(composers: list[Composer],
     alpha_d = _to_device(ints_to_digits(alphas, shape=(b,)), device)
 
     # phase 3: quotient
-    t_dev = _phase3_quotient(
+    t_dev = phase3(
         wires_dev, z_dev, _to_device(pi_evals, device), beta_d, gamma_d, alpha_d,
         tables["kx_mont"], tables["sigma_m_mont"], tables["q_mont"],
         tables["zh_inv_mont"], tables["l1_mont"], tables["omega_mont"],

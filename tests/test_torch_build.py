@@ -18,6 +18,7 @@ from hades252_tpu_torch import field, selftest
 from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import _build, perm_cuda
 from hades252_tpu_torch.params import P, digits_to_limbs, mxu8_tables
+from hades252_tpu_torch.utils import roofline
 from hades252_tpu_torch.utils.encoding import digits_to_ints
 
 torch.set_num_threads(1)
@@ -680,7 +681,7 @@ def test_chip_smoke_path_walk_agrees_with_the_port():
 
 @pytest.mark.parametrize("schedule", perm_cuda.SCHEDULES)
 def test_chip_smoke_bound(schedule):
-    one, many = chip_smoke.bound(schedule, 1 << 14), chip_smoke.bound(schedule, 1 << 18)
+    one, many = roofline.bound(schedule, 1 << 14), roofline.bound(schedule, 1 << 18)
     parts = ("tensor_ms", "cores_ms", "bytes_ms")
     assert one["bound_ms"] == max(one[k] for k in parts) > 0
     assert one["bound_by"] in ("bytes", "operations")
@@ -688,10 +689,10 @@ def test_chip_smoke_bound(schedule):
     assert many["cores_ms"] == pytest.approx(16 * one["cores_ms"])
     assert many["bytes_ms"] < 16 * one["bytes_ms"]
     assert (one["tensor_ms"] > 0) == (schedule not in ("naive", "opt"))
-    mxu8 = chip_smoke.bound("mxu8", 1 << 14)
+    mxu8 = roofline.bound("mxu8", 1 << 14)
 
     def cores_ms(ops):
-        return ops * (1 << 14) / chip_smoke.INT32_OPS_PER_S * 1e3
+        return ops * (1 << 14) / roofline.INT32_OPS_PER_S * 1e3
 
     if schedule == "mxu8":
         # 632 REDCs on the CUDA cores (81 operations each), 99 S-boxes of 136, the 10
@@ -699,7 +700,7 @@ def test_chip_smoke_bound(schedule):
         # keep the 67 MDS dots alone
         assert one["cores_ms"] == pytest.approx(cores_ms(113_586))
         assert one["tensor_ms"] == pytest.approx(
-            2 * 67 * 315 * 160 * (1 << 14) / chip_smoke.INT8_OPS_PER_S * 1e3)
+            2 * 67 * 315 * 160 * (1 << 14) / roofline.INT8_OPS_PER_S * 1e3)
     if schedule in ("hyb", "hybp"):
         # one block, split or not: 401 REDCs on the CUDA cores (81 operations each), 99
         # S-boxes of 136, the 10 conversion products, 2 adds a recombined column of the
@@ -710,29 +711,29 @@ def test_chip_smoke_bound(schedule):
         assert one["cores_ms"] < mxu8["cores_ms"]
         chain = sum(63 * 32 * (6 + r) for r in range(59)) + 315 * 2080
         assert one["tensor_ms"] == pytest.approx(
-            2 * (8 * 315 * 160 + chain) * (1 << 14) / chip_smoke.INT8_OPS_PER_S * 1e3)
-        other = chip_smoke.bound("hybp" if schedule == "hyb" else "hyb", 1 << 14)
+            2 * (8 * 315 * 160 + chain) * (1 << 14) / roofline.INT8_OPS_PER_S * 1e3)
+        other = roofline.bound("hybp" if schedule == "hyb" else "hyb", 1 << 14)
         assert one["tensor_ms"] == other["tensor_ms"] and one["cores_ms"] == other["cores_ms"]
     if schedule in ("naive", "opt"):
         # 198 of the products are the S-boxes' squares: 36 raw products, not 64
         products, adds = (1982, 1675) if schedule == "naive" else (1054, 984)
         ops = 136 * products - 28 * 198 + 16 * adds
-        assert one["cores_ms"] == pytest.approx(ops * (1 << 14) / chip_smoke.INT32_OPS_PER_S * 1e3)
+        assert one["cores_ms"] == pytest.approx(ops * (1 << 14) / roofline.INT32_OPS_PER_S * 1e3)
     if schedule == "mxu":
         # mxu8's work, its dots at the bf16 rate, half the int8 one; w_lin read as bf16
         assert one["cores_ms"] == mxu8["cores_ms"]
         assert one["tensor_ms"] == pytest.approx(mxu8["tensor_ms"] * 1979 / 989)
         assert one["bytes_ms"] - mxu8["bytes_ms"] == pytest.approx(
-            320 * 160 / chip_smoke.HBM_BYTES_PER_S * 1e3)
+            320 * 160 / roofline.HBM_BYTES_PER_S * 1e3)
     if schedule.endswith("13"):
         # hyb's and hybp's block with 99 S-boxes of 1,420 operations in place of 136:
         # 191,045 operations a state on the cores, the same for both; the tensor cores
         # and the bytes are their base's
-        base = chip_smoke.bound(schedule.removesuffix("13"), 1 << 14)
+        base = roofline.bound(schedule.removesuffix("13"), 1 << 14)
         assert one["cores_ms"] == pytest.approx(cores_ms(191_045))
         assert one["cores_ms"] == pytest.approx(cores_ms(63_929 + 99 * (1420 - 136)))
         assert one["tensor_ms"] == base["tensor_ms"] and one["bytes_ms"] == base["bytes_ms"]
-        other = chip_smoke.bound("hybp13" if schedule == "hyb13" else "hyb13", 1 << 14)
+        other = roofline.bound("hybp13" if schedule == "hyb13" else "hyb13", 1 << 14)
         assert one["cores_ms"] == other["cores_ms"] and one["tensor_ms"] == other["tensor_ms"]
 
 

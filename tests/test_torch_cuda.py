@@ -641,3 +641,47 @@ def test_device_chain_fn_equals_the_host_loop(cuda_device):
         assert perm_cuda.launches == _NO_LAUNCHES  # a graph replay, no wrapper
         assert np.array_equal(got, fri.tree_verify_batched(*args))
         assert not got[7] and int(got.sum()) == 99
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A world-1 NCCL group in this process (TCP on localhost) and its
+    mesh on the card; the group is destroyed after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import socket
+
+    from hades252_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl", timeout_s=120)
+    try:
+        yield multihost.global_mesh()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 4096])
+def test_sharded_tree_over_nccl_equals_merkle_root(nccl_mesh, n):
+    from hades252_tpu_torch.parallel import dist
+
+    leaves = _elements((n,), 1300 + n).to(nccl_mesh.device)
+    perm_cuda.reset_launches()
+    root = dist.merkle_root_sharded(leaves, nccl_mesh)
+    assert perm_cuda.launches == {**_NO_LAUNCHES, "opt": merkle.tree_levels(n)}
+    assert root.device == nccl_mesh.device and torch.equal(root, merkle.merkle_root(leaves))
+
+
+@pytest.mark.cuda
+def test_prove_batched_over_nccl_equals_the_unsharded_prover(nccl_mesh):
+    from hades252_tpu_torch import plonk, prover_cuda
+
+    cs = _fast_instances(2, 13)
+    key = plonk.preprocess(cs[0])
+    sharded = prover_cuda.prove_batched(cs, key, mesh=nccl_mesh)
+    single = prover_cuda.prove_batched(cs, key)
+    for a, b in zip(sharded, single, strict=True):
+        assert (a.wires, a.z, a.t, a.commitments) == (b.wires, b.z, b.t, b.commitments)

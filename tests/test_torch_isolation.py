@@ -29,7 +29,8 @@ assert not any(k == "jax" or k.startswith(("jax.", "hades252_tpu."))
                for k, v in sys.modules.items() if v is not None)
 for name in ("utils.checkpoint", "utils.native", "utils.encoding", "gadget", "circuits",
              "plonk", "utils.asset_gen", "ops.ntt", "prover_cuda", "fri", "serialize",
-             "aggregate", "fri_cuda"):
+             "aggregate", "fri_cuda", "parallel.dist", "parallel.multihost", "utils.roofline",
+             "utils.profiling"):
     assert "hades252_tpu_torch." + name in names, name
 from hades252_tpu_torch.utils import checkpoint, encoding, native
 assert encoding.scalar_from_bytes(encoding.scalar_to_bytes(5)) == 5
@@ -71,6 +72,25 @@ assert fri.verify_succinct_batched(vk, [on_cpu], [[g.pi for g in c.gates]], entr
 leaf_blocks, nodes_lvls, sels, root_sels, root_owner = seen[0]
 assert len(leaf_blocks) == 4 + len(fri.proof_schema(vk.n, vk.params)["sched"])
 assert sorted(e for slot in root_owner for e in slot) == list(range(len(leaf_blocks)))
+# a world-1 gloo group: the sharded root equals the unsharded one
+import socket
+import numpy as np
+import torch
+from hades252_tpu_torch import field
+from hades252_tpu_torch.models import merkle
+from hades252_tpu_torch.parallel import dist, multihost
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+multihost.initialize(f"127.0.0.1:{port}", 1, 0, backend="gloo", timeout_s=60)
+try:
+    mesh = multihost.global_mesh(device="cpu")
+    leaves = torch.from_numpy(field.np_random_elements((4,), np.random.default_rng(3)).astype(np.int32))
+    assert torch.equal(dist.merkle_root_sharded(leaves, mesh), merkle.merkle_root(leaves))
+finally:
+    torch.distributed.destroy_process_group()
+assert not any(k == "jax" or k.startswith(("jax.", "hades252_tpu."))
+               for k, v in sys.modules.items() if v is not None)
 print(len(names))
 """
 
@@ -83,9 +103,10 @@ def test_port_imports_without_jax():
     # every module of the package: the cipher, the checkpoint, the native
     # binding, the host proof layers, the NTT, the batched prover and the
     # succinct argument with its codecs, aggregation, card seam and device
-    # prover (a tiny proof through the plain version, byte-identical), and
-    # the device verifiers' fused plan on that proof's entries
-    assert int(proc.stdout.strip()) >= 28
+    # prover (a tiny proof through the plain version, byte-identical), the
+    # device verifiers' fused plan on that proof's entries, the sharded
+    # paths (a world-1 gloo Merkle root) and the tooling
+    assert int(proc.stdout.strip()) >= 33
 
 
 def test_kat_gate_on_cpu_takes_the_plain_path():
