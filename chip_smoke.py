@@ -65,8 +65,9 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      `perm_batch_digits` against the `opt` kernel, the 4096-leaf root of
      phase 5 against `merkle_root_digits`; prints its single-thread
      rates with the host CPU's model name;
-  7d. drives the batched PLONK prover (`prover_cuda.prove_batched`) on its
-     default device, the card, at the width of bench.py's plonk mode: 64
+  7d. drives the batched PLONK prover (`prover_cuda.prove_batched`, each of
+     its three phases one CUDA graph a shape, captured at its first use) on
+     its default device, the card, at the width of bench.py's plonk mode: 64
      instances of the 973-gate permutation-preimage circuit (numpy seed 0,
      n = 1024, the 4n = 4096 coset), keyed by `plonk.preprocess`. The 16
      proofs of B = 16 must equal the host `plonk.prove`'s field by field
@@ -154,7 +155,18 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      7g; then two ranks spawned on cuda:0 over gloo build the 2^20-leaf tree
      and prove B = 16, every rank's root and proofs equal to phases 5's and
      7d's (10 `opt` launches a rank); on a host with two or more cards, two
-     or four NCCL ranks, one card each, build the tree too;
+     or four NCCL ranks, one card each, build the tree too (the ranks are
+     spawned by `multihost.spawn`);
+  7i. holds each of the prover's three phase graphs, replayed on phase 7d's
+     B = 16 inputs, bit for bit against its eager body, and prints every
+     prover graph's replays; runs `entry.entry()` (the KAT gate for `opt`,
+     then its kernel on one (5, 16, 1024) planar batch, against the plain
+     version); `entry.dryrun_multichip` on one NCCL rank and on two gloo
+     ranks sharing cuda:0 (the sharded permutation, sponge, cipher, Merkle
+     tree and prover phase 1 against one device; each rank's launches
+     predicted); and both examples
+     (`python -m hades252_tpu_torch.examples.quickstart`, `multichip_merkle`)
+     as subprocesses on the card, every verdict true, with their walls;
   8. times the kernels, their plain versions, the trees, the openings,
      the sponge, the cipher and the checkpointed build (beside the plain
      `merkle_root` through the same kernel, so the cost of the ten
@@ -191,9 +203,10 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      and where the host has two or more cards the N-card wall and BASELINE
      config 5's scaling efficiency.
 
-Each path of phases 5-7b and 7e-7h runs with the launch counts set to 0 just
+Each path of phases 5-7b and 7e-7i runs with the launch counts set to 0 just
 before it and read just after; the kernels' JSON line reports their sum (the
-spawned ranks' counts of their first tree included). The
+spawned ranks' counts of their first tree and of the dry run included; the
+examples' subprocesses are not counted). The
 earlier paths run at the depth they had: the `naive` and `mxu8` cross-check
 trees over 2^16 leaves, everything else at full size. No
 single PyTorch call computes a 255-bit modular permutation, so the line's
@@ -210,7 +223,8 @@ aggregate of 4 and of one fused verification of 16 fast proofs with
 `torch.profiler` (phase 9, through `utils/profiling.trace`, which writes each
 path's Chrome trace to `build/profile/<n>/trace.json`) and prints, per path,
 the span of its device work, the time the device was busy, the idle share,
-the permutation kernel's share and the plain-torch glue's.
+the permutation kernel's share and the plain-torch glue's, and the host's
+launch calls (kernels, and graph replays).
 
 Every check is exact (integer arithmetic: tolerance 0). Any failure raises
 and the script exits non-zero. The last line of standard output is
@@ -228,7 +242,6 @@ import json
 import multiprocessing
 import os
 import platform
-import socket
 import statistics
 import subprocess
 import sys
@@ -248,6 +261,7 @@ except ModuleNotFoundError as e:
              "from the root of a checkout")
 
 from hades252_tpu_torch import aggregate, field, fri, fri_cuda, plonk, prover_cuda, selftest
+from hades252_tpu_torch import entry as entry_points
 from hades252_tpu_torch import serialize
 from hades252_tpu_torch.gadget import Composer, Constraint, GadgetStrategy
 from hades252_tpu_torch.models import cipher, merkle, sponge
@@ -255,7 +269,7 @@ from hades252_tpu_torch.ops import _build, make_perm_mont_fn, ntt, perm_cuda
 from hades252_tpu_torch.parallel import dist, multihost
 from hades252_tpu_torch.params import P, WIDTH, mxu8_tables
 from hades252_tpu_torch.strategy import ScalarStrategy
-from hades252_tpu_torch.utils import checkpoint, metrics, native, profiling, roofline
+from hades252_tpu_torch.utils import checkpoint, graphs, metrics, native, profiling, roofline
 from hades252_tpu_torch.utils.encoding import digits_to_ints, ints_to_digits
 
 SEED = 0x5EED
@@ -319,6 +333,11 @@ CHAIN_LEAVES, CHAIN_OPENINGS = 1 << 14, 1 << 10   # a prod proof's m0/2 position
 GLOO_RANKS, MAX_CARDS = 2, 4
 GROUP_TIMEOUT_S = 120       # a collective's wait for the other ranks
 RANKS_WALL_S = 300          # spawned ranks: all must report and exit within it
+# the examples (phase 7i): each subprocess's wall limit, the quickstart's
+# known perm([1..5])[0] and its count of verdict lines
+EXAMPLE_WALL_S = 240
+QUICKSTART_PERM = "perm([1..5])[0] = 0x5082aaf0060eeafea9119f97d3fb7b92be07825ab67ec37b8d2df57c1c64080c"
+QUICKSTART_VERDICTS = 10
 # the plain versions' slice, which bounds their int64 temporaries (phase 4
 # prints their peak)
 PLAIN_SLICE = 1 << 16
@@ -439,9 +458,10 @@ def preimage_instances(b: int, seed: int) -> list:
 
 def timed_prove(composers: list, key) -> tuple:
     """One prove_batched on the card with CUDA events around each of its
-    three device phases: (proofs, wall seconds, {phase: device ms}). The
-    host's share is the wall time less the phases'."""
-    events, originals = {}, {name: getattr(prover_cuda, name) for name in PROVER_PHASES}
+    three device phases (each a graph replay, with its copies in and its
+    clones out): (proofs, wall seconds, {phase: device ms}). The host's
+    share is the wall time less the phases'."""
+    events, select = {}, prover_cuda._select_phases
 
     def timed(name, fn):
         def run_phase(*args):
@@ -453,17 +473,19 @@ def timed_prove(composers: list, key) -> tuple:
             return out
         return run_phase
 
+    def timed_select(mesh, device):
+        return tuple(timed(name, fn) for name, fn in zip(PROVER_PHASES, select(mesh, device),
+                                                         strict=True))
+
+    prover_cuda._select_phases = timed_select
     try:
-        for name, fn in originals.items():
-            setattr(prover_cuda, name, timed(name, fn))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         proofs = prover_cuda.prove_batched(composers, key)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        for name, fn in originals.items():
-            setattr(prover_cuda, name, fn)
+        prover_cuda._select_phases = select
     return proofs, wall, {name: start.elapsed_time(end) for name, (start, end) in events.items()}
 
 
@@ -485,7 +507,9 @@ def prover_phase(dev: torch.device, rng: np.random.Generator) -> dict:
     check(key.n == 1024 and len(composers[0].gates) == 978, "the plonk circuit must be 978 gates, n = 1024")
     pis = [[g.pi for g in c.gates] for c in composers]
     b = PLONK_BATCHES[0]
+    t0 = time.perf_counter()
     first, counts = drive(lambda: prover_cuda.prove_batched(composers[:b], key))
+    first_s = time.perf_counter() - t0
     check(not any(counts.values()), f"prove_batched B={b}: launches {counts}, none expected")
     t0 = time.perf_counter()
     host = [plonk.prove(c, key) for c in composers[:b]]
@@ -517,7 +541,8 @@ def prover_phase(dev: torch.device, rng: np.random.Generator) -> dict:
         check(False, "composers of two circuits must be refused")
     log(f"[prover] {len(composers)} instances of the {len(composers[0].gates)}-gate permutation-"
         f"preimage circuit (n = {key.n}, built and keyed in {setup_s:.1f} s): B = {b} on the card "
-        f"== host plonk.prove field by field ({host_s:.3f} s a host proof), all verify; "
+        f"== host plonk.prove field by field ({host_s:.3f} s a host proof; the first call, its "
+        f"three graphs' capture included, {first_s:.2f} s), all verify; "
         f"B = {len(composers)}: first {b} == B = {b}'s, all verify ({verify_s:.4f} s a verify); "
         "a changed t coefficient fails; mixed circuits refused")
 
@@ -1005,8 +1030,8 @@ def flat_tensors(out) -> list:
 
 
 def graph_replays() -> dict:
-    """Every live graph of fri_cuda with its replay count."""
-    return {g: g.replays for g in fri_cuda._LIVE_GRAPHS}
+    """Every live graph (fri_cuda's and prover_cuda's) with its replay count."""
+    return {g: g.replays for g in graphs._LIVE_GRAPHS}
 
 
 def aggregate_verify_phase(composers: list, succinct: dict) -> dict:
@@ -1059,7 +1084,13 @@ def aggregate_verify_phase(composers: list, succinct: dict) -> dict:
         return fri_cuda.fri_phase_graph(1, schema["m0"], schema["n_folds"], "opt", dev)
 
     def device_aggregates(name, cs, pk, vk, want, reps, rng_seed=None):
+        """reps counted runs of prove_aggregate_device, each byte-identical
+        to `want`; the shape's graphs (the FRI phase's, and the prover
+        phases' at B = len(cs)) are captured before them by one run that is
+        not counted."""
         fri_graph(vk)
+        fri_cuda.prove_aggregate_device(cs, pk, None if rng_seed is None
+                                        else np.random.default_rng(rng_seed))
         runs = []
         for rep in range(reps):
             agg, wall, peak = counted(
@@ -1308,12 +1339,6 @@ def aggregate_verify_timings(ctx: dict, succinct: dict, smi: str) -> None:
         f"{CHAIN_OPENINGS} openings (the host's checks included) {t['chain']:.6f} s | {smi}")
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def host_walls(fn, reps: int = REPS) -> list:
     """Seconds of reps calls of fn() by the host clock, each ending in a
     synchronisation of the card, after one warm-up call."""
@@ -1329,69 +1354,33 @@ def host_walls(fn, reps: int = REPS) -> list:
 
 
 def sharded_rank(rank: int, world: int, coord: str, backend: str, leaves: np.ndarray,
-                 prove: bool, out) -> None:
-    """One spawned rank of phase 7h: joins a group of `world` over
-    `backend` (gloo: every rank on cuda:0; nccl: rank r on cuda:r), builds
-    the sharded tree over `leaves` with its launches and collective bytes
-    counted, times it, and with `prove` runs prove_batched(mesh=) over
-    phase 7d's first PLONK_BATCHES[0] instances. Puts (rank, result) on
-    `out`, or (rank, the traceback) when it fails."""
-    import traceback
-
+                 prove: bool) -> dict:
+    """One spawned rank of phase 7h (multihost.spawn): joins a group of
+    `world` over `backend` (gloo: every rank on cuda:0; nccl: rank r on
+    cuda:r), builds the sharded tree over `leaves` with its launches and
+    collective bytes counted, times it, and with `prove` runs
+    prove_batched(mesh=) over phase 7d's first PLONK_BATCHES[0] instances.
+    Returns what it found."""
+    multihost.initialize(coord, world, rank, backend=backend, timeout_s=GROUP_TIMEOUT_S)
     try:
-        multihost.initialize(coord, world, rank, backend=backend, timeout_s=GROUP_TIMEOUT_S)
-        try:
-            mesh = multihost.global_mesh(device=torch.device("cuda", 0 if backend == "gloo"
-                                                             else rank))
-            x = torch.from_numpy(leaves).to(mesh.device)
-            metrics.reset()
-            metrics.enable()
-            root, counts = drive(lambda: dist.merkle_root_sharded(x, mesh))
-            metrics.disable()
-            res = {"root": root.cpu().numpy(), "launches": counts,
-                   "collective_bytes": metrics.snapshot()["counters"]["dist.collective_bytes"],
-                   "walls": host_walls(lambda: dist.merkle_root_sharded(x, mesh))}
-            if prove:
-                composers = preimage_instances(PLONK_BATCHES[0], PLONK_SEED)
-                key = plonk.preprocess(composers[0])
-                proofs, n = drive(lambda: prover_cuda.prove_batched(composers, key, mesh=mesh))
-                res["proofs"] = [(p.wires, p.z, p.t, p.commitments) for p in proofs]
-                res["launches"] = {s: counts[s] + n[s] for s in perm_cuda.SCHEDULES}
-        finally:
-            tdist.destroy_process_group()
-        out.put((rank, res))
-    except BaseException:
-        out.put((rank, traceback.format_exc()))
-        raise
-
-
-def run_ranks(world: int, backend: str, leaves: np.ndarray, prove: bool) -> list:
-    """sharded_rank on `world` spawned processes; every rank must report and
-    exit 0 within RANKS_WALL_S. Returns their results in rank order; every
-    process is ended before it returns."""
-    ctx = multiprocessing.get_context("spawn")
-    out = ctx.Queue()
-    coord = f"127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=sharded_rank, args=(r, world, coord, backend, leaves, prove, out))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline, results = time.monotonic() + RANKS_WALL_S, {}
-    try:
-        for _ in procs:
-            rank, res = out.get(timeout=max(1.0, deadline - time.monotonic()))
-            check(isinstance(res, dict), f"{backend} rank {rank} of {world} failed:\n{res}")
-            results[rank] = res
-        for p in procs:
-            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        mesh = multihost.global_mesh(device=torch.device("cuda", 0 if backend == "gloo" else rank))
+        x = torch.from_numpy(leaves).to(mesh.device)
+        metrics.reset()
+        metrics.enable()
+        root, counts = drive(lambda: dist.merkle_root_sharded(x, mesh))
+        metrics.disable()
+        res = {"root": root.cpu().numpy(), "launches": counts,
+               "collective_bytes": metrics.snapshot()["counters"]["dist.collective_bytes"],
+               "walls": host_walls(lambda: dist.merkle_root_sharded(x, mesh))}
+        if prove:
+            composers = preimage_instances(PLONK_BATCHES[0], PLONK_SEED)
+            key = plonk.preprocess(composers[0])
+            proofs, n = drive(lambda: prover_cuda.prove_batched(composers, key, mesh=mesh))
+            res["proofs"] = [(p.wires, p.z, p.t, p.commitments) for p in proofs]
+            res["launches"] = {s: counts[s] + n[s] for s in perm_cuda.SCHEDULES}
+        return res
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    check(all(p.exitcode == 0 for p in procs),
-          f"{backend} ranks of {world}: exit codes {[p.exitcode for p in procs]}")
-    return [results[r] for r in range(world)]
+        tdist.destroy_process_group()
 
 
 def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) -> dict:
@@ -1428,7 +1417,7 @@ def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) 
     levels = merkle.tree_levels(MERKLE_LEAVES)
     chunks = 1 + CIPHER_LEN // cipher.RATE
     states = torch.from_numpy(random_elements((PERM_BATCH, WIDTH), np.random.default_rng(SEED + 10)))
-    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, backend="nccl",
                          timeout_s=GROUP_TIMEOUT_S)
     try:
         mesh = multihost.global_mesh()
@@ -1514,7 +1503,7 @@ def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) 
         tdist.destroy_process_group()
 
     leaves_np = leaves.cpu().numpy()
-    ranks = run_ranks(GLOO_RANKS, "gloo", leaves_np, prove=True)
+    ranks = multihost.spawn(sharded_rank, GLOO_RANKS, "gloo", leaves_np, True, wall_s=RANKS_WALL_S)
     for r, res in enumerate(ranks):
         check(np.array_equal(res["root"], root.cpu().numpy()),
               f"gloo rank {r}: the sharded root != phase 5's")
@@ -1533,7 +1522,7 @@ def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) 
     cards = torch.cuda.device_count()
     if cards >= 2:
         world = 1 << (min(cards, MAX_CARDS).bit_length() - 1)  # the tree's leaves divide by it
-        ranks = run_ranks(world, "nccl", leaves_np, prove=False)
+        ranks = multihost.spawn(sharded_rank, world, "nccl", leaves_np, False, wall_s=RANKS_WALL_S)
         check(all(np.array_equal(res["root"], root.cpu().numpy()) for res in ranks),
               f"nccl ranks of {world}: a root != phase 5's")
         times["cards"] = (world, [res["walls"] for res in ranks])
@@ -1572,13 +1561,132 @@ def sharded_timings(ctx: dict, smi: str) -> None:
             f"(1 rank {one:.6f} s) | {smi}")
 
 
+def prover_graphs_against_bodies(prover: dict) -> dict:
+    """Phase 7i (a): one prove_batched at phase 7d's B on the card with its
+    three phases' arguments and outputs recorded; each output (its graph's
+    replay) and one more replay of the same graph are held bit for bit
+    against the eager body on the same arguments. Returns each phase's
+    graph."""
+    b, key = PLONK_BATCHES[0], prover["key"]
+    seen, select = {}, prover_cuda._select_phases
+
+    def spying(mesh, device):
+        def spy(i, fn):
+            def run(*args):
+                seen[i] = (args, fn(*args))
+                return seen[i][1]
+            return run
+        return tuple(spy(i, fn) for i, fn in enumerate(select(mesh, device)))
+
+    prover_cuda._select_phases = spying
+    try:
+        proofs, counts = drive(lambda: prover_cuda.prove_batched(prover["composers"][:b], key))
+    finally:
+        prover_cuda._select_phases = select
+    check(not any(counts.values()), f"prove_batched B={b}: launches {counts}, none expected")
+    check(all(same_proof(a, c) for a, c in zip(proofs, prover["proofs"], strict=True)),
+          f"prove_batched B={b} through the graphs != phase 7d's proofs")
+    found = {}
+    for i, name in enumerate(PROVER_PHASES):
+        args, got = seen[i]
+        flat, layout = prover_cuda._flatten(args)
+        graph = prover_cuda.phase_graph(i, flat, layout)
+        want = prover_cuda._PHASES[i](*args)
+        again = graph(*flat)
+        check(torch.equal(got, want) and torch.equal(again, want),
+              f"{name}'s graph replay != its eager body at B={b}")
+        check(graph.held == {s: 0 for s in perm_cuda.SCHEDULES}, f"{name}'s graph holds {graph.held}")
+        found[name] = graph
+    log(f"[graphs] prove_batched B={b} through one graph a phase == phase 7d's proofs; each "
+        f"phase's replay == its eager body bit for bit ({', '.join(f'{n} {tuple(seen[i][1].shape)}' for i, n in enumerate(PROVER_PHASES))})")
+    for (gb, n, device), (_, group) in prover_cuda._PHASE_GRAPHS.items():
+        for (phase, _, shapes), graph in group.items():
+            log(f"[graphs] prover phase {phase + 1} (B = {gb}, n = {n}, {device}, "
+                f"{len(shapes)} inputs): {graph.replays} replays")
+    return found
+
+
+def example_run(module: str, *args: str, timeout_s: float) -> tuple:
+    """python -m <module> <args> in a subprocess from the checkout's root,
+    within timeout_s: (its standard output, wall seconds); it must exit 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
+                          timeout=timeout_s, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{module}: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout, wall
+
+
+def last_slice_phase(prover: dict) -> dict:
+    """Phase 7i: (a) the prover's phase graphs against their eager bodies;
+    (b) entry.entry(): the KAT gate for the default kernel, then its fn on
+    its args against the plain version; (c) entry.dryrun_multichip on one
+    NCCL rank and on two gloo ranks sharing cuda:0, each rank's launches
+    as predicted; (d) both examples as subprocesses on the card. Returns
+    the launches of (b) and (c)."""
+    t_phase = time.perf_counter()
+    prover_graphs_against_bodies(prover)
+
+    (out, x), counts = drive(lambda: (lambda fn, args: (fn(*args), args[0]))(*entry_points.entry()))
+    want = {**{s: 0 for s in perm_cuda.SCHEDULES}, perm_cuda.DEFAULT_SCHEDULE: 2}
+    check(counts == want, f"entry(): launches {counts} != {want} (the KAT gate's and fn's)")
+    check(x.shape == (WIDTH, 16, 1024) and x.device.type == "cuda"
+          and torch.equal(out, perm_cuda.permute_planar_plain(x)),
+          "entry(): fn(*args) != the plain version")
+    launches = dict(counts)
+    log(f"[entry] entry(): KAT gate ({perm_cuda.DEFAULT_SCHEDULE}, canonical, "
+        f"{selftest.BENCH_LANES} lanes) passed; fn(*args) on {tuple(x.shape)} == "
+        f"permute_planar_plain; launches {counts}")
+
+    def dry_launches(world: int) -> dict:
+        """A rank's launches: the sharded and the one-device permutation,
+        sponge (one chunk each) and cipher (two: the init and one chunk),
+        and the sharded tree's levels (the one-device references of the
+        cipher and the tree are the native engine's)."""
+        n_tree = 1 << (world.bit_length() - 1)
+        return {**{s: 0 for s in perm_cuda.SCHEDULES},
+                "opt": 2 + 2 + 2 + merkle.tree_levels(4 * n_tree)}
+
+    walls = {}
+    for world, backend, device in ((1, "nccl", None), (GLOO_RANKS, "gloo", torch.device("cuda", 0))):
+        t0 = time.perf_counter()
+        ranks = entry_points.dryrun_multichip(world, backend=backend, device=device)
+        walls[f"dry run {backend} {world}"] = time.perf_counter() - t0
+        check(len(ranks) == world and all(r == dry_launches(world) for r in ranks),
+              f"dryrun_multichip({world}, {backend}): launches {ranks} != {dry_launches(world)} a rank")
+        for r in ranks:
+            for s in perm_cuda.SCHEDULES:
+                launches[s] += r[s]
+        log(f"[entry] dryrun_multichip({world}, backend={backend!r}): every sharded path == its "
+            f"one-device value on every rank; launches {ranks[0]} a rank; "
+            f"{walls[f'dry run {backend} {world}']:.1f} s")
+
+    text, walls["quickstart"] = example_run("hades252_tpu_torch.examples.quickstart",
+                                            timeout_s=EXAMPLE_WALL_S)
+    verdicts = [ln for ln in text.splitlines() if "True" in ln or "False" in ln]
+    check(QUICKSTART_PERM in text.splitlines() and len(verdicts) == QUICKSTART_VERDICTS
+          and not any("False" in ln for ln in verdicts),
+          f"quickstart on the card: verdicts\n{text}")
+    text, walls["multichip_merkle"] = example_run("hades252_tpu_torch.examples.multichip_merkle",
+                                                  timeout_s=EXAMPLE_WALL_S)
+    lines = text.splitlines()
+    cards = torch.cuda.device_count()
+    check(f"256 leaves over {cards} devices: roots match" in lines
+          and "checkpoint/resume: roots match" in lines, f"multichip_merkle: output\n{text}")
+    log(f"[examples] quickstart on the card: {len(verdicts)} verdict lines, all True, "
+        f"{QUICKSTART_PERM!r}; {walls['quickstart']:.1f} s | multichip_merkle, one NCCL rank a card "
+        f"({cards}): roots match, checkpoint/resume match; {walls['multichip_merkle']:.1f} s")
+    log(f"[entry] phase 7i took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "walls": walls}
+
+
 def profile_path(name: str, fn, log_dir: str) -> None:
     """Trace one warm call of fn with utils/profiling.trace, which writes
     the Chrome trace to log_dir/trace.json, and print where its device time
     went: the span from the first device operation's start to the last
     one's end, the busy time (the union of the operations' intervals), the
     idle share of the span, the permutation kernels and the rest (the
-    plain-torch glue)."""
+    plain-torch glue), and the host's launch calls (kernels and graphs)."""
     from torch.autograd import DeviceType
 
     fn()
@@ -1588,6 +1696,10 @@ def profile_path(name: str, fn, log_dir: str) -> None:
         torch.cuda.synchronize()
     ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                  if e.device_type == DeviceType.CUDA)
+    # the host's launch calls: a graph replay is one cudaGraphLaunch for all its kernels
+    calls = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    host_kernels = sum(n.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for n in calls)
+    host_graphs = sum(n.startswith("cudaGraphLaunch") for n in calls)
     check(bool(ops), f"profile of {name}: no operation ran on the device")
     busy, reach = 0.0, ops[0][0]
     for start, end, _ in ops:
@@ -1599,8 +1711,8 @@ def profile_path(name: str, fn, log_dir: str) -> None:
     glue = [(end - start) for start, end, op in ops if "hades_perm" not in op]
     log(f"[profile] {name}: span {span / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle share "
         f"{1 - busy / span:.3f}, permutation kernels {sum(perm) / 1e3:.3f} ms in {len(perm)} "
-        f"launches, plain-torch glue {sum(glue) / 1e3:.3f} ms in {len(glue)} launches; "
-        f"trace {log_dir}/trace.json")
+        f"launches, plain-torch glue {sum(glue) / 1e3:.3f} ms in {len(glue)} launches; host "
+        f"launch calls: {host_kernels} kernels, {host_graphs} graphs; trace {log_dir}/trace.json")
 
 
 def drive(fn):
@@ -1676,7 +1788,7 @@ def run(ckpt_root: str) -> int:
             "a block")
 
     # 3. KAT gate on 2^14 lanes, every schedule, both paths
-    selftest.assert_device_correct(dev)
+    selftest.assert_device_correct(device=dev)
     log(f"[kat] {', '.join(perm_cuda.SCHEDULES)} x canonical, Montgomery on "
         f"{selftest.BENCH_LANES} lanes: bit-identical to the int oracle (SURVEY KATs included)")
 
@@ -1990,6 +2102,8 @@ def run(ckpt_root: str) -> int:
 
     # 7d. the batched prover and the NTT on the card
     prover = prover_phase(dev, rng)
+    log(f"[memory] after phase 7d: max_memory_reserved {torch.cuda.max_memory_reserved() / 2**30:.3f} "
+        f"GiB (the prover's graph pools included) | {smi}")
     mark("phase 7d")
 
     # 7e. the succinct and aggregated argument on the kernels
@@ -2011,6 +2125,8 @@ def run(ckpt_root: str) -> int:
     for s, n in agg_verify["launches"].items():
         main_launches[s] += n
     log(f"[launches] main path with phase 7g, summed: {main_launches}")
+    log(f"[memory] after phase 7g: max_memory_reserved {torch.cuda.max_memory_reserved() / 2**30:.3f} "
+        f"GiB | {smi}")
     mark("phase 7g")
 
     # 7h. the sharded paths
@@ -2022,6 +2138,13 @@ def run(ckpt_root: str) -> int:
         main_launches[s] += n
     log(f"[launches] main path with phase 7h, summed: {main_launches}")
     mark("phase 7h")
+
+    # 7i. the prover's graphs against their bodies, the entry points, the examples
+    last = last_slice_phase(prover)
+    for s, n in last["launches"].items():
+        main_launches[s] += n
+    log(f"[launches] main path with phase 7i, summed: {main_launches}")
+    mark("phase 7i")
 
     # 8. timings at the main path's shapes
     x = torch.from_numpy(random_elements((WIDTH, PERM_BATCH), rng).transpose(0, 2, 1).copy()).to(dev)

@@ -87,12 +87,13 @@ from .fri import (
     layer_positions,
     tree_columns,
 )
-from .ops import ntt, perm_cuda
+from .ops import ntt
 from .ops.perm_cuda import DEFAULT_SCHEDULE, _check_schedule, permute_cuda
 from .params import N_DIGITS, P, R, int_to_digits
 from .plonk import Transcript, _domain_root, statement_digest
 from .prover_cuda import _select_phases, _to_device
 from .utils.encoding import digits_to_ints, ints_to_digits
+from .utils.graphs import _GRAPHS, CudaGraph
 
 
 def _device(device) -> torch.device:
@@ -583,59 +584,6 @@ def _fri_phase_body(f0, tr_state, xinvs, inv2, node_tag, leaf_tags, perm_fn) -> 
     return cur, tr_state, layer_evals, layer_levels
 
 
-def _clone(out):
-    """A graph's outputs (tensors in nested lists and tuples), cloned out of
-    its static memory."""
-    if isinstance(out, torch.Tensor):
-        return out.clone()
-    return type(out)(_clone(x) for x in out)
-
-
-class CudaGraph:
-    """fn(*inputs) captured as one CUDA graph: the counterpart of one jitted
-    program of the JAX package.
-
-    `inputs` are the static input buffers, on the card. The graph keeps fn,
-    and with it the constant tensors fn closes over, for its life: the
-    captured work reads their memory. Before the capture one eager run over the buffers
-    (on a side stream) makes every first-use upload: perm_cuda's
-    `hades_init` and dot tables, field's constants. A call copies its
-    arguments into the buffers, replays, and returns clones of the outputs.
-
-    `held` counts the kernel launches of one replay per schedule (what the
-    wrappers counted during the capture); `replays` counts the replays."""
-
-    def __init__(self, fn, inputs: tuple):
-        self._fn, self._inputs = fn, inputs
-        device = inputs[0].device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            fn(*inputs)
-        torch.cuda.current_stream(device).wait_stream(side)
-        before = dict(perm_cuda.launches)
-        self._graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._graph):
-            self._out = fn(*inputs)
-        self.held = {s: perm_cuda.launches[s] - before[s] for s in perm_cuda.SCHEDULES}
-        self.replays = 0
-        _LIVE_GRAPHS.add(self)
-
-    def __call__(self, *args):
-        for buf, x in zip(self._inputs, args, strict=True):
-            buf.copy_(x)
-        self._graph.replay()
-        self.replays += 1
-        return _clone(self._out)
-
-
-#: Every graph alive, so that a caller can sum what the replays launched.
-_LIVE_GRAPHS: weakref.WeakSet = weakref.WeakSet()
-
-#: Graphs kept at once of each kind (each holds its shape's buffers on the card).
-_GRAPHS = 4
-
-
 @functools.lru_cache(maxsize=_GRAPHS)
 def fri_phase_graph(b: int, m0: int, n_folds: int, schedule: str,
                     device: torch.device) -> CudaGraph:
@@ -756,7 +704,7 @@ def prove_succinct_device_batch(composers, pk: ProvingKey, rngs=None, *,
     if not composers:
         return []
     dev = _entry_device("prove_succinct_device_batch", schedule, device, mesh)
-    phase1, phase2, phase3 = _select_phases(mesh)
+    phase1, phase2, phase3 = _select_phases(mesh, dev)
     perm_fn = _perm_fn(schedule)
     key, params = pk.key, pk.params
     n, omega = key.n, key.omega
@@ -965,7 +913,7 @@ def prove_aggregate_device(composers, pk: ProvingKey, rng=None, *,
     if not composers:
         raise ValueError("at least one composer required")
     dev = _entry_device("prove_aggregate_device", schedule, device, mesh)
-    phase1, phase2, phase3 = _select_phases(mesh)
+    phase1, phase2, phase3 = _select_phases(mesh, dev)
     perm_fn = _perm_fn(schedule)
     key, params = pk.key, pk.params
     n, omega = key.n, key.omega

@@ -14,6 +14,7 @@ the two packages can be compared key by key.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 
@@ -54,6 +55,36 @@ P_PRIME = (-pow(P, -1, R)) % R
 #: -p^{-1} mod 2^32 (word-level constant of the 32-bit-limb CIOS kernels).
 #: p = 1 (mod 2^32), so this is 2^32 - 1.
 P_PRIME_WORD = (-pow(P, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
+
+
+@dataclasses.dataclass(frozen=True)
+class HadesParams:
+    """The frozen Hades252 parameter set (`hades252_tpu/params.py:68-96`).
+
+    Parameters are constants, not configuration, as in the reference crate:
+    the dataclass is immutable and has exactly one instance, PARAMS. Runtime
+    knobs (batch, schedule, mesh) live at call sites, never here.
+    """
+
+    width: int = WIDTH
+    total_full_rounds: int = TOTAL_FULL_ROUNDS
+    partial_rounds: int = PARTIAL_ROUNDS
+    modulus: int = P
+    n_round_constants: int = N_ROUND_CONSTANTS
+    digit_bits: int = DIGIT_BITS
+    n_digits: int = N_DIGITS
+
+    @property
+    def rounds(self) -> int:
+        return self.total_full_rounds + self.partial_rounds
+
+    @property
+    def constants_per_perm(self) -> int:
+        return self.rounds * self.width
+
+
+#: The one parameter set this package implements.
+PARAMS = HadesParams()
 
 
 def int_to_digits(x: int, n: int = N_DIGITS) -> np.ndarray:

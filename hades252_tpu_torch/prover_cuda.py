@@ -19,6 +19,10 @@ digests hashed straight from the digit buffer):
   phase 3: (alpha) -> quotient t on the 4n coset      (coset NTTs and the
            gate/permutation/boundary combination, batched)
 
+On the card each phase is one CUDA graph a shape (`phase_graph`), as the
+JAX package jits each into one program; on the CPU the same bodies run
+eagerly, and they are the graphs' plain version.
+
 Montgomery-domain discipline inside a phase: additions happen on canonical
 digits, every chained product runs in the Montgomery domain (constants are
 lifted on the host), and each phase's outputs convert back to canonical
@@ -29,6 +33,7 @@ plonk.prove's for the same instance (tests/test_torch_prover.py).
 from __future__ import annotations
 
 import weakref
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -48,6 +53,7 @@ from .plonk import (
     key_digest,
 )
 from .utils.encoding import digits_to_ints, ints_to_digits
+from .utils.graphs import _GRAPHS, CudaGraph
 
 QUOTIENT_SHIFT = 7  # the 4n-coset shift used by plonk._quotient
 
@@ -307,18 +313,98 @@ def _commit_rows(arr: np.ndarray) -> np.ndarray:
     return out.reshape(lead)
 
 
-def _select_phases(mesh) -> tuple:
-    """The three device phases, or with a mesh (parallel/dist.Mesh) their
+_PHASES = (_phase1_wires, _phase2_grand_product, _phase3_quotient)
+
+#: The argument of each phase whose shape is (B, ..., n, D): the instances
+#: and the domain that name a phase's group of graphs.
+_SIZE_ARG = (0, 0, 2)
+
+#: The phases' graphs on the card: (B, n, device) -> (its memory pool, its
+#: graphs by (phase, argument layout, every tensor argument's shape and
+#: dtype)), the most recently used last, at most _GRAPHS groups.
+_PHASE_GRAPHS: OrderedDict = OrderedDict()
+
+
+def _flatten(args: tuple) -> tuple:
+    """A phase's arguments as (a flat tuple of tensors, the layout that
+    rebuilds them): a dict of tables (phase 3's q_mont) in the order of
+    its sorted keys."""
+    flat, layout = [], []
+    for a in args:
+        if isinstance(a, dict):
+            names = tuple(sorted(a))
+            flat.extend(a[k] for k in names)
+            layout.append(names)
+        else:
+            flat.append(a)
+            layout.append(None)
+    return tuple(flat), tuple(layout)
+
+
+def _unflatten(flat: tuple, layout: tuple) -> list:
+    args, i = [], 0
+    for names in layout:
+        if names is None:
+            args.append(flat[i])
+            i += 1
+        else:
+            args.append(dict(zip(names, flat[i : i + len(names)])))
+            i += len(names)
+    return args
+
+
+def phase_graph(phase: int, flat: tuple, layout: tuple) -> CudaGraph:
+    """The CUDA graph of prover phase `phase` (0, 1, 2) for these flat
+    arguments' shapes, captured at its first use: the counterpart of the
+    JAX package's jitted phase (`prover_tpu.py:149,155,201`).
+
+    Every tensor argument, the proving key's tables included, is a static
+    input buffer copied in at each call, so one graph serves every key of a
+    shape and no graph keeps a key alive. The graphs of one (B, n, device)
+    are captured in the order they replay and share one memory pool; the
+    cache keeps the _GRAPHS groups used last."""
+    size = flat[_SIZE_ARG[phase]]
+    group_key = (size.shape[0], size.shape[-2], size.device)
+    group = _PHASE_GRAPHS.pop(group_key, None)
+    if group is None:
+        group = (torch.cuda.graph_pool_handle(), {})
+    _PHASE_GRAPHS[group_key] = group
+    while len(_PHASE_GRAPHS) > _GRAPHS:
+        _PHASE_GRAPHS.popitem(last=False)
+    pool, graphs = group
+    key = (phase, layout, tuple((tuple(x.shape), x.dtype) for x in flat))
+    graph = graphs.get(key)
+    if graph is None:
+        body = _PHASES[phase]
+        inputs = tuple(torch.zeros(x.shape, dtype=x.dtype, device=x.device) for x in flat)
+        graph = CudaGraph(lambda *xs: body(*_unflatten(xs, layout)), inputs, pool=pool)
+        graphs[key] = graph
+    return graph
+
+
+def _replayed(phase: int):
+    def run(*args):
+        flat, layout = _flatten(args)
+        return phase_graph(phase, flat, layout)(*flat)
+    return run
+
+
+def _select_phases(mesh, device) -> tuple:
+    """The three device phases for `device`: on a card each replays its
+    graph (phase_graph), with no eager fallback; elsewhere the eager bodies,
+    which are the plain version. With a mesh (parallel/dist.Mesh) their
     drop-ins sharded over the instance axis (dist.sharded_phases: proving
     is data parallelism, each phase's one collective the gather of its
-    output; the bits are the same). The first sharded phase refuses a
-    batch that does not divide by the mesh size, with the JAX package's
-    message."""
-    if mesh is None:
-        return _phase1_wires, _phase2_grand_product, _phase3_quotient
-    from .parallel.dist import sharded_phases
+    output, which no graph holds; the bits are the same). The first sharded
+    phase refuses a batch that does not divide by the mesh size, with the
+    JAX package's message."""
+    if mesh is not None:
+        from .parallel.dist import sharded_phases
 
-    return sharded_phases(mesh)
+        return sharded_phases(mesh)
+    if torch.device(device).type == "cuda":
+        return tuple(_replayed(i) for i in range(len(_PHASES)))
+    return _PHASES
 
 
 def prove_batched(composers: list[Composer],
@@ -346,7 +432,7 @@ def prove_batched(composers: list[Composer],
         device = mesh_device(mesh, device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("prove_batched: no CUDA device; pass device='cpu' to prove on the CPU")
-    phase1, phase2, phase3 = _select_phases(mesh)
+    phase1, phase2, phase3 = _select_phases(mesh, device)
     if key is None:
         key = plonk.preprocess(composers[0])
     n = key.n

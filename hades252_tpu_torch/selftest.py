@@ -94,22 +94,29 @@ def _tile(arr: np.ndarray, lanes: int) -> np.ndarray:
     return np.tile(arr, (reps, 1, 1))[:lanes]
 
 
-def verify_device(device="cuda") -> list[str]:
-    """Run the KAT batch through each schedule's kernel on `device`, on the
-    canonical path and the Montgomery path: BENCH_LANES lanes on a CUDA
-    device, N_VECTORS elsewhere.
+def verify_device(schedules=SCHEDULES, *, device="cuda", lanes: int | None = None,
+                  include_mont: bool = True) -> list[str]:
+    """Run the KAT batch through the kernel of each schedule named on
+    `device`: the canonical path, and with include_mont the Montgomery path
+    the sponge and Merkle models use, for every schedule named (wider than
+    the JAX package's gate, which runs the Montgomery path for its default
+    schedule only). lanes: the batch, the vectors tiled to it; by default
+    BENCH_LANES on a CUDA device and N_VECTORS elsewhere. With no arguments
+    it covers all eight schedules on both paths on the card.
 
     Returns a list of failure descriptions (empty = all bit-exact).
     """
     device = torch.device(device)
-    lanes = BENCH_LANES if device.type == "cuda" else N_VECTORS
+    if lanes is None:
+        lanes = BENCH_LANES if device.type == "cuda" else N_VECTORS
     inputs, expected, inputs_m, expected_m = (
         _tile(a, lanes).astype(np.int32) for a in _vectors()
     )
-    paths = [("convert=True", permute_cuda, inputs, expected),
-             ("convert=False", permute_cuda_mont, inputs_m, expected_m)]
+    paths = [("convert=True", permute_cuda, inputs, expected)]
+    if include_mont:
+        paths.append(("convert=False", permute_cuda_mont, inputs_m, expected_m))
     failures: list[str] = []
-    for sched in SCHEDULES:
+    for sched in schedules:
         for label, fn, x, want in paths:
             out = fn(torch.from_numpy(x).to(device), schedule=sched).cpu().numpy()
             if not np.array_equal(out, want):
@@ -118,9 +125,12 @@ def verify_device(device="cuda") -> list[str]:
     return failures
 
 
-def assert_device_correct(device="cuda") -> None:
-    """Raise RuntimeError if any schedule's output deviates from the oracle."""
-    failures = verify_device(device)
+def assert_device_correct(schedules=SCHEDULES, *, device="cuda", lanes: int | None = None,
+                          include_mont: bool = True) -> None:
+    """Raise RuntimeError if any schedule's output deviates from the oracle:
+    the gate `entry.entry()` and `chip_smoke.py` run before trusting the
+    kernels. Arguments as verify_device's."""
+    failures = verify_device(schedules, device=device, lanes=lanes, include_mont=include_mont)
     if failures:
         raise RuntimeError(
             "on-device KAT verification FAILED (kernel output != int oracle): "

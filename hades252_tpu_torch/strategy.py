@@ -87,12 +87,15 @@ class ScalarStrategy(Strategy):
         engine in exact Python ints; also returns the list.
       * `perm(array)`: batched (..., WIDTH, N_DIGITS) canonical digits (a
         tensor or a numpy array) through `backend`: "ref" (the torch oracle,
-        on the tensor's device) or "cuda" (the `opt` kernel; the state is
-        moved to the current CUDA device). Returns an int32 tensor.
+        on the tensor's device), "cuda" (the `opt` kernel; the state is
+        moved to the current CUDA device) or "native" (the C++ host engine,
+        `utils/native.perm_batch_digits`; it raises NativeUnavailable where
+        the engine cannot be built). Returns an int32 tensor; "native"'s is
+        on the CPU.
     """
 
     def __init__(self, backend: str = "ref"):
-        if backend not in ("ref", "cuda"):
+        if backend not in ("ref", "cuda", "native"):
             raise ValueError(f"unknown backend: {backend}")
         self._backend = backend
 
@@ -129,6 +132,12 @@ class ScalarStrategy(Strategy):
             from .ops.perm_ref import permute
 
             return permute(values)
+        if self._backend == "native":
+            from .utils import native
+
+            flat = values.reshape(-1, WIDTH, values.shape[-1]).cpu().numpy()
+            out = native.perm_batch_digits(flat).astype(np.int32)
+            return torch.from_numpy(out).reshape(values.shape)
         from .ops.perm_cuda import permute_cuda
 
         flat = values.reshape(-1, WIDTH, values.shape[-1]).to("cuda")

@@ -176,6 +176,16 @@ def available() -> bool:
         return False
 
 
+def perm_batch_bytes(states: bytes | bytearray, n: int) -> bytes:
+    """Permute n width-5 states serialized as n*5*32 canonical LE bytes."""
+    if len(states) != n * 5 * 32:
+        raise ValueError(f"{len(states)} bytes for {n} states of {5 * 32}")
+    buf = ctypes.create_string_buffer(bytes(states), len(states))
+    if _lib().hades_perm_batch(buf, n) != 0:
+        raise NativeUnavailable("hades_perm_batch failed")
+    return buf.raw
+
+
 def _digits_u16_buf(digits, validate: bool = True) -> np.ndarray:
     """(B, 5, N_DIGITS) canonical digits (numpy array or CPU tensor) -> a
     contiguous little-endian uint16 buffer whose bytes are the n*5*32-byte
@@ -260,6 +270,15 @@ def perm_batch_digits_mt(digits, n_threads: int | None = None,
     if any(errs):
         raise NativeUnavailable("hades_perm_batch_opt failed in a shard")
     return buf.astype(np.uint32)
+
+
+def threaded_perm(n_threads: int | None = None):
+    """perm_fn factory over perm_batch_digits_mt for the fri/aggregate
+    perm_fn seams (pooled_entries_verify, verify_succinct_batched, the tree
+    builds). Raises NativeUnavailable up front when the engine cannot be
+    built."""
+    _lib()
+    return lambda s: perm_batch_digits_mt(np.asarray(s, np.uint32), n_threads)
 
 
 def sponge_hash_digits(msgs) -> np.ndarray:

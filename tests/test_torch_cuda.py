@@ -19,6 +19,7 @@ from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import make_perm_mont_fn, perm_cuda, permute
 from hades252_tpu_torch.strategy import ScalarStrategy
 from hades252_tpu_torch.utils import checkpoint
+from hades252_tpu_torch.utils.graphs import _LIVE_GRAPHS
 
 
 @pytest.fixture
@@ -75,7 +76,7 @@ def test_ragged_edges_of_lane_groups_and_small_blocks(cuda_device, b, schedule, 
 
 @pytest.mark.cuda
 def test_kat_gate(cuda_device):
-    selftest.assert_device_correct(cuda_device)
+    selftest.assert_device_correct(device=cuda_device)
 
 
 @pytest.mark.cuda
@@ -335,6 +336,59 @@ def test_prove_batched_on_the_card_equals_the_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+def test_prover_phase_graphs_replay_their_eager_bodies(cuda_device, b, monkeypatch):
+    """Each of the three prover phases on the card is one graph replay:
+    its output on a prove_batched's own arguments, and one more replay of
+    the same graph, equal the eager body's bit for bit; the proofs equal
+    the host prover's; the phases launch no kernel."""
+    from hades252_tpu_torch import plonk, prover_cuda
+
+    rng = np.random.default_rng(11 + b)
+    cs = [_chain_circuit([int(v) for v in rng.integers(0, 1 << 62, 30)]) for _ in range(b)]
+    key = plonk.preprocess(cs[0])
+    seen, select = {}, prover_cuda._select_phases
+
+    def spying(mesh, device):
+        def spy(i, fn):
+            def run(*args):
+                seen[i] = (args, fn(*args))
+                return seen[i][1]
+            return run
+        return tuple(spy(i, fn) for i, fn in enumerate(select(mesh, device)))
+
+    monkeypatch.setattr(prover_cuda, "_select_phases", spying)
+    perm_cuda.reset_launches()
+    proofs = prover_cuda.prove_batched(cs, key)
+    torch.cuda.synchronize()
+    assert perm_cuda.launches == _NO_LAUNCHES
+    for i in range(3):
+        args, got = seen[i]
+        flat, layout = prover_cuda._flatten(args)
+        graph = prover_cuda.phase_graph(i, flat, layout)
+        assert graph.replays >= 1 and graph.held == _NO_LAUNCHES
+        want = prover_cuda._PHASES[i](*args)
+        assert torch.equal(got, want) and torch.equal(graph(*flat), want)
+    for c, pr in zip(cs, proofs, strict=True):
+        host = plonk.prove(c, key)
+        assert (pr.wires, pr.z, pr.t, pr.commitments) == (host.wires, host.z, host.t,
+                                                          host.commitments)
+
+
+@pytest.mark.cuda
+def test_entry_gates_then_returns_the_kernel(cuda_device):
+    from hades252_tpu_torch import entry
+
+    perm_cuda.reset_launches()
+    fn, (x,) = entry.entry()
+    out = fn(x)
+    torch.cuda.synchronize()
+    assert perm_cuda.launches == {**_NO_LAUNCHES, perm_cuda.DEFAULT_SCHEDULE: 2}
+    assert x.shape == (5, 16, 1024) and x.is_cuda
+    assert torch.equal(out, perm_cuda.permute_planar_plain(x))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 64, 1024])
 def test_ntt_on_the_card_equals_the_cpu(cuda_device, n):
     from hades252_tpu_torch.ops import ntt
@@ -567,12 +621,12 @@ def test_device_verifiers_equal_the_host(cuda_device, zk):
     unfused = fri_cuda.verify_succinct_device_batch(vk, proofs, pis, False, schedule="hybp")
     assert perm_cuda.launches == {**_NO_LAUNCHES, "hybp": chip_smoke.pooled_merkle_launches(vk)}
     fri_cuda.verify_succinct_device_batch(vk, proofs, pis, schedule="hybp")  # captures the graph
-    graphs = {g: g.replays for g in fri_cuda._LIVE_GRAPHS}
+    graphs = {g: g.replays for g in _LIVE_GRAPHS}
     perm_cuda.reset_launches()
     fused = fri_cuda.verify_succinct_device_batch(vk, proofs, pis, schedule="hybp")
     torch.cuda.synchronize()
     assert perm_cuda.launches == _NO_LAUNCHES
-    (graph,) = [g for g in fri_cuda._LIVE_GRAPHS if g.replays != graphs.get(g, 0)]
+    (graph,) = [g for g in _LIVE_GRAPHS if g.replays != graphs.get(g, 0)]
     assert graph.replays == graphs[graph] + 1
     assert graph.held == {**_NO_LAUNCHES, "hybp": chip_smoke.pooled_merkle_launches(vk)}
     assert np.array_equal(unfused, want) and np.array_equal(fused, want)

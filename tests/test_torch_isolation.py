@@ -30,7 +30,8 @@ assert not any(k == "jax" or k.startswith(("jax.", "hades252_tpu."))
 for name in ("utils.checkpoint", "utils.native", "utils.encoding", "gadget", "circuits",
              "plonk", "utils.asset_gen", "ops.ntt", "prover_cuda", "fri", "serialize",
              "aggregate", "fri_cuda", "parallel.dist", "parallel.multihost", "utils.roofline",
-             "utils.profiling"):
+             "utils.profiling", "utils.graphs", "entry", "examples.quickstart",
+             "examples.multichip_merkle"):
     assert "hades252_tpu_torch." + name in names, name
 from hades252_tpu_torch.utils import checkpoint, encoding, native
 assert encoding.scalar_from_bytes(encoding.scalar_to_bytes(5)) == 5
@@ -113,5 +114,5 @@ def test_kat_gate_on_cpu_takes_the_plain_path():
     from hades252_tpu_torch.ops import perm_cuda
 
     perm_cuda.reset_launches()
-    assert selftest.verify_device("cpu") == []
+    assert selftest.verify_device(device="cpu") == []
     assert perm_cuda.launches == {s: 0 for s in perm_cuda.SCHEDULES}
