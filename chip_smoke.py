@@ -157,8 +157,9 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      7d's (10 `opt` launches a rank); on a host with two or more cards, two
      or four NCCL ranks, one card each, build the tree too (the ranks are
      spawned by `multihost.spawn`);
-  7i. holds each of the prover's three phase graphs, replayed on phase 7d's
-     B = 16 inputs, bit for bit against its eager body, and prints every
+  7i. holds each of the prover's three phase graphs, replayed twice on
+     the arguments its buffers hold after a prove_batched at phase 7d's
+     B = 16, bit for bit against its eager body, and prints every
      prover graph's replays; runs `entry.entry()` (the KAT gate for `opt`,
      then its kernel on one (5, 16, 1024) planar batch, against the plain
      version); `entry.dryrun_multichip` on one NCCL rank and on two gloo
@@ -178,7 +179,8 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      (`utils/roofline.roofline`); every
      kernel also at B = 2^10, 2^16 and 2^18. The prover: proofs/s at B = 16
      and 64 (host clock around the call, median of 3 after a warm-up), the
-     split into its three device phases (CUDA events around each) and the
+     split into its three device phases (their spans' CUDA events, read
+     from `utils/metrics.snapshot()`) and the
      host's share, the peak device memory, the host `plonk.prove`'s rate on
      the same host, `field.invert` over the grand product's denominators
      and `ntt_batched` over 64 rows of 2^12 and 2^14 points. The succinct
@@ -457,36 +459,25 @@ def preimage_instances(b: int, seed: int) -> list:
 
 
 def timed_prove(composers: list, key) -> tuple:
-    """One prove_batched on the card with CUDA events around each of its
-    three device phases (each a graph replay, with its copies in and its
-    clones out): (proofs, wall seconds, {phase: device ms}). The host's
-    share is the wall time less the phases'."""
-    events, select = {}, prover_cuda._select_phases
-
-    def timed(name, fn):
-        def run_phase(*args):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args)
-            end.record()
-            events[name] = (start, end)
-            return out
-        return run_phase
-
-    def timed_select(mesh, device):
-        return tuple(timed(name, fn) for name, fn in zip(PROVER_PHASES, select(mesh, device),
-                                                         strict=True))
-
-    prover_cuda._select_phases = timed_select
+    """One prove_batched on the card with metrics enabled: (proofs, wall
+    seconds, {phase: device ms}), each phase's time read from its span
+    `prove.phase<k>` (CUDA events around its graph replay, with its copies
+    in and its clones out). The host's share is the wall time less the
+    phases'."""
+    metrics.reset()
+    metrics.enable()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         proofs = prover_cuda.prove_batched(composers, key)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        spans = metrics.snapshot()["spans"]
     finally:
-        prover_cuda._select_phases = select
-    return proofs, wall, {name: start.elapsed_time(end) for name, (start, end) in events.items()}
+        metrics.disable()
+        metrics.reset()
+    return proofs, wall, {name: spans[f"prove.phase{k}"]["device_ms"]
+                          for k, name in enumerate(PROVER_PHASES, start=1)}
 
 
 def same_proof(a, b) -> bool:
@@ -1562,47 +1553,39 @@ def sharded_timings(ctx: dict, smi: str) -> None:
 
 
 def prover_graphs_against_bodies(prover: dict) -> dict:
-    """Phase 7i (a): one prove_batched at phase 7d's B on the card with its
-    three phases' arguments and outputs recorded; each output (its graph's
-    replay) and one more replay of the same graph are held bit for bit
-    against the eager body on the same arguments. Returns each phase's
-    graph."""
+    """Phase 7i (a): one prove_batched at phase 7d's B on the card; each
+    phase's graph then still holds the arguments of its replay in its
+    input buffers, and two more replays on them are held bit for bit
+    against the eager body on the same arguments (the graphs of one shape
+    share a memory pool, so a phase's static outputs do not outlive the
+    next phase's replay: the prover clones them at once). Returns each
+    phase's graph."""
     b, key = PLONK_BATCHES[0], prover["key"]
-    seen, select = {}, prover_cuda._select_phases
-
-    def spying(mesh, device):
-        def spy(i, fn):
-            def run(*args):
-                seen[i] = (args, fn(*args))
-                return seen[i][1]
-            return run
-        return tuple(spy(i, fn) for i, fn in enumerate(select(mesh, device)))
-
-    prover_cuda._select_phases = spying
-    try:
-        proofs, counts = drive(lambda: prover_cuda.prove_batched(prover["composers"][:b], key))
-    finally:
-        prover_cuda._select_phases = select
+    proofs, counts = drive(lambda: prover_cuda.prove_batched(prover["composers"][:b], key))
     check(not any(counts.values()), f"prove_batched B={b}: launches {counts}, none expected")
     check(all(same_proof(a, c) for a, c in zip(proofs, prover["proofs"], strict=True)),
           f"prove_batched B={b} through the graphs != phase 7d's proofs")
-    found = {}
-    for i, name in enumerate(PROVER_PHASES):
-        args, got = seen[i]
-        flat, layout = prover_cuda._flatten(args)
-        graph = prover_cuda.phase_graph(i, flat, layout)
-        want = prover_cuda._PHASES[i](*args)
-        again = graph(*flat)
+    (group,) = [g for (gb, n, _), (_, g) in prover_cuda._PHASE_GRAPHS.items()
+                if (gb, n) == (b, key.n)]
+    check(sorted(phase for phase, _, _ in group) == [0, 1, 2],
+          f"prove_batched B={b}: graphs of phases {[phase for phase, _, _ in group]}")
+    found, shapes = {}, []
+    for (i, layout, _), graph in sorted(group.items(), key=lambda kv: kv[0][0]):
+        name = PROVER_PHASES[i]
+        args = tuple(x.clone() for x in graph._inputs)  # its replay's arguments
+        want = prover_cuda._PHASES[i](*prover_cuda._unflatten(args, layout))
+        got, again = graph(*args), graph(*args)
         check(torch.equal(got, want) and torch.equal(again, want),
               f"{name}'s graph replay != its eager body at B={b}")
         check(graph.held == {s: 0 for s in perm_cuda.SCHEDULES}, f"{name}'s graph holds {graph.held}")
         found[name] = graph
+        shapes.append(f"{name} {tuple(got.shape)}")
     log(f"[graphs] prove_batched B={b} through one graph a phase == phase 7d's proofs; each "
-        f"phase's replay == its eager body bit for bit ({', '.join(f'{n} {tuple(seen[i][1].shape)}' for i, n in enumerate(PROVER_PHASES))})")
-    for (gb, n, device), (_, group) in prover_cuda._PHASE_GRAPHS.items():
-        for (phase, _, shapes), graph in group.items():
+        f"phase's replay == its eager body bit for bit ({', '.join(shapes)})")
+    for (gb, n, device), (_, graphs_) in prover_cuda._PHASE_GRAPHS.items():
+        for (phase, _, shapes_), graph in graphs_.items():
             log(f"[graphs] prover phase {phase + 1} (B = {gb}, n = {n}, {device}, "
-                f"{len(shapes)} inputs): {graph.replays} replays")
+                f"{len(shapes_)} inputs): {graph.replays} replays")
     return found
 
 

@@ -53,6 +53,14 @@ global tensors, so `fri_tpu._unshard` has no counterpart.
 The JAX package pads every permutation batch to the kernel's block so that
 the TPU keeps one executable; the CUDA kernels mask their tail, so nothing
 is padded here.
+
+The provers mark their stages with spans (utils/metrics.span): `fri.witness`
+(the three phases and blinding), `fri.coset` (the coset evaluations on L0),
+`fri.commit` (each paired-block tree and its root), `fri.evals`, `fri.deep`
+with `fri.deep.invert` inside, `fri.fold` (the FRI phase and its roots),
+`fri.grind`, `fri.open` (the device trees' openings), `fri.fetch` (each copy
+to the host, inside the others) and `fri.host` (transcripts, the final
+interpolation, the key tree's host openings, assembly).
 """
 
 from __future__ import annotations
@@ -92,6 +100,7 @@ from .ops.perm_cuda import DEFAULT_SCHEDULE, _check_schedule, permute_cuda
 from .params import N_DIGITS, P, R, int_to_digits
 from .plonk import Transcript, _domain_root, statement_digest
 from .prover_cuda import _select_phases, _to_device
+from .utils import metrics
 from .utils.encoding import digits_to_ints, ints_to_digits
 from .utils.graphs import _GRAPHS, CudaGraph
 
@@ -324,9 +333,12 @@ def _build_paired_levels(cols: torch.Tensor, perm_fn) -> list:
                             _leaf_tag(2 * cols.shape[1], dev))
 
 
+_fetch = functools.partial(prover_cuda._fetch, name="fri.fetch")
+
+
 def _root_ints(levels: list) -> list:
     """(B,) root ints from the last (B, 1, D) level."""
-    return [int(v) for v in digits_to_ints(levels[-1][:, 0].cpu().numpy())]
+    return [int(v) for v in digits_to_ints(_fetch(levels[-1][:, 0]))]
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +375,7 @@ def _open_nodes_dev(levels: list, s_lists: list) -> list:
         for lvl, need in enumerate(plan):
             idx[lvl, i, : len(need)] = need
     idx_dev = torch.from_numpy(idx).to(levels[0].device)
-    got = torch.stack(_gather_levels_dev(levels[:height], list(idx_dev))).cpu().numpy()
+    got = _fetch(torch.stack(_gather_levels_dev(levels[:height], list(idx_dev))))
     out = []
     for i, plan in enumerate(plans):
         parts = [got[lvl, i, : len(need)] for lvl, need in enumerate(plan) if need]
@@ -375,7 +387,7 @@ def _open_nodes_dev(levels: list, s_lists: list) -> list:
 def _gather_blocks(rows: torch.Tensor, idx: np.ndarray) -> np.ndarray:
     """rows (B, C, m, D) on the device, idx (B, U) host positions -> (B, C, U)
     object array of the ints there (one gather, one fetch)."""
-    return digits_to_ints(_gather_cols_dev(rows, torch.from_numpy(idx).to(rows.device)).cpu().numpy())
+    return digits_to_ints(_fetch(_gather_cols_dev(rows, torch.from_numpy(idx).to(rows.device))))
 
 
 def _open_blocks_dev(cols: torch.Tensor, s_lists: list) -> list:
@@ -449,7 +461,7 @@ def _claimed_eval_ints(wires, z, t, r, key_tab, zetas: list, omega: int) -> np.n
     n_rows = rows.shape[1]
     pts = [[z_] * 5 + [z_ * omega % P] + [z_] * (n_rows - 6) for z_ in zetas]
     pts_dev = _to_device(ints_to_digits(pts, shape=(b, n_rows)), rows.device)
-    return digits_to_ints(_eval_rows_dev(rows, pts_dev).cpu().numpy())
+    return digits_to_ints(_fetch(_eval_rows_dev(rows, pts_dev)))
 
 
 def _blind_dev(coeffs: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -507,7 +519,8 @@ def _deep_dev(stack, vs, gammas, pows, inv_a, inv_b, spec) -> torch.Tensor:
 def _inv_mont_dev(xs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Montgomery-form 1/(x_i - point) over the L0 point table, by Fermat
     per element (field.invert): xs (m0, D), points (K, D) -> (K, m0, D)."""
-    return field.to_mont(field.invert(field.sub_mod(xs[None], points[:, None])))
+    with metrics.span("fri.deep.invert"):
+        return field.to_mont(field.invert(field.sub_mod(xs[None], points[:, None])))
 
 
 # ---------------------------------------------------------------------------
@@ -605,23 +618,25 @@ def _run_fri_phase(f_dev, trs: list, m0: int, n_folds: int, schedule: str) -> tu
     resume from the returned sponge states. Returns (final evaluations
     (B, m_final, D), [(layer evaluations, layer levels)], each instance's
     layer roots)."""
-    b, dev = len(trs), f_dev.device
-    tr_state = _to_device(ints_to_digits([v for tr in trs for v in tr.state], shape=(b, 5)), dev)
-    if dev.type == "cuda":
-        out = fri_phase_graph(b, m0, n_folds, schedule, dev)(f_dev, tr_state)
-    else:
-        out = _fri_phase_body(f_dev, tr_state, *_fri_phase_consts(m0, n_folds, dev),
-                              _perm_fn(schedule))
-    cur, tr_state, layer_evals, layer_levels = out
-    roots = [[] for _ in range(b)]
-    if layer_levels:
-        # one fetch for every layer's root
-        got = digits_to_ints(torch.stack([lv[-1][:, 0] for lv in layer_levels], dim=1).cpu().numpy())
-        roots = [[int(v) for v in got[i]] for i in range(b)]
-    states = digits_to_ints(tr_state.cpu().numpy())
-    for i in range(b):
-        trs[i].set_state([int(v) for v in states[i]])
-    return cur, list(zip(layer_evals, layer_levels)), roots
+    with metrics.span("fri.fold"):
+        b, dev = len(trs), f_dev.device
+        tr_state = _to_device(ints_to_digits([v for tr in trs for v in tr.state], shape=(b, 5)),
+                              dev)
+        if dev.type == "cuda":
+            out = fri_phase_graph(b, m0, n_folds, schedule, dev)(f_dev, tr_state)
+        else:
+            out = _fri_phase_body(f_dev, tr_state, *_fri_phase_consts(m0, n_folds, dev),
+                                  _perm_fn(schedule))
+        cur, tr_state, layer_evals, layer_levels = out
+        roots = [[] for _ in range(b)]
+        if layer_levels:
+            # one fetch for every layer's root
+            got = digits_to_ints(_fetch(torch.stack([lv[-1][:, 0] for lv in layer_levels], dim=1)))
+            roots = [[int(v) for v in got[i]] for i in range(b)]
+        states = digits_to_ints(_fetch(tr_state))
+        for i in range(b):
+            trs[i].set_state([int(v) for v in states[i]])
+        return cur, list(zip(layer_evals, layer_levels)), roots
 
 
 # ---------------------------------------------------------------------------
@@ -661,7 +676,7 @@ def _grind_batch_dev(trs: list, pow_bits: int, device: torch.device, window_fn) 
         cand = torch.arange(start, start + window, dtype=torch.int64, device=device)
         nd = F.pad(((cand[:, None] >> shifts) & 0xFFFF).to(torch.int32), (0, N_DIGITS - 4))
         found, first = window_fn(states, nd, pow_bits)
-        found, first = found.cpu().numpy(), first.cpu().numpy()
+        found, first = _fetch(found), _fetch(first)
         for i in range(b):
             if nonces[i] is None and found[i]:
                 nonces[i] = start + int(first[i])
@@ -673,11 +688,12 @@ def _apply_grinding(trs: list, pow_bits: int, schedule: str, device: torch.devic
     """Grind, absorb the nonce and consume the check challenge for every
     transcript, as fri.grind_transcript does on each, with the search on
     the device."""
-    window_fn = functools.partial(_grind_window_body, perm_fn=_perm_fn(schedule))
-    nonces = _grind_batch_dev(trs, pow_bits, device, window_fn)
-    pool = device_pool_perm(schedule, device)  # not called: the search is done
-    return [fri.grind_transcript(tr, pow_bits, pool, search_fn=lambda _s, v=v: v)
-            for tr, v in zip(trs, nonces)]
+    with metrics.span("fri.grind"):
+        window_fn = functools.partial(_grind_window_body, perm_fn=_perm_fn(schedule))
+        nonces = _grind_batch_dev(trs, pow_bits, device, window_fn)
+        pool = device_pool_perm(schedule, device)  # not called: the search is done
+        return [fri.grind_transcript(tr, pow_bits, pool, search_fn=lambda _s, v=v: v)
+                for tr, v in zip(trs, nonces)]
 
 
 # ---------------------------------------------------------------------------
@@ -730,152 +746,176 @@ def prove_succinct_device_batch(composers, pk: ProvingKey, rngs=None, *,
         return digits([rand_fields[i]() for i in range(b) for _ in range(count)], (b, count))
 
     # --- witness polynomials through the batched prover's phases -----------
-    wire_evals = digits([[[c._values[idx] % P for idx in col] + [0] * (n - key.n_gates)
-                          for col in plonk._wire_indices(c)] for c in composers], (b, 4, n))
-    pi_cols = [[v % P for v in plonk._public_input_column(c, n)] for c in composers]
-    tables_n = prover_cuda._device_tables(key, dev)
-    tables_m = prover_cuda._device_tables(key, dev, m=d_bound, d_z=bounds["d_z"])
+    with metrics.span("fri.witness"):
+        wire_evals = digits([[[c._values[idx] % P for idx in col] + [0] * (n - key.n_gates)
+                              for col in plonk._wire_indices(c)] for c in composers], (b, 4, n))
+        pi_cols = [[v % P for v in plonk._public_input_column(c, n)] for c in composers]
+        tables_n = prover_cuda._device_tables(key, dev)
+        tables_m = prover_cuda._device_tables(key, dev, m=d_bound, d_z=bounds["d_z"])
 
-    wires = phase1(wire_evals)                                       # (B, 4, n, D)
-    if params.zk:
-        # the wires a..d (zkw draws each), later z (zkz), then the mask r (D)
-        wires = _blind_dev(wires, draws(4 * bounds["zkw"]).reshape(b, 4, -1, N_DIGITS))
+        wires = phase1(wire_evals)                                   # (B, 4, n, D)
+        if params.zk:
+            # the wires a..d (zkw draws each), later z (zkz), then the mask r (D)
+            wires = _blind_dev(wires, draws(4 * bounds["zkw"]).reshape(b, 4, -1, N_DIGITS))
 
-    trs = []
-    for i in range(b):
-        tr = Transcript()
-        tr.absorb(statement_digest(pk.digest, pi_cols[i]))
-        trs.append(tr)
+    with metrics.span("fri.host"):
+        trs = []
+        for i in range(b):
+            tr = Transcript()
+            tr.absorb(statement_digest(pk.digest, pi_cols[i]))
+            trs.append(tr)
 
     def commit(name, cols):
-        levels[name] = _build_paired_levels(cols, perm_fn)
-        roots[name] = _root_ints(levels[name])
-        for i in range(b):
-            trs[i].absorb(roots[name][i])
+        with metrics.span("fri.commit"):
+            levels[name] = _build_paired_levels(cols, perm_fn)
+            roots[name] = _root_ints(levels[name])
+            for i in range(b):
+                trs[i].absorb(roots[name][i])
 
     levels, roots = {}, {}
-    wires_l0 = _coset_eval_dev(wires, m0)                            # (B, 4, m0, D)
+    with metrics.span("fri.coset"):
+        wires_l0 = _coset_eval_dev(wires, m0)                        # (B, 4, m0, D)
     commit("w", wires_l0)
-    betas = [tr.challenge() for tr in trs]
-    gammas_fs = [tr.challenge() for tr in trs]
-    bd, gd = digits(betas, (b,)), digits(gammas_fs, (b,))
-    z = phase2(wire_evals, bd, gd, tables_n["ids_mont"], tables_n["sigma_n_mont"],
-               tables_n["one_mont"])
-    if params.zk:
-        z = _blind_dev(z, draws(bounds["zkz"]))
-    z_l0 = _coset_eval_dev(z, m0)                                    # (B, m0, D)
+    with metrics.span("fri.host"):
+        betas = [tr.challenge() for tr in trs]
+        gammas_fs = [tr.challenge() for tr in trs]
+        bd, gd = digits(betas, (b,)), digits(gammas_fs, (b,))
+    with metrics.span("fri.witness"):
+        z = phase2(wire_evals, bd, gd, tables_n["ids_mont"], tables_n["sigma_n_mont"],
+                   tables_n["one_mont"])
+        if params.zk:
+            z = _blind_dev(z, draws(bounds["zkz"]))
+    with metrics.span("fri.coset"):
+        z_l0 = _coset_eval_dev(z, m0)                                # (B, m0, D)
     commit("z", z_l0[:, None])
-    alphas = [tr.challenge() for tr in trs]
+    with metrics.span("fri.host"):
+        alphas = [tr.challenge() for tr in trs]
+        pi_d, alpha_d = digits(pi_cols, (b, n)), digits(alphas, (b,))
 
-    t = phase3(
-        wires, z, digits(pi_cols, (b, n)), bd, gd, digits(alphas, (b,)), tables_m["kx_mont"],
-        tables_m["sigma_m_mont"], tables_m["q_mont"], tables_m["zh_inv_mont"],
-        tables_m["l1_mont"], tables_m["omega_mont"], tables_n["one_mont"])  # (B, d_bound, D)
-    t_l0 = _coset_eval_dev(t, m0)
-    r = r_l0 = None
-    t_cols = t_l0[:, None]
-    if params.zk:
-        r = draws(d_bound)
-        r_l0 = _coset_eval_dev(r, m0)
-        t_cols = torch.stack([t_l0, r_l0], dim=1)
+    with metrics.span("fri.witness"):
+        t = phase3(
+            wires, z, pi_d, bd, gd, alpha_d, tables_m["kx_mont"], tables_m["sigma_m_mont"],
+            tables_m["q_mont"], tables_m["zh_inv_mont"], tables_m["l1_mont"],
+            tables_m["omega_mont"], tables_n["one_mont"])           # (B, d_bound, D)
+        r = None
+        if params.zk:
+            r = draws(d_bound)
+    with metrics.span("fri.coset"):
+        t_l0 = _coset_eval_dev(t, m0)
+        r_l0 = None
+        t_cols = t_l0[:, None]
+        if params.zk:
+            r_l0 = _coset_eval_dev(r, m0)
+            t_cols = torch.stack([t_l0, r_l0], dim=1)
     commit("t", t_cols)
-    zetas = [tr.challenge() for tr in trs]
+    with metrics.span("fri.host"):
+        zetas = [tr.challenge() for tr in trs]
 
     # --- claimed evaluations: one device call, one small fetch -------------
     row_names = (["a", "b", "o", "d", "z", "zw", "t"] + list(SELECTOR_NAMES) + list(SIGMA_NAMES)
                  + (["r"] if params.zk else []))
-    vals = _claimed_eval_ints(wires, z, t, r, _pk_table(pk, _key_coeff_digits, dev), zetas, omega)
-    evals_all = []
-    for i in range(b):
-        ev = {name: int(vals[i, j]) for j, name in enumerate(row_names)}
-        trs[i].absorb(*[ev[name] for name in eval_order(params.zk)])
-        evals_all.append(ev)
-    gdeeps = [tr.challenge() for tr in trs]
+    with metrics.span("fri.evals"):
+        vals = _claimed_eval_ints(wires, z, t, r, _pk_table(pk, _key_coeff_digits, dev), zetas,
+                                  omega)
+    with metrics.span("fri.host"):
+        evals_all = []
+        for i in range(b):
+            ev = {name: int(vals[i, j]) for j, name in enumerate(row_names)}
+            trs[i].absorb(*[ev[name] for name in eval_order(params.zk)])
+            evals_all.append(ev)
+        gdeeps = [tr.challenge() for tr in trs]
 
     # --- DEEP composition ---------------------------------------------------
-    key_rows = _pk_table(pk, _pk_key_evals, dev)                  # (10, m0, D)
-    stack_parts = [wires_l0, z_l0[:, None], t_l0[:, None], key_rows.expand(b, -1, -1, -1)]
-    row_of = {"a": 0, "b": 1, "o": 2, "d": 3, "z": 4, "t": 5}
-    for j, name in enumerate(SELECTOR_NAMES + SIGMA_NAMES):
-        row_of[name] = 6 + j
-    if params.zk:
-        stack_parts.append(r_l0[:, None])
-        row_of["r"] = 16
-    stack = torch.cat(stack_parts, dim=1)
-    terms = fri._terms(bounds)
-    s_values = sorted({d_bound + 1 - dj for (_, _, _, dj) in terms})
-    pows = torch.stack([_on_device(_pow_mont, (m0, s), dev) for s in s_values])
-    spec = [(row_of[pname], s_values.index(d_bound + 1 - dj), shifted)
-            for (pname, _, shifted, dj) in terms]
-    vs = digits([evals_all[i][ename] for i in range(b) for (_, ename, _, _) in terms],
-                (b, len(terms)))
-    gpow = []
-    for i in range(b):
-        g_acc = 1
-        for _ in terms:
-            gpow.append(g_acc * R % P)
-            g_acc = g_acc * gdeeps[i] % P
-    gammas = digits(gpow, (b, len(terms)))
-    # both denominators' points in one Fermat pass: zeta_i, then omega*zeta_i
-    inv = _inv_mont_dev(_on_device(_xs_digits, (m0,), dev),
-                        digits(zetas + [z_ * omega % P for z_ in zetas], (2 * b,)))
-    f_dev = _deep_dev(stack, vs, gammas, pows, inv[:b], inv[b:], spec)
+    with metrics.span("fri.deep"):
+        key_rows = _pk_table(pk, _pk_key_evals, dev)              # (10, m0, D)
+        stack_parts = [wires_l0, z_l0[:, None], t_l0[:, None], key_rows.expand(b, -1, -1, -1)]
+        row_of = {"a": 0, "b": 1, "o": 2, "d": 3, "z": 4, "t": 5}
+        for j, name in enumerate(SELECTOR_NAMES + SIGMA_NAMES):
+            row_of[name] = 6 + j
+        if params.zk:
+            stack_parts.append(r_l0[:, None])
+            row_of["r"] = 16
+        stack = torch.cat(stack_parts, dim=1)
+        terms = fri._terms(bounds)
+        s_values = sorted({d_bound + 1 - dj for (_, _, _, dj) in terms})
+        pows = torch.stack([_on_device(_pow_mont, (m0, s), dev) for s in s_values])
+        spec = [(row_of[pname], s_values.index(d_bound + 1 - dj), shifted)
+                for (pname, _, shifted, dj) in terms]
+        vs = digits([evals_all[i][ename] for i in range(b) for (_, ename, _, _) in terms],
+                    (b, len(terms)))
+        gpow = []
+        for i in range(b):
+            g_acc = 1
+            for _ in terms:
+                gpow.append(g_acc * R % P)
+                g_acc = g_acc * gdeeps[i] % P
+        gammas = digits(gpow, (b, len(terms)))
+        # both denominators' points in one Fermat pass: zeta_i, then omega*zeta_i
+        inv = _inv_mont_dev(_on_device(_xs_digits, (m0,), dev),
+                            digits(zetas + [z_ * omega % P for z_ in zetas], (2 * b,)))
+        f_dev = _deep_dev(stack, vs, gammas, pows, inv[:b], inv[b:], spec)
 
     # --- FRI commit phase: one graph replay on the card --------------------
     final, layer_data, layer_roots_all = _run_fri_phase(f_dev, trs, m0, n_folds, schedule)
-    final_ints = digits_to_ints(final.cpu().numpy())
-    shift_final = pow(G0, 1 << n_folds, P)
-    final_coeffs_all = []
-    for i in range(b):
-        fc = plonk._coset_interp([int(v) for v in final_ints[i]], shift_final)
-        if any(c_ % P for c_ in fc[final_degree:]):
-            raise ValueError("FRI final layer exceeds its degree bound: the witness does not "
-                             f"satisfy the circuit (instance {i})")
-        fc = fc[:final_degree]
-        final_coeffs_all.append(fc)
-        trs[i].absorb(*fc)
+    with metrics.span("fri.host"):
+        final_ints = digits_to_ints(_fetch(final))
+        shift_final = pow(G0, 1 << n_folds, P)
+        final_coeffs_all = []
+        for i in range(b):
+            fc = plonk._coset_interp([int(v) for v in final_ints[i]], shift_final)
+            if any(c_ % P for c_ in fc[final_degree:]):
+                raise ValueError("FRI final layer exceeds its degree bound: the witness does not "
+                                 f"satisfy the circuit (instance {i})")
+            fc = fc[:final_degree]
+            final_coeffs_all.append(fc)
+            trs[i].absorb(*fc)
 
     # --- grinding and queries -----------------------------------------------
     nonces = _apply_grinding(trs, params.pow_bits, schedule, dev)
-    queries_all = [[tr.challenge() % half0 for _ in range(params.n_queries)] for tr in trs]
-    s0_all = [sorted(set(qs)) for qs in queries_all]
+    with metrics.span("fri.host"):
+        queries_all = [[tr.challenge() % half0 for _ in range(params.n_queries)] for tr in trs]
+        s0_all = [sorted(set(qs)) for qs in queries_all]
 
     # --- openings: gathers, one fetch a tree ---------------------------------
     tree_cols = {"w": wires_l0, "z": z_l0[:, None], "t": t_cols}
     open_blocks, open_nodes = {}, {}
-    for tname in ("w", "z", "t"):
-        open_blocks[tname] = _open_blocks_dev(tree_cols[tname], s0_all)
-        open_nodes[tname] = _open_nodes_dev(levels[tname], s0_all)
-    # the key tree: the proving key's host levels, shared by the instances
-    k_lists = [pk.key_evals[c] for c in cols_spec["k"]]
-    k_open = [fri._open_paired(k_lists, pk.key_levels, s0) for s0 in s0_all]
-    open_blocks["k"] = [blk for blk, _ in k_open]
-    open_nodes["k"] = [nod for _, nod in k_open]
+    with metrics.span("fri.open"):
+        for tname in ("w", "z", "t"):
+            open_blocks[tname] = _open_blocks_dev(tree_cols[tname], s0_all)
+            open_nodes[tname] = _open_nodes_dev(levels[tname], s0_all)
+    with metrics.span("fri.host"):
+        # the key tree: the proving key's host levels, shared by the instances
+        k_lists = [pk.key_evals[c] for c in cols_spec["k"]]
+        k_open = [fri._open_paired(k_lists, pk.key_levels, s0) for s0 in s0_all]
+        open_blocks["k"] = [blk for blk, _ in k_open]
+        open_nodes["k"] = [nod for _, nod in k_open]
+        pos_chains_all = [[layer_positions(q, m0, sched) for q in qs] for qs in queries_all]
 
-    pos_chains_all = [[layer_positions(q, m0, sched) for q in qs] for qs in queries_all]
     layer_blocks_all = [[] for _ in range(b)]
     layer_nodes_all = [[] for _ in range(b)]
-    for li, (_, bs) in enumerate(sched):
-        s_k_all = [sorted({pc[li] for pc in chains}) for chains in pos_chains_all]
-        cur_k, lv = layer_data[li]
-        blocks = _open_layer_blocks(cur_k, bs, s_k_all)
-        nodes = _open_nodes_dev(lv, s_k_all)
-        for i in range(b):
-            layer_blocks_all[i].append(blocks[i])
-            layer_nodes_all[i].append(nodes[i])
+    with metrics.span("fri.open"):
+        for li, (_, bs) in enumerate(sched):
+            s_k_all = [sorted({pc[li] for pc in chains}) for chains in pos_chains_all]
+            cur_k, lv = layer_data[li]
+            blocks = _open_layer_blocks(cur_k, bs, s_k_all)
+            nodes = _open_nodes_dev(lv, s_k_all)
+            for i in range(b):
+                layer_blocks_all[i].append(blocks[i])
+                layer_nodes_all[i].append(nodes[i])
 
-    return [
-        SuccinctProof(
-            roots={name: roots[name][i] for name in roots},
-            evals=evals_all[i],
-            pow_nonce=nonces[i],
-            fri=FriProof(layer_roots=layer_roots_all[i], final_coeffs=final_coeffs_all[i],
-                         layer_blocks=layer_blocks_all[i], layer_nodes=layer_nodes_all[i]),
-            open_blocks={t_: open_blocks[t_][i] for t_ in TREE_ORDER},
-            open_nodes={t_: open_nodes[t_][i] for t_ in TREE_ORDER},
-        )
-        for i in range(b)
-    ]
+    with metrics.span("fri.host"):
+        return [
+            SuccinctProof(
+                roots={name: roots[name][i] for name in roots},
+                evals=evals_all[i],
+                pow_nonce=nonces[i],
+                fri=FriProof(layer_roots=layer_roots_all[i], final_coeffs=final_coeffs_all[i],
+                             layer_blocks=layer_blocks_all[i], layer_nodes=layer_nodes_all[i]),
+                open_blocks={t_: open_blocks[t_][i] for t_ in TREE_ORDER},
+                open_nodes={t_: open_nodes[t_][i] for t_ in TREE_ORDER},
+            )
+            for i in range(b)
+        ]
 
 
 def prove_succinct_device(composer, pk: ProvingKey, rng=None, *,
@@ -941,78 +981,90 @@ def prove_aggregate_device(composers, pk: ProvingKey, rng=None, *,
         return digits([v] * b, (b,))
 
     # --- witness polynomials through the batched prover's phases -----------
-    wire_evals = digits([[[c._values[idx] % P for idx in col] + [0] * (n - key.n_gates)
-                          for col in plonk._wire_indices(c)] for c in composers], (b, 4, n))
-    pi_cols = [[v % P for v in plonk._public_input_column(c, n)] for c in composers]
-    tables_n = prover_cuda._device_tables(key, dev)
-    tables_m = prover_cuda._device_tables(key, dev, m=d_bound, d_z=bounds["d_z"])
+    with metrics.span("fri.witness"):
+        wire_evals = digits([[[c._values[idx] % P for idx in col] + [0] * (n - key.n_gates)
+                              for col in plonk._wire_indices(c)] for c in composers], (b, 4, n))
+        pi_cols = [[v % P for v in plonk._public_input_column(c, n)] for c in composers]
+        tables_n = prover_cuda._device_tables(key, dev)
+        tables_m = prover_cuda._device_tables(key, dev, m=d_bound, d_z=bounds["d_z"])
 
-    wires = phase1(wire_evals)                                       # (B, 4, n, D)
-    if params.zk:
-        zkw = bounds["zkw"]
-        wires = _blind_dev(wires, draws(b * 4 * zkw, (b, 4, zkw)))
+        wires = phase1(wire_evals)                                   # (B, 4, n, D)
+        if params.zk:
+            zkw = bounds["zkw"]
+            wires = _blind_dev(wires, draws(b * 4 * zkw, (b, 4, zkw)))
 
-    tr = Transcript()
-    _absorb_statement(tr, pk.digest, n, key.n_gates, pi_cols)
+    with metrics.span("fri.host"):
+        tr = Transcript()
+        _absorb_statement(tr, pk.digest, n, key.n_gates, pi_cols)
     levels, roots = {}, {}
 
     def commit(name, cols):
-        levels[name] = _build_paired_levels(cols, perm_fn)
-        roots[name] = _root_ints(levels[name])[0]
-        tr.absorb(roots[name])
+        with metrics.span("fri.commit"):
+            levels[name] = _build_paired_levels(cols, perm_fn)
+            roots[name] = _root_ints(levels[name])[0]
+            tr.absorb(roots[name])
 
-    wires_l0 = _coset_eval_dev(wires, m0)                            # (B, 4, m0, D)
-    # the w tree's columns: poly-major, then instance (a_0..a_{B-1}, b_0, ...)
-    w_cols = wires_l0.transpose(0, 1).reshape(1, 4 * b, m0, N_DIGITS)
+    with metrics.span("fri.coset"):
+        wires_l0 = _coset_eval_dev(wires, m0)                        # (B, 4, m0, D)
+        # the w tree's columns: poly-major, then instance (a_0..a_{B-1}, b_0, ...)
+        w_cols = wires_l0.transpose(0, 1).reshape(1, 4 * b, m0, N_DIGITS)
     commit("w", w_cols)
-    beta = tr.challenge()
-    gamma = tr.challenge()
-    z = phase2(wire_evals, shared(beta), shared(gamma), tables_n["ids_mont"],
-               tables_n["sigma_n_mont"], tables_n["one_mont"])         # (B, n, D)
-    if params.zk:
-        z = _blind_dev(z, draws(b * bounds["zkz"], (b, bounds["zkz"])))
-    z_l0 = _coset_eval_dev(z, m0)                                    # (B, m0, D)
-    z_cols = z_l0[None]
+    with metrics.span("fri.host"):
+        beta = tr.challenge()
+        gamma = tr.challenge()
+        beta_d, gamma_d = shared(beta), shared(gamma)
+    with metrics.span("fri.witness"):
+        z = phase2(wire_evals, beta_d, gamma_d, tables_n["ids_mont"], tables_n["sigma_n_mont"],
+                   tables_n["one_mont"])                             # (B, n, D)
+        if params.zk:
+            z = _blind_dev(z, draws(b * bounds["zkz"], (b, bounds["zkz"])))
+    with metrics.span("fri.coset"):
+        z_l0 = _coset_eval_dev(z, m0)                                # (B, m0, D)
+        z_cols = z_l0[None]
     commit("z", z_cols)
-    alpha = tr.challenge()
+    with metrics.span("fri.host"):
+        alpha = tr.challenge()
+        pi_d, alpha_d = digits(pi_cols, (b, n)), shared(alpha)
 
-    t = phase3(
-        wires, z, digits(pi_cols, (b, n)), shared(beta), shared(gamma), shared(alpha),
-        tables_m["kx_mont"], tables_m["sigma_m_mont"], tables_m["q_mont"],
-        tables_m["zh_inv_mont"], tables_m["l1_mont"], tables_m["omega_mont"],
-        tables_n["one_mont"])                                        # (B, d_bound, D)
-    t_l0 = _coset_eval_dev(t, m0)
-    r = r_l0 = None
-    t_cols = t_l0[None]
-    if params.zk:
-        # ONE shared mask polynomial, drawn after every instance's z blinds
-        r = draws(d_bound, (1, d_bound))
-        r_l0 = _coset_eval_dev(r, m0)                                # (1, m0, D)
-        t_cols = torch.cat([t_cols, r_l0[:, None]], dim=1)           # (1, B + 1, m0, D)
+    with metrics.span("fri.witness"):
+        t = phase3(
+            wires, z, pi_d, beta_d, gamma_d, alpha_d,
+            tables_m["kx_mont"], tables_m["sigma_m_mont"], tables_m["q_mont"],
+            tables_m["zh_inv_mont"], tables_m["l1_mont"], tables_m["omega_mont"],
+            tables_n["one_mont"])                                    # (B, d_bound, D)
+        r = None
+        if params.zk:
+            # ONE shared mask polynomial, drawn after every instance's z blinds
+            r = draws(d_bound, (1, d_bound))
+    with metrics.span("fri.coset"):
+        t_l0 = _coset_eval_dev(t, m0)
+        r_l0 = None
+        t_cols = t_l0[None]
+        if params.zk:
+            r_l0 = _coset_eval_dev(r, m0)                            # (1, m0, D)
+            t_cols = torch.cat([t_cols, r_l0[:, None]], dim=1)       # (1, B + 1, m0, D)
     commit("t", t_cols)
-    zeta = tr.challenge()
+    with metrics.span("fri.host"):
+        zeta = tr.challenge()
 
     # --- claimed evaluations: one device call, one small fetch -------------
-    vals = _claimed_eval_ints(wires, z, t, None if r is None else r.expand(b, -1, -1),
-                              _pk_table(pk, _key_coeff_digits, dev), [zeta] * b, omega)
+    with metrics.span("fri.evals"):
+        vals = _claimed_eval_ints(wires, z, t, None if r is None else r.expand(b, -1, -1),
+                                  _pk_table(pk, _key_coeff_digits, dev), [zeta] * b, omega)
     wire_rows = ("a", "b", "o", "d", "z", "zw", "t")
-    evals = [{name: int(vals[i, j]) for j, name in enumerate(wire_rows)} for i in range(b)]
     key_names = SELECTOR_NAMES + SIGMA_NAMES
-    key_evals = {name: int(vals[0, len(wire_rows) + j]) for j, name in enumerate(key_names)}
-    r_eval = int(vals[0, len(wire_rows) + len(key_names)]) if params.zk else None
-    for e in evals:
-        tr.absorb(*[e[name] for name in WIRE_EVAL_ORDER])
-    tr.absorb(*[key_evals[name] for name in KEY_EVAL_ORDER])
-    if params.zk:
-        tr.absorb(r_eval)
-    gdeep = tr.challenge()
+    with metrics.span("fri.host"):
+        evals = [{name: int(vals[i, j]) for j, name in enumerate(wire_rows)} for i in range(b)]
+        key_evals = {name: int(vals[0, len(wire_rows) + j]) for j, name in enumerate(key_names)}
+        r_eval = int(vals[0, len(wire_rows) + len(key_names)]) if params.zk else None
+        for e in evals:
+            tr.absorb(*[e[name] for name in WIRE_EVAL_ORDER])
+        tr.absorb(*[key_evals[name] for name in KEY_EVAL_ORDER])
+        if params.zk:
+            tr.absorb(r_eval)
+        gdeep = tr.challenge()
 
     # --- one DEEP composition over all B x 7 + 10 (+1) claims ----------------
-    inst_rows = torch.cat([wires_l0, z_l0[:, None], t_l0[:, None]], dim=1)   # (B, 6, m0, D)
-    stack_parts = [inst_rows.reshape(6 * b, m0, N_DIGITS), _pk_table(pk, _pk_key_evals, dev)]
-    if params.zk:
-        stack_parts.append(r_l0)
-    stack = torch.cat(stack_parts)[None]                             # (1, 6B + 10 (+1), m0, D)
     wire_row = {"a": 0, "b": 1, "o": 2, "d": 3, "z": 4, "t": 5}
 
     def term_row(j, pname):
@@ -1022,51 +1074,63 @@ def prove_aggregate_device(composers, pk: ProvingKey, rng=None, *,
             return 6 * b + key_names.index(pname)
         return 6 * j + wire_row[pname]
 
-    terms = _agg_terms(bounds, b)
-    s_values = sorted({d_bound + 1 - dj for (*_, dj) in terms})
-    pows = torch.stack([_on_device(_pow_mont, (m0, s), dev) for s in s_values])
-    spec = [(term_row(j, pname), s_values.index(d_bound + 1 - dj), shifted)
-            for (j, pname, _, shifted, dj) in terms]
-    vs = digits([r_eval if pname == "r" else key_evals[ename] if j is None else evals[j][ename]
-                 for (j, pname, ename, _, _) in terms], (1, len(terms)))
-    gpow, g_acc = [], 1
-    for _ in terms:
-        gpow.append(g_acc * R % P)
-        g_acc = g_acc * gdeep % P
-    # both denominators' points in one Fermat pass: zeta, then omega*zeta
-    inv = _inv_mont_dev(_on_device(_xs_digits, (m0,), dev), digits([zeta, zeta * omega % P], (2,)))
-    f_dev = _deep_dev(stack, vs, digits(gpow, (1, len(terms))), pows, inv[:1], inv[1:], spec)
+    with metrics.span("fri.deep"):
+        inst_rows = torch.cat([wires_l0, z_l0[:, None], t_l0[:, None]], dim=1)   # (B, 6, m0, D)
+        stack_parts = [inst_rows.reshape(6 * b, m0, N_DIGITS), _pk_table(pk, _pk_key_evals, dev)]
+        if params.zk:
+            stack_parts.append(r_l0)
+        stack = torch.cat(stack_parts)[None]                         # (1, 6B + 10 (+1), m0, D)
+        terms = _agg_terms(bounds, b)
+        s_values = sorted({d_bound + 1 - dj for (*_, dj) in terms})
+        pows = torch.stack([_on_device(_pow_mont, (m0, s), dev) for s in s_values])
+        spec = [(term_row(j, pname), s_values.index(d_bound + 1 - dj), shifted)
+                for (j, pname, _, shifted, dj) in terms]
+        vs = digits([r_eval if pname == "r" else key_evals[ename] if j is None
+                     else evals[j][ename] for (j, pname, ename, _, _) in terms], (1, len(terms)))
+        gpow, g_acc = [], 1
+        for _ in terms:
+            gpow.append(g_acc * R % P)
+            g_acc = g_acc * gdeep % P
+        # both denominators' points in one Fermat pass: zeta, then omega*zeta
+        inv = _inv_mont_dev(_on_device(_xs_digits, (m0,), dev),
+                            digits([zeta, zeta * omega % P], (2,)))
+        f_dev = _deep_dev(stack, vs, digits(gpow, (1, len(terms))), pows, inv[:1], inv[1:], spec)
 
     # --- one FRI commit phase (one graph replay on the card) and grinding -----
     final, layer_data, layer_roots = _run_fri_phase(f_dev, [tr], m0, n_folds, schedule)
-    final_coeffs = plonk._coset_interp([int(v) for v in digits_to_ints(final[0].cpu().numpy())],
-                                       pow(G0, 1 << n_folds, P))
-    if any(c_ % P for c_ in final_coeffs[final_degree:]):
-        raise ValueError("FRI final layer exceeds its degree bound — the witness does not "
-                         "satisfy the circuit (the quotient is not a polynomial)")
-    final_coeffs = final_coeffs[:final_degree]
-    tr.absorb(*final_coeffs)
+    with metrics.span("fri.host"):
+        final_coeffs = plonk._coset_interp([int(v) for v in digits_to_ints(_fetch(final[0]))],
+                                           pow(G0, 1 << n_folds, P))
+        if any(c_ % P for c_ in final_coeffs[final_degree:]):
+            raise ValueError("FRI final layer exceeds its degree bound — the witness does not "
+                             "satisfy the circuit (the quotient is not a polynomial)")
+        final_coeffs = final_coeffs[:final_degree]
+        tr.absorb(*final_coeffs)
     pow_nonce = _apply_grinding([tr], params.pow_bits, schedule, dev)[0]
-    queries = [tr.challenge() % half0 for _ in range(params.n_queries)]
-    s0 = sorted(set(queries))
+    with metrics.span("fri.host"):
+        queries = [tr.challenge() % half0 for _ in range(params.n_queries)]
+        s0 = sorted(set(queries))
 
     # --- openings: gathers, one fetch a tree ---------------------------------
     tree_cols = {"w": w_cols, "z": z_cols, "t": t_cols}
     open_blocks, open_nodes = {}, {}
     for tname in TREE_ORDER:
         if tname == "k":  # the proving key's host levels
-            open_blocks[tname], open_nodes[tname] = fri._open_paired(
-                [pk.key_evals[c] for c in key_names], pk.key_levels, s0)
+            with metrics.span("fri.host"):
+                open_blocks[tname], open_nodes[tname] = fri._open_paired(
+                    [pk.key_evals[c] for c in key_names], pk.key_levels, s0)
         else:
-            open_blocks[tname] = _open_blocks_dev(tree_cols[tname], [s0])[0]
-            open_nodes[tname] = _open_nodes_dev(levels[tname], [s0])[0]
+            with metrics.span("fri.open"):
+                open_blocks[tname] = _open_blocks_dev(tree_cols[tname], [s0])[0]
+                open_nodes[tname] = _open_nodes_dev(levels[tname], [s0])[0]
     pos_chains = [layer_positions(q, m0, sched) for q in queries]
     layer_blocks, layer_nodes = [], []
-    for li, (_, bs) in enumerate(sched):
-        s_k = sorted({pc[li] for pc in pos_chains})
-        cur_k, lv = layer_data[li]
-        layer_blocks.append(_open_layer_blocks(cur_k, bs, [s_k])[0])
-        layer_nodes.append(_open_nodes_dev(lv, [s_k])[0])
+    with metrics.span("fri.open"):
+        for li, (_, bs) in enumerate(sched):
+            s_k = sorted({pc[li] for pc in pos_chains})
+            cur_k, lv = layer_data[li]
+            layer_blocks.append(_open_layer_blocks(cur_k, bs, [s_k])[0])
+            layer_nodes.append(_open_nodes_dev(lv, [s_k])[0])
 
     return AggregateProof(
         n_instances=b, roots=roots, evals=evals, key_evals=key_evals, r_eval=r_eval,

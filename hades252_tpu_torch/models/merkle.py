@@ -51,11 +51,12 @@ def _pad_to_pow4(leaves: torch.Tensor) -> torch.Tensor:
 
 def _level_up(nodes_mont: torch.Tensor, perm_mont_fn) -> torch.Tensor:
     """One tree level: (N, D) Montgomery node values -> (N/4, D) parents."""
-    n = nodes_mont.shape[0]
-    children = nodes_mont.reshape(n // ARITY, ARITY, N_DIGITS)
-    tag = _tag_mont(nodes_mont.device).expand(n // ARITY, 1, N_DIGITS)
-    states = torch.cat([tag, children], dim=1)  # (N/4, WIDTH, D)
-    return perm_mont_fn(states)[:, DIGEST_INDEX, :]
+    with metrics.span("merkle.level"):
+        n = nodes_mont.shape[0]
+        children = nodes_mont.reshape(n // ARITY, ARITY, N_DIGITS)
+        tag = _tag_mont(nodes_mont.device).expand(n // ARITY, 1, N_DIGITS)
+        states = torch.cat([tag, children], dim=1)  # (N/4, WIDTH, D)
+        return perm_mont_fn(states)[:, DIGEST_INDEX, :]
 
 
 def merkle_levels(leaves: torch.Tensor, perm_mont_fn=None) -> list[torch.Tensor]:
@@ -71,7 +72,8 @@ def merkle_levels(leaves: torch.Tensor, perm_mont_fn=None) -> list[torch.Tensor]
         from ..ops import default_perm_mont_fn
 
         perm_mont_fn = default_perm_mont_fn(leaves.device)
-    level = field.to_mont(_pad_to_pow4(leaves))
+    with metrics.span("merkle.convert"):
+        level = field.to_mont(_pad_to_pow4(leaves))
     levels = [level]
     while level.shape[0] > 1:
         metrics.count("merkle.levels", 1)
@@ -84,7 +86,9 @@ def merkle_levels(leaves: torch.Tensor, perm_mont_fn=None) -> list[torch.Tensor]
 def merkle_root(leaves: torch.Tensor, perm_mont_fn=None) -> torch.Tensor:
     """The arity-4 tree root over canonical leaf digits (N, N_DIGITS) int32;
     returns (N_DIGITS,) int32 canonical root digits."""
-    return field.from_mont(merkle_levels(leaves, perm_mont_fn)[-1][0])
+    root = merkle_levels(leaves, perm_mont_fn)[-1][0]
+    with metrics.span("merkle.convert"):
+        return field.from_mont(root)
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +139,11 @@ def merkle_open_batched(levels: list[torch.Tensor], indices):
     merkle_open_compact over `indices`. Each level is one gather of the K
     groups and one of their siblings, by index arithmetic, instead of K
     slices."""
+    with metrics.span("merkle.open"):
+        return _open_batched(levels, indices)
+
+
+def _open_batched(levels: list[torch.Tensor], indices):
     dev = levels[0].device
     index = torch.as_tensor(indices, dtype=torch.int64, device=dev).reshape(-1)
     if index.numel() and not (0 <= int(index.min()) and int(index.max()) < levels[0].shape[0]):
@@ -180,6 +189,11 @@ def merkle_verify_batched(root, leaves, sibs, poss, height: int, perm_mont_fn=No
     sibling digests exist) could forge membership. The check is folded into
     the verdict.
     """
+    with metrics.span("merkle.verify"):
+        return _verify_batched(root, leaves, sibs, poss, height, perm_mont_fn)
+
+
+def _verify_batched(root, leaves, sibs, poss, height: int, perm_mont_fn):
     if perm_mont_fn is None:
         from ..ops import default_perm_mont_fn
 
@@ -189,12 +203,15 @@ def merkle_verify_batched(root, leaves, sibs, poss, height: int, perm_mont_fn=No
         return torch.zeros((k,), dtype=torch.bool, device=leaves.device)
     poss = poss.to(torch.int64)
     pos_ok = ((poss >= 0) & (poss < ARITY)).all(dim=1)
-    node = field.to_mont(leaves)
+    with metrics.span("merkle.convert"):
+        node = field.to_mont(leaves)
     tag = _tag_mont(leaves.device).expand(k, 1, N_DIGITS)
     for lvl in range(height):
         children = _insert_at(node, sibs[:, lvl], poss[:, lvl])
         node = perm_mont_fn(torch.cat([tag, children], dim=1))[:, DIGEST_INDEX, :]
-    digest_ok = (field.from_mont(node) == root[None]).all(dim=-1)
+    with metrics.span("merkle.convert"):
+        node = field.from_mont(node)
+    digest_ok = (node == root[None]).all(dim=-1)
     return pos_ok & digest_ok
 
 

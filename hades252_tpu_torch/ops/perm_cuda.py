@@ -56,14 +56,21 @@ from ..params import (
     perm_constants_np,
     perm_tables,
 )
+from ..utils import metrics
 from . import _build, perm_ref
 
 SCHEDULES = ("naive", "opt", "mxu8", "hyb", "hybp", "mxu", "hyb13", "hybp13")
 DEFAULT_SCHEDULE = "opt"
 
 #: Kernel launches per schedule. A wrapper adds one where it launches its
-#: kernel and nowhere else; `reset_launches` sets them to 0.
+#: kernel and nowhere else (a CUDA graph's launches are counted once, at
+#: its capture); `reset_launches` sets them to 0.
 launches = {s: 0 for s in SCHEDULES}
+
+#: States handed to the kernels per schedule: a wrapper adds its batch where
+#: it launches, and `utils/graphs.CudaGraph` adds what one replay holds at
+#: every replay (a capture runs nothing). Never reset by `reset_launches`.
+states = {s: 0 for s in SCHEDULES}
 
 # device indices whose constant memory holds the tables
 _initialized: set[int] = set()
@@ -239,6 +246,7 @@ def _launch(x: torch.Tensor, out: torch.Tensor, *, convert: bool, schedule: str)
             status = fn(*args, stream)
         _check_status(lib, status, f"hades_perm_{schedule}")
     launches[schedule] += 1
+    states[schedule] += x.shape[2]
 
 
 def _check_dot(w: torch.Tensor, x: torch.Tensor, max_m: int, max_k: int) -> None:
@@ -308,6 +316,11 @@ def permute_planar(x: torch.Tensor, *, convert: bool = True,
     A CUDA tensor goes through the kernel of `schedule`, for any B (the
     kernel masks the tail); a CPU tensor through the plain version.
     """
+    with metrics.span("perm.call"):
+        return _planar(x, convert=convert, schedule=schedule)
+
+
+def _planar(x: torch.Tensor, *, convert: bool, schedule: str) -> torch.Tensor:
     _check_schedule(schedule)
     if x.dim() != 3 or tuple(x.shape[:2]) != (WIDTH, N_DIGITS) or x.dtype != torch.int32:
         raise ValueError(
@@ -327,20 +340,22 @@ def permute_planar(x: torch.Tensor, *, convert: bool = True,
 
 def permute_cuda(x: torch.Tensor, *, schedule: str = DEFAULT_SCHEDULE) -> torch.Tensor:
     """The permutation on batch-major canonical state (B, WIDTH, N_DIGITS)."""
-    return _batch_major(x, convert=True, schedule=schedule)
+    with metrics.span("perm.call"):
+        return _batch_major(x, convert=True, schedule=schedule)
 
 
 def permute_cuda_mont(x: torch.Tensor, *, schedule: str = DEFAULT_SCHEDULE) -> torch.Tensor:
     """Like permute_cuda on Montgomery-domain state, which stays in the
     domain: the building block of the sponge and Merkle models."""
-    return _batch_major(x, convert=False, schedule=schedule)
+    with metrics.span("perm.call"):
+        return _batch_major(x, convert=False, schedule=schedule)
 
 
 def _batch_major(x: torch.Tensor, *, convert: bool, schedule: str) -> torch.Tensor:
     if x.dim() != 3 or tuple(x.shape[1:]) != (WIDTH, N_DIGITS):
         raise ValueError(f"expected (B, {WIDTH}, {N_DIGITS}), got {tuple(x.shape)}")
     planar = x.permute(1, 2, 0).contiguous()
-    out = permute_planar(planar, convert=convert, schedule=schedule)
+    out = _planar(planar, convert=convert, schedule=schedule)
     return out.permute(2, 0, 1).contiguous()
 
 

@@ -243,14 +243,11 @@ def merkle_root_sharded(leaves: torch.Tensor, mesh: Mesh, perm_mont_fn=None) -> 
     # bytes each rank receives in the one all_gather at height h_local
     gathered = n // ARITY**h_local
     metrics.count("dist.collective_bytes", (gathered - gathered // n_dev) * N_DIGITS * 4)
-    with metrics.timer("dist.merkle_wall"):
+    with metrics.span("dist.merkle"):
         level = field.to_mont(_local(padded, mesh))
         for _ in range(h_local):
             level = _level_up(level, perm_mont_fn)
         level = _gather(level, mesh)
         for _ in range(total_h - h_local):
             level = _level_up(level, perm_mont_fn)
-        root = field.from_mont(level[0])
-        if root.is_cuda:
-            torch.cuda.synchronize(root.device)
-    return root
+        return field.from_mont(level[0])

@@ -23,6 +23,11 @@ On the card each phase is one CUDA graph a shape (`phase_graph`), as the
 JAX package jits each into one program; on the CPU the same bodies run
 eagerly, and they are the graphs' plain version.
 
+Spans (utils/metrics.span): `prove.phase1` .. `prove.phase3` around each
+phase as `_select_phases` hands it out (so the device provers of fri_cuda
+get them too), `prove.fetch` around each copy of a phase's output to the
+host and `prove.host` around the host stops between them.
+
 Montgomery-domain discipline inside a phase: additions happen on canonical
 digits, every chained product runs in the Montgomery domain (constants are
 lifted on the host), and each phase's outputs convert back to canonical
@@ -52,6 +57,7 @@ from .plonk import (
     _wire_indices,
     key_digest,
 )
+from .utils import metrics
 from .utils.encoding import digits_to_ints, ints_to_digits
 from .utils.graphs import _GRAPHS, CudaGraph
 
@@ -389,22 +395,41 @@ def _replayed(phase: int):
     return run
 
 
+def _spanned(name: str, phase):
+    """phase(*args) inside the span `name`; `__wrapped__` is the phase."""
+    def run(*args):
+        with metrics.span(name):
+            return phase(*args)
+    run.__wrapped__ = phase
+    return run
+
+
 def _select_phases(mesh, device) -> tuple:
-    """The three device phases for `device`: on a card each replays its
-    graph (phase_graph), with no eager fallback; elsewhere the eager bodies,
-    which are the plain version. With a mesh (parallel/dist.Mesh) their
-    drop-ins sharded over the instance axis (dist.sharded_phases: proving
-    is data parallelism, each phase's one collective the gather of its
-    output, which no graph holds; the bits are the same). The first sharded
-    phase refuses a batch that does not divide by the mesh size, with the
-    JAX package's message."""
+    """The three device phases for `device`, each in its span
+    `prove.phase<k>`: on a card each replays its graph (phase_graph), with
+    no eager fallback; elsewhere the eager bodies, which are the plain
+    version. With a mesh (parallel/dist.Mesh) their drop-ins sharded over
+    the instance axis (dist.sharded_phases: proving is data parallelism,
+    each phase's one collective the gather of its output, which no graph
+    holds; the bits are the same). The first sharded phase refuses a batch
+    that does not divide by the mesh size, with the JAX package's
+    message."""
     if mesh is not None:
         from .parallel.dist import sharded_phases
 
-        return sharded_phases(mesh)
-    if torch.device(device).type == "cuda":
-        return tuple(_replayed(i) for i in range(len(_PHASES)))
-    return _PHASES
+        phases = sharded_phases(mesh)
+    elif torch.device(device).type == "cuda":
+        phases = tuple(_replayed(i) for i in range(len(_PHASES)))
+    else:
+        phases = _PHASES
+    return tuple(_spanned(f"prove.phase{k}", f) for k, f in enumerate(phases, start=1))
+
+
+def _fetch(x: torch.Tensor, name: str = "prove.fetch") -> np.ndarray:
+    """A device tensor copied to the host in the span `name` (the host waits
+    for the card)."""
+    with metrics.span(name):
+        return x.cpu().numpy()
 
 
 def prove_batched(composers: list[Composer],
@@ -443,77 +468,81 @@ def prove_batched(composers: list[Composer],
                 "prove_batched requires all composers to share one "
                 "circuit structure"
             )
-    tables = _device_tables(key, device)
     b = len(composers)
-    digest = key_digest(key)
-
-    wire_int = [
-        [
-            [c._values[idx] % P for idx in col] + [0] * (n - key.n_gates)
-            for col in _wire_indices(c)
+    with metrics.span("prove.host"):
+        tables = _device_tables(key, device)
+        digest = key_digest(key)
+        wire_int = [
+            [
+                [c._values[idx] % P for idx in col] + [0] * (n - key.n_gates)
+                for col in _wire_indices(c)
+            ]
+            for c in composers
         ]
-        for c in composers
-    ]
-    wire_evals = _to_device(ints_to_digits(wire_int, shape=(b, 4, n)), device)
-    pi_cols = [
-        [v % P for v in _public_input_column(c, n)] for c in composers
-    ]
-    pi_evals = ints_to_digits(pi_cols, shape=(b, n))
+        wire_evals = _to_device(ints_to_digits(wire_int, shape=(b, 4, n)), device)
+        pi_cols = [
+            [v % P for v in _public_input_column(c, n)] for c in composers
+        ]
+        pi_evals = ints_to_digits(pi_cols, shape=(b, n))
 
     # phase 1: wire coefficient forms
     wires_dev = phase1(wire_evals)
-    wires_host = wires_dev.cpu().numpy()
-    wires_int = _digits_to_int_rows(wires_host)
-    wire_cms = _commit_rows(wires_host)          # (B, 4) object ints
+    wires_host = _fetch(wires_dev)
+    with metrics.span("prove.host"):
+        wires_int = _digits_to_int_rows(wires_host)
+        wire_cms = _commit_rows(wires_host)          # (B, 4) object ints
 
-    # Fiat-Shamir for all B instances in lock-step: one batched host
-    # permutation per stream step (absorb statement digest, absorb each of
-    # the 4 wire commitments, draw beta/gamma): the same streams as B
-    # per-instance Transcripts, without B sequential perm calls each
-    tr = plonk.BatchedTranscript(b)
-    tr.absorb_each(plonk.statement_digest_rows(digest, pi_evals))
-    cms = [{} for _ in range(b)]
-    for j, name in enumerate("abod"):
-        for i in range(b):
-            cms[i][name] = wire_cms[i, j]
-        tr.absorb_each([wire_cms[i, j] for i in range(b)])
-    betas = tr.challenge_each()
-    gammas = tr.challenge_each()
+        # Fiat-Shamir for all B instances in lock-step: one batched host
+        # permutation per stream step (absorb statement digest, absorb each
+        # of the 4 wire commitments, draw beta/gamma): the same streams as B
+        # per-instance Transcripts, without B sequential perm calls each
+        tr = plonk.BatchedTranscript(b)
+        tr.absorb_each(plonk.statement_digest_rows(digest, pi_evals))
+        cms = [{} for _ in range(b)]
+        for j, name in enumerate("abod"):
+            for i in range(b):
+                cms[i][name] = wire_cms[i, j]
+            tr.absorb_each([wire_cms[i, j] for i in range(b)])
+        betas = tr.challenge_each()
+        gammas = tr.challenge_each()
 
-    beta_d = _to_device(ints_to_digits(betas, shape=(b,)), device)
-    gamma_d = _to_device(ints_to_digits(gammas, shape=(b,)), device)
+        beta_d = _to_device(ints_to_digits(betas, shape=(b,)), device)
+        gamma_d = _to_device(ints_to_digits(gammas, shape=(b,)), device)
 
     # phase 2: grand product
     z_dev = phase2(
         wire_evals, beta_d, gamma_d,
         tables["ids_mont"], tables["sigma_n_mont"], tables["one_mont"],
     )
-    z_host = z_dev.cpu().numpy()
-    z_int = _digits_to_int_rows(z_host)
-    z_cms = _commit_rows(z_host)
+    z_host = _fetch(z_dev)
+    with metrics.span("prove.host"):
+        z_int = _digits_to_int_rows(z_host)
+        z_cms = _commit_rows(z_host)
 
-    for i in range(b):
-        cms[i]["z"] = z_cms[i]
-    tr.absorb_each([z_cms[i] for i in range(b)])
-    alphas = tr.challenge_each()
-    alpha_d = _to_device(ints_to_digits(alphas, shape=(b,)), device)
+        for i in range(b):
+            cms[i]["z"] = z_cms[i]
+        tr.absorb_each([z_cms[i] for i in range(b)])
+        alphas = tr.challenge_each()
+        alpha_d = _to_device(ints_to_digits(alphas, shape=(b,)), device)
+        pi_d = _to_device(pi_evals, device)
 
     # phase 3: quotient
     t_dev = phase3(
-        wires_dev, z_dev, _to_device(pi_evals, device), beta_d, gamma_d, alpha_d,
+        wires_dev, z_dev, pi_d, beta_d, gamma_d, alpha_d,
         tables["kx_mont"], tables["sigma_m_mont"], tables["q_mont"],
         tables["zh_inv_mont"], tables["l1_mont"], tables["omega_mont"],
         tables["one_mont"],
     )
-    t_host = t_dev.cpu().numpy()
-    t_int = _digits_to_int_rows(t_host)
-    t_cms = _commit_rows(t_host)
+    t_host = _fetch(t_dev)
+    with metrics.span("prove.host"):
+        t_int = _digits_to_int_rows(t_host)
+        t_cms = _commit_rows(t_host)
 
-    proofs = []
-    for i in range(b):
-        cms[i]["t"] = t_cms[i]
-        proofs.append(
-            Proof(wires=tuple(wires_int[i]), z=z_int[i], t=t_int[i],
-                  commitments=cms[i])
-        )
+        proofs = []
+        for i in range(b):
+            cms[i]["t"] = t_cms[i]
+            proofs.append(
+                Proof(wires=tuple(wires_int[i]), z=z_int[i], t=t_int[i],
+                      commitments=cms[i])
+            )
     return proofs

@@ -16,6 +16,7 @@ import weakref
 import torch
 
 from ..ops import perm_cuda
+from . import metrics
 
 
 def _clone(out):
@@ -41,30 +42,39 @@ class CudaGraph:
     of the graph's own. A capture that fails raises.
 
     `held` counts the kernel launches of one replay per schedule (what the
-    wrappers counted during the capture); `replays` counts the replays."""
+    wrappers counted during the capture), `held_states` the states they
+    hand the kernels; `replays` counts the replays, each of which adds
+    `held_states` to `perm_cuda.states`. The capture runs nothing, so the
+    states its wrappers counted are taken back out."""
 
     def __init__(self, fn, inputs: tuple, pool=None):
         self._fn, self._inputs = fn, inputs
-        device = inputs[0].device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            fn(*inputs)
-        torch.cuda.current_stream(device).wait_stream(side)
-        before = dict(perm_cuda.launches)
-        self._graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._graph, pool=pool):
-            self._out = fn(*inputs)
-        self.held = {s: perm_cuda.launches[s] - before[s] for s in perm_cuda.SCHEDULES}
+        with metrics.span("graph.capture"):
+            device = inputs[0].device
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                fn(*inputs)
+            torch.cuda.current_stream(device).wait_stream(side)
+            before, states = dict(perm_cuda.launches), dict(perm_cuda.states)
+            self._graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._graph, pool=pool):
+                self._out = fn(*inputs)
+            self.held = {s: perm_cuda.launches[s] - before[s] for s in perm_cuda.SCHEDULES}
+            self.held_states = {s: perm_cuda.states[s] - states[s] for s in perm_cuda.SCHEDULES}
+            perm_cuda.states.update(states)
         self.replays = 0
         _LIVE_GRAPHS.add(self)
 
     def __call__(self, *args):
-        for buf, x in zip(self._inputs, args, strict=True):
-            buf.copy_(x)
-        self._graph.replay()
-        self.replays += 1
-        return _clone(self._out)
+        with metrics.span("graph.replay"):
+            for buf, x in zip(self._inputs, args, strict=True):
+                buf.copy_(x)
+            self._graph.replay()
+            self.replays += 1
+            for s, n in self.held_states.items():
+                perm_cuda.states[s] += n
+            return _clone(self._out)
 
 
 #: Every graph alive, so that a caller can sum what the replays launched.

@@ -739,3 +739,79 @@ def test_prove_batched_over_nccl_equals_the_unsharded_prover(nccl_mesh):
     single = prover_cuda.prove_batched(cs, key)
     for a, b in zip(sharded, single, strict=True):
         assert (a.wires, a.z, a.t, a.commitments) == (b.wires, b.z, b.t, b.commitments)
+
+
+@pytest.mark.cuda
+def test_states_count_launches_and_graph_replays(cuda_device):
+    """perm_cuda.states counts the states handed to the kernels: a wrapper's
+    batch at each launch, a graph's `held_states` at each replay, and
+    nothing for the capture, which runs nothing."""
+    from hades252_tpu_torch.utils.graphs import CudaGraph
+
+    x = _elements((64, 5), 41).to(cuda_device)
+    before = perm_cuda.states["opt"]
+    want = perm_cuda.permute_cuda_mont(x, schedule="opt")
+    assert perm_cuda.states["opt"] == before + 64
+    graph = CudaGraph(lambda s: perm_cuda.permute_cuda_mont(s, schedule="opt"), (x.clone(),))
+    assert graph.held == {**_NO_LAUNCHES, "opt": 1}
+    assert graph.held_states == {**_NO_LAUNCHES, "opt": 64}
+    assert perm_cuda.states["opt"] == before + 2 * 64  # the eager warm-up before the capture
+    for k in (1, 2):
+        assert torch.equal(graph(x), want)
+        assert perm_cuda.states["opt"] == before + (2 + k) * 64
+
+
+@pytest.mark.cuda
+def test_enabled_spans_time_the_card(cuda_device):
+    """With metrics enabled each span records CUDA events on the card:
+    snapshot() gives device ms beside the calls and host seconds; a span
+    inside a capture counts its call there but records no event."""
+    from hades252_tpu_torch.utils import metrics
+    from hades252_tpu_torch.utils.graphs import CudaGraph
+
+    leaves = _elements((4096,), 43).to(cuda_device)
+    x = _elements((64, 5), 44).to(cuda_device)
+    metrics.reset()
+    metrics.enable()
+    try:
+        merkle.merkle_root(leaves)
+        graph = CudaGraph(lambda s: perm_cuda.permute_cuda_mont(s, schedule="opt"), (x.clone(),))
+        graph(x)
+        snap = metrics.snapshot()["spans"]
+    finally:
+        metrics.disable()
+        metrics.reset()
+    assert snap["merkle.level"]["calls"] == 6 and snap["merkle.convert"]["calls"] == 2
+    assert snap["perm.call"]["calls"] == 6 + 2  # the tree's levels, the warm-up and the capture
+    assert snap["graph.capture"]["calls"] == snap["graph.replay"]["calls"] == 1
+    for name in ("merkle.level", "merkle.convert", "perm.call", "graph.replay"):
+        assert snap[name]["device_ms"] > 0 and snap[name]["host_s"] > 0, name
+
+
+@pytest.mark.cuda
+def test_profiled_spans_own_the_kernels_they_launch(cuda_device):
+    """Under torch.profiler on the card, hbench/spans.py pairs every device
+    operation with its launch: the permutation kernels' time is the
+    wrapper's own, the tree's levels hold the wrapper's, and a graph
+    replay's kernels belong to its span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hades252_tpu_torch.utils.graphs import CudaGraph
+    from hbench import spans
+
+    leaves = _elements((4096,), 45).to(cuda_device)
+    x = _elements((64, 5), 46).to(cuda_device)
+    graph = CudaGraph(lambda s: perm_cuda.permute_cuda_mont(s, schedule="opt"), (x.clone(),))
+    merkle.merkle_root(leaves)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        merkle.merkle_root(leaves)
+        graph(x)
+        torch.cuda.synchronize()
+    got = spans.attribute(spans.events(prof))
+    by = got["by_span"]
+    assert got["unlinked_ms"] == 0
+    assert by["perm.call"]["self_own_ms"] > 0 and by["perm.call"]["launches"] >= 6
+    assert by["merkle.level"]["device_ms"] >= by["perm.call"]["device_ms"]  # replays call no wrapper
+    assert by["graph.replay"]["self_own_ms"] > 0 and by["graph.replay"]["launches"] == 1
+    assert by["merkle.convert"]["device_ms"] > 0

@@ -196,10 +196,10 @@ def test_merkle_root_sharded_equals_unsharded_roots(groups, world):
 @pytest.mark.parametrize("world", [1, 2, 4])
 def test_merkle_root_sharded_counts_and_times(groups, world):
     for rank in _ranks(groups, world):
-        for _, counters, timers in rank["roots"]:
+        for _, counters, spans in rank["roots"]:
             assert counters == {"dist.merkle_builds": 1, "perms.executed": 21,
                                 "dist.collective_bytes": COLLECTIVE_BYTES[world]}
-            assert timers == ["dist.merkle_wall"]
+            assert spans == ["dist.merkle", "merkle.level"]
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])

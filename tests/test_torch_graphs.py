@@ -88,21 +88,27 @@ def _ints(rng, k):
     return [int.from_bytes(rng.bytes(40), "little") % P for _ in range(k)]
 
 
+def _phases(selected) -> tuple:
+    """The phases `_select_phases` handed out, each out of its span."""
+    assert [f.__qualname__.startswith("_spanned") for f in selected] == [True] * 3
+    return tuple(f.__wrapped__ for f in selected)
+
+
 def test_select_phases_dispatches_by_device_and_mesh(monkeypatch):
-    assert prover_cuda._select_phases(None, "cpu") == prover_cuda._PHASES
-    assert prover_cuda._select_phases(None, torch.device("cpu")) == (
+    assert _phases(prover_cuda._select_phases(None, "cpu")) == prover_cuda._PHASES
+    assert _phases(prover_cuda._select_phases(None, torch.device("cpu"))) == (
         prover_cuda._phase1_wires, prover_cuda._phase2_grand_product, prover_cuda._phase3_quotient)
-    on_card = prover_cuda._select_phases(None, "cuda")
+    on_card = _phases(prover_cuda._select_phases(None, "cuda"))
     assert len(on_card) == 3 and not set(on_card) & set(prover_cuda._PHASES)
     assert all(f.__qualname__.startswith("_replayed") for f in on_card)
-    on_card = prover_cuda._select_phases(None, torch.device("cuda", 0))
+    on_card = _phases(prover_cuda._select_phases(None, torch.device("cuda", 0)))
     assert all(f.__qualname__.startswith("_replayed") for f in on_card)
-    sharded = object()
+    sharded = (object(), object(), object())
     seen = []
     monkeypatch.setattr(dist, "sharded_phases", lambda mesh: seen.append(mesh) or sharded)
     mesh = dist.Mesh(None, 1, 0, torch.device("cpu"))
-    assert prover_cuda._select_phases(mesh, "cpu") is sharded
-    assert prover_cuda._select_phases(mesh, "cuda") is sharded
+    assert _phases(prover_cuda._select_phases(mesh, "cpu")) == sharded
+    assert _phases(prover_cuda._select_phases(mesh, "cuda")) == sharded
     assert seen == [mesh, mesh]
 
 

@@ -97,7 +97,10 @@ print(len(names))
 
 
 def test_port_imports_without_jax():
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one thread, as this process: beside the other test workers, the
+    # subprocess's own pool of a thread a core oversubscribes the cores
+    # (about 5x its time alone on eight cores shared with six workers)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

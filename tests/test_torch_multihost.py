@@ -72,9 +72,9 @@ def test_counters_equal_the_jax_package_on_a_mesh_of_4(tmp_path):
             jmetrics.disable()
             jmetrics.reset()
         for rank in ranks:
-            got, port_counters, timers = rank["roots"][i]
+            got, port_counters, spans = rank["roots"][i]
             assert np.array_equal(got.astype(np.uint32), root)
             assert port_counters == counters
-            assert timers == ["dist.merkle_wall"]
+            assert spans == ["dist.merkle", "merkle.level"]
     assert torch.equal(torch.from_numpy(ranks[0]["roots"][0][0]),
                        torch.from_numpy(ints_to_digits([_int_root(LEAVES)])[0].astype(np.int32)))

@@ -59,7 +59,7 @@ def t(a) -> torch.Tensor:
 
 
 def roots(mesh, leaf_sets) -> list:
-    """Each leaf set's sharded root and the counters of its build."""
+    """Each leaf set's sharded root, and the counters and span names of its build."""
     out = []
     for leaves in leaf_sets:
         metrics.reset()
@@ -67,7 +67,7 @@ def roots(mesh, leaf_sets) -> list:
         root = dist.merkle_root_sharded(t(leaves), mesh)
         metrics.disable()
         snap = metrics.snapshot()
-        out.append((root.numpy(), snap["counters"], sorted(snap["timers"])))
+        out.append((root.numpy(), snap["counters"], sorted(snap["spans"])))
     return out
 
 
