@@ -27,6 +27,17 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      run); and holds the MDS products of `mxu8` (u8 wgmma) and `mxu` (bf16
      wgmma, float32 sums) against a float64 matmul with w_lin and with
      all-255 operands at 320 x 160, the largest sum they can meet;
+  4b. holds the field inversion's kernel (`hades_field_invert`, through
+     `ops/field_cuda.invert`) against its plain version on the card at 1,
+     63, 65 and 1000 elements in both input forms, and at its callers'
+     sizes in their forms: DEEP's 2 x 2^15 denominators of a prod proof
+     (canonical in) and phase 2's 16 x 1024 (Montgomery in); every input's
+     first element is 0, which must map to 0; one launch a call. Then times
+     it there (CUDA events, median of 5) beside the plain version and its
+     bound (`utils/roofline.invert_bound`). Phases 7d-7i hold its launches
+     on the main path: each inversion step of a counted run (a phase-2
+     grand product, a DEEP step) one launch, eager or in a graph's replay,
+     and a graph captured in the run one more in its warm-up;
   5. builds the arity-4 Merkle root over 2^20 seeded leaves through
      `merkle_root` (BASELINE config 4) with the default `opt` kernel, and
      over their first 2^16 with the `opt`, `naive` and `mxu8` kernels, and
@@ -117,7 +128,10 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      graph is captured before its runs; each run must launch `opt` exactly
      as `device_proof_launches` says (its trees' chunks and levels and its
      grinding windows by the wrappers' counts, the FRI phase as one replay
-     of a graph that holds its launches) and no other kernel;
+     of a graph that holds its launches) and no other kernel; each run must
+     hand the inversion kernel B (n + 2 m0) elements
+     (`device_proof_inverted`: phase 2's and DEEP's), besides what the
+     warm-up of a prover phase graph captured in the run inverts;
   7g. drives the device aggregate prover (`fri_cuda.prove_aggregate_device`:
      one argument for B instances, its FRI phase one graph replay) and the
      device verifiers: the aggregate of phase 7e's 4 instances at its prod
@@ -183,7 +197,9 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      from `utils/metrics.snapshot()`) and the
      host's share, the peak device memory, the host `plonk.prove`'s rate on
      the same host, `field.invert` over the grand product's denominators
-     and `ntt_batched` over 64 rows of 2^12 and 2^14 points. The succinct
+     and `ntt_batched` over 64 rows of 2^12 and 2^14 points; the timed
+     batches must hand the inversion kernel B n elements each, in phase 2's
+     graph replays. The succinct
      paths of phase 7e (timed there, printed here): the seconds of a "prod"
      proof through the card beside the native engine's (median of 3, host
      clock), of the pooled verification of 16 "fast" proofs (median of 3)
@@ -267,9 +283,9 @@ from hades252_tpu_torch import entry as entry_points
 from hades252_tpu_torch import serialize
 from hades252_tpu_torch.gadget import Composer, Constraint, GadgetStrategy
 from hades252_tpu_torch.models import cipher, merkle, sponge
-from hades252_tpu_torch.ops import _build, make_perm_mont_fn, ntt, perm_cuda
+from hades252_tpu_torch.ops import _build, field_cuda, make_perm_mont_fn, ntt, perm_cuda
 from hades252_tpu_torch.parallel import dist, multihost
-from hades252_tpu_torch.params import P, WIDTH, mxu8_tables
+from hades252_tpu_torch.params import N_DIGITS, P, WIDTH, mxu8_tables
 from hades252_tpu_torch.strategy import ScalarStrategy
 from hades252_tpu_torch.utils import checkpoint, graphs, metrics, native, profiling, roofline
 from hades252_tpu_torch.utils.encoding import digits_to_ints, ints_to_digits
@@ -343,6 +359,12 @@ QUICKSTART_VERDICTS = 10
 # the plain versions' slice, which bounds their int64 temporaries (phase 4
 # prints their peak)
 PLAIN_SLICE = 1 << 16
+# the inversion kernel: DEEP's 2 x m0 denominators of a prod proof (canonical in)
+# and phase 2's B x n of a batch of 16 (Montgomery in); the ragged sizes end inside
+# its 64-thread blocks
+INVERT_TIMED = (((2, 1 << 15), False, "DEEP's denominators of a prod proof"),
+                ((16, 1024), True, "phase 2's at B = 16"))
+INVERT_RAGGED = (1, 63, 65, 1000)
 # --profile: each traced path's Chrome trace, <n>/trace.json, beside the builds
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
 
@@ -499,9 +521,12 @@ def prover_phase(dev: torch.device, rng: np.random.Generator) -> dict:
     pis = [[g.pi for g in c.gates] for c in composers]
     b = PLONK_BATCHES[0]
     t0 = time.perf_counter()
+    state = invert_state()
     first, counts = drive(lambda: prover_cuda.prove_batched(composers[:b], key))
     first_s = time.perf_counter() - t0
     check(not any(counts.values()), f"prove_batched B={b}: launches {counts}, none expected")
+    got = inversions(f"prove_batched B={b}", state, 1)
+    check(got == b * key.n, f"prove_batched B={b}: {got} elements inverted, {b * key.n} expected")
     t0 = time.perf_counter()
     host = [plonk.prove(c, key) for c in composers[:b]]
     host_s = (time.perf_counter() - t0) / b
@@ -510,8 +535,13 @@ def prover_phase(dev: torch.device, rng: np.random.Generator) -> dict:
             check(getattr(got, name) == getattr(want, name),
                   f"prove_batched B={b}, proof {i}: {name} != host plonk.prove's")
         check(plonk.verify(key, got, pis[i]), f"prove_batched B={b}, proof {i} does not verify")
+    state = invert_state()
     every, counts = drive(lambda: prover_cuda.prove_batched(composers, key))
     check(not any(counts.values()), f"prove_batched B={len(composers)}: launches {counts}, none expected")
+    got = inversions(f"prove_batched B={len(composers)}", state, 1)
+    check(got == len(composers) * key.n,
+          f"prove_batched B={len(composers)}: {got} elements inverted, "
+          f"{len(composers) * key.n} expected")
     check(len(every) == len(composers) and all(same_proof(a, c) for a, c in zip(every, first)),
           f"prove_batched B={len(composers)}: the first {b} proofs != B={b}'s")
     t0 = time.perf_counter()
@@ -524,12 +554,14 @@ def prover_phase(dev: torch.device, rng: np.random.Generator) -> dict:
     other = Composer()
     a = other.append_witness(3)
     other.gate_mul(Constraint().mult(1).a(a).b(a))
+    state = invert_state()
     try:
         prover_cuda.prove_batched([composers[0], other], key)
     except ValueError as e:
         check("circuit structure" in str(e), f"mixed circuits: unexpected refusal {e}")
     else:
         check(False, "composers of two circuits must be refused")
+    inversions("prove_batched of mixed circuits, refused", state, 0)
     log(f"[prover] {len(composers)} instances of the {len(composers[0].gates)}-gate permutation-"
         f"preimage circuit (n = {key.n}, built and keyed in {setup_s:.1f} s): B = {b} on the card "
         f"== host plonk.prove field by field ({host_s:.3f} s a host proof; the first call, its "
@@ -568,7 +600,11 @@ def prover_timings(ctx: dict, smi: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         timed_prove(composers[:b], key)  # the warm-up
         peak = torch.cuda.max_memory_allocated()
+        inverted = field_cuda.inverted
         runs = [timed_prove(composers[:b], key) for _ in range(PLONK_REPS)]
+        check(field_cuda.inverted - inverted == PLONK_REPS * b * key.n,
+              f"prove_batched B={b}: {field_cuda.inverted - inverted} elements inverted in "
+              f"{PLONK_REPS} batches, {b * key.n} a batch expected (phase 2's graph)")
         wall = statistics.median(r[1] for r in runs)
         split = {name: statistics.median(r[2][name] for r in runs) for name in PROVER_PHASES}
         phases_ms = sum(split.values())
@@ -586,6 +622,84 @@ def prover_timings(ctx: dict, smi: str) -> None:
     for n, x in ctx["xs"].items():
         log(f"[time] ntt_batched {NTT_ROWS} x {n}: forward {cuda_ms(lambda: ntt.ntt_batched(x)):.3f} "
             f"ms, inverse {cuda_ms(lambda: ntt.ntt_batched(x, invert=True)):.3f} ms | {smi}")
+
+
+def invert_phase(dev: torch.device, rng: np.random.Generator, smi: str) -> dict:
+    """Phase 4b: hades_field_invert (ops/field_cuda.py) against its plain
+    version on the card (field's torch ops), both input forms at the
+    ragged sizes and its callers' forms at their sizes, each input's first
+    element 0; one launch a call. Then its time at the callers' sizes
+    beside the plain version's and its bound. Returns the kernels' JSON
+    entry (at DEEP's size), without its launches."""
+    launches, max_err = field_cuda.launches, 0
+
+    def inputs(shape, mont_in):
+        x = torch.from_numpy(random_elements(shape, rng)).to(dev)
+        x.view(-1, N_DIGITS)[0] = 0  # DEEP's x - point where the point is x
+        return field.to_mont(x) if mont_in else x
+
+    cases = [((n,), mont_in) for n in INVERT_RAGGED for mont_in in (False, True)]
+    cases += [(shape, mont_in) for shape, mont_in, _ in INVERT_TIMED]
+    for shape, mont_in in cases:
+        x = inputs(shape, mont_in)
+        got = field_cuda.invert(x, mont_in=mont_in)
+        err = int((got.long() - field_cuda.invert_plain(x, mont_in=mont_in).long()).abs().max())
+        max_err = max(max_err, err)
+        check(err == 0, f"hades_field_invert != plain at {shape}, mont_in={mont_in}")
+    check(field_cuda.launches - launches == len(cases),
+          f"hades_field_invert: {field_cuda.launches - launches} launches for {len(cases)} calls")
+    log(f"[invert] hades_field_invert == plain (field.invert between the conversions) at "
+        f"{INVERT_RAGGED} elements in both input forms and at "
+        f"{', '.join(str(shape) for shape, *_ in INVERT_TIMED)} in their callers' forms, 0 -> 0; "
+        f"{len(cases)} launches")
+    entries = []
+    for shape, mont_in, what in INVERT_TIMED:
+        x = inputs(shape, mont_in)
+        n = x.numel() // N_DIGITS
+        ms = cuda_ms(lambda: field_cuda.invert(x, mont_in=mont_in))
+        plain_ms = cuda_ms(lambda: field_cuda.invert_plain(x, mont_in=mont_in), reps=1)
+        b = roofline.invert_bound(n, mont_in=mont_in)
+        log(f"[time] hades_field_invert {n:,} elements ({what}): kernel {ms:.4f} ms (median of "
+            f"{REPS}); plain {plain_ms:.1f} ms; bound {b['bound_ms']:.4f} ms by the cuda cores "
+            f"(bytes {b['bytes_ms']:.4f} ms), {b['bound_ms'] / ms:.3f} of the time | {smi}")
+        entries.append({"name": "hades_field_invert", "route": "cuda",
+                        "source": "hades252_tpu_torch/ops/csrc/field_inv.cu", "replaces": None,
+                        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None})
+    return entries[0]  # at DEEP's size, the larger
+
+
+#: hades_field_invert's launches on the main path: summed by `inversions`
+#: over the runs that phases 7d-7i count
+main_inverts = 0
+
+
+def invert_state() -> tuple:
+    """What `inversions` diffs: hades_field_invert's counts and every live
+    graph's replays."""
+    return field_cuda.launches, field_cuda.inverted, graph_replays()
+
+
+def inversions(name: str, state: tuple, steps: int) -> int:
+    """hades_field_invert since `state` (invert_state()) in a counted run
+    of the main path that takes `steps` inversion steps (a phase-2 grand
+    product or a DEEP step each). Each step must be one launch: eager, or
+    in the replay of a graph that holds it; a graph captured in the run
+    launched what it holds once more, in its warm-up (the capture's own
+    launch runs nothing). Adds the launches that ran to `main_inverts` and
+    returns the elements the steps inverted (the warm-ups' left out)."""
+    global main_inverts
+    launches, inverted, before = state
+    after = graph_replays()
+    new = [g for g in after if g not in before]
+    warm = sum(g.held_inverts for g in new)
+    replayed = sum((n - before.get(g, 0)) * g.held_inverts for g, n in after.items())
+    eager = field_cuda.launches - launches - 2 * warm
+    check(eager + replayed == steps,
+          f"{name}: hades_field_invert {eager} eager + {replayed} in graph replays, {steps} "
+          f"inversion steps expected")
+    main_inverts += eager + replayed + warm
+    return field_cuda.inverted - inverted - sum(g.held_inverted for g in new)
 
 
 def kernel_timed(fn):
@@ -820,6 +934,13 @@ def device_proof_launches(vk, nonces: list) -> tuple:
     return eager + _grind_windows(vk.params, max(nonces)), _fri_graph_launches(schema)
 
 
+def device_proof_inverted(vk, b: int) -> int:
+    """The elements one fri_cuda.prove_succinct_device_batch of b instances
+    hands hades_field_invert: phase 2's B x n denominators and DEEP's 2 B x
+    m0 (1/(x - zeta_i) and 1/(x - omega zeta_i) over L0)."""
+    return b * (vk.n + 2 * fri.proof_schema(vk.n, vk.params)["m0"])
+
+
 def device_aggregate_launches(vk, b: int, nonce: int) -> tuple:
     """The kernel launches of one fri_cuda.prove_aggregate_device of b
     instances under vk's parameters: (eager, in the FRI phase's graph).
@@ -871,8 +992,9 @@ def device_prover_phase(composers: list, succinct: dict) -> dict:
     def counted(name, fn, vk, graph):
         """fn() with the counts at 0 just before it: (its proofs, wall s,
         peak device bytes); every opt launch as device_proof_launches says,
-        none of another kernel."""
-        replays = graph.replays
+        none of another kernel; hades_field_invert launched for phase 2 and
+        DEEP, on the elements device_proof_inverted says."""
+        replays, state = graph.replays, invert_state()
 
         def timed():
             torch.cuda.synchronize()
@@ -892,6 +1014,8 @@ def device_prover_phase(composers: list, succinct: dict) -> dict:
         for s in perm_cuda.SCHEDULES:
             launches[s] += counts[s] + graph.held[s]
         log(f"[launches] {name}: opt {eager} eager + {in_graph} in one replay of the FRI phase's graph")
+        got, want = inversions(name, state, 2), device_proof_inverted(vk, len(proofs))
+        check(got == want, f"{name}: {got} elements inverted, {want} expected")
         return proofs, wall, peak
 
     # prod: the first instance at phase 7e's key, a warm-up run and SUCCINCT_REPS timed ones
@@ -1039,13 +1163,13 @@ def aggregate_verify_phase(composers: list, succinct: dict) -> dict:
     launches, times = {s: 0 for s in perm_cuda.SCHEDULES}, {}
     none = {s: 0 for s in perm_cuda.SCHEDULES}
 
-    def counted(name, fn, schedule, expect):
+    def counted(name, fn, schedule, expect, steps=0):
         """fn() with the counts at 0 just before it: (its result, wall s, peak
         device bytes above what was allocated before it). expect(result) ->
         (eager, in graph replays): the wrappers' launches of `schedule`, and
         the replays' (held x replays summed over the graphs); no other
-        kernel, no graph captured."""
-        before = graph_replays()
+        kernel, no graph captured; `steps` inversion steps (`inversions`)."""
+        before, state = graph_replays(), invert_state()
 
         def timed():
             torch.cuda.synchronize()
@@ -1067,6 +1191,7 @@ def aggregate_verify_phase(composers: list, succinct: dict) -> dict:
               f"{schedule} expected")
         for s in perm_cuda.SCHEDULES:
             launches[s] += counts[s] + replayed[s]
+        inversions(name, state, steps)
         log(f"[launches] {name}: {schedule} {eager} eager + {in_graph} in graph replays")
         return out, wall, peak
 
@@ -1087,7 +1212,7 @@ def aggregate_verify_phase(composers: list, succinct: dict) -> dict:
             agg, wall, peak = counted(
                 f"{name}, run {rep}", lambda: fri_cuda.prove_aggregate_device(
                     cs, pk, None if rng_seed is None else np.random.default_rng(rng_seed)),
-                "opt", lambda a: device_aggregate_launches(vk, len(cs), a.pow_nonce))
+                "opt", lambda a: device_aggregate_launches(vk, len(cs), a.pow_nonce), steps=2)
             check(serialize.aggregate_to_bytes(agg, vk) == want,
                   f"{name}, run {rep}: bytes != the native engine's")
             runs.append((wall, peak))
@@ -1366,7 +1491,10 @@ def sharded_rank(rank: int, world: int, coord: str, backend: str, leaves: np.nda
         if prove:
             composers = preimage_instances(PLONK_BATCHES[0], PLONK_SEED)
             key = plonk.preprocess(composers[0])
+            inverts, state = main_inverts, invert_state()
             proofs, n = drive(lambda: prover_cuda.prove_batched(composers, key, mesh=mesh))
+            inversions(f"rank {rank}: prove_batched(mesh=)", state, 1)
+            res["inverts"] = main_inverts - inverts
             res["proofs"] = [(p.wires, p.z, p.t, p.commitments) for p in proofs]
             res["launches"] = {s: counts[s] + n[s] for s in perm_cuda.SCHEDULES}
         return res
@@ -1382,16 +1510,17 @@ def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) 
     the 2^20-leaf tree and prove B = 16; on a host with two or more cards,
     two or four NCCL ranks with one card each build the tree for BASELINE
     config 5's scaling efficiency. Returns what phase 8 prints."""
+    global main_inverts
     t_phase = time.perf_counter()
     launches, times = {s: 0 for s in perm_cuda.SCHEDULES}, {}
     leaves, root = inputs["leaves"], inputs["root"]
 
-    def counted(name, fn, want):
+    def counted(name, fn, want, steps=0):
         """fn() with the counts at 0 just before it: the wrappers' launches
         and the graph replays' (held x replays) must equal want ({schedule:
         launches}, or a function of fn's result giving it); no graph may be
-        captured inside it."""
-        before = graph_replays()
+        captured inside it; `steps` inversion steps (`inversions`)."""
+        before, state = graph_replays(), invert_state()
         out, counts = drive(fn)
         after = graph_replays()
         check(set(after) <= set(before), f"{name}: a graph was captured inside the run")
@@ -1402,6 +1531,7 @@ def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) 
         check(total == want, f"{name}: launches {total} != {want}")
         for s in perm_cuda.SCHEDULES:
             launches[s] += total[s]
+        inversions(name, state, steps)
         log(f"[launches] {name}: {total}")
         return out
 
@@ -1438,7 +1568,7 @@ def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) 
 
         composers, key = prover["composers"][:PLONK_BATCHES[0]], prover["key"]
         proofs = counted(f"prove_batched B={PLONK_BATCHES[0]}, mesh of 1",
-                         lambda: prover_cuda.prove_batched(composers, key, mesh=mesh), {})
+                         lambda: prover_cuda.prove_batched(composers, key, mesh=mesh), {}, steps=1)
         check(len(proofs) == len(prover["proofs"])
               and all(same_proof(a, b) for a, b in zip(proofs, prover["proofs"])),
               "prove_batched(mesh=) != phase 7d's proofs")
@@ -1451,14 +1581,14 @@ def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) 
         proofs = counted(f"prove_succinct_device_batch B={DEVICE_BATCH} fast, mesh of 1",
                          lambda: fri_cuda.prove_succinct_device_batch(cs, pkf, mesh=mesh),
                          lambda out: {"opt": sum(device_proof_launches(
-                             vkf, [p.pow_nonce for p in out]))})
+                             vkf, [p.pow_nonce for p in out]))}, steps=2)
         check([serialize.proof_to_bytes(p, vkf) for p in proofs] == succinct["bytes"]["fast"],
               "prove_succinct_device_batch(mesh=) != phase 7f's bytes")
         cs = composers[:AGG_FAST_INSTANCES]
         agg = counted(f"prove_aggregate_device {AGG_FAST_INSTANCES} fast, mesh of 1",
                       lambda: fri_cuda.prove_aggregate_device(cs, pkf, mesh=mesh),
                       lambda out: {"opt": sum(device_aggregate_launches(vkf, len(cs),
-                                                                        out.pow_nonce))})
+                                                                        out.pow_nonce))}, steps=2)
         check(serialize.aggregate_to_bytes(agg, vkf) == agg_verify["fast aggregate"],
               "prove_aggregate_device(mesh=) != phase 7g's bytes")
 
@@ -1504,6 +1634,9 @@ def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) 
               f"gloo rank {r}: launches {res['launches']}")
         for s in perm_cuda.SCHEDULES:
             launches[s] += res["launches"][s]
+        check(res["inverts"] == 1, f"gloo rank {r}: hades_field_invert launched {res['inverts']} "
+              "times, once expected (its shard's phase 2)")
+        main_inverts += res["inverts"]
     times["gloo"] = [res["walls"] for res in ranks]
     times["gloo bytes"] = ranks[0]["collective_bytes"]
     log(f"[sharded] {GLOO_RANKS} ranks spawned on cuda:0 over gloo: each rank's root == phase "
@@ -1561,8 +1694,11 @@ def prover_graphs_against_bodies(prover: dict) -> dict:
     next phase's replay: the prover clones them at once). Returns each
     phase's graph."""
     b, key = PLONK_BATCHES[0], prover["key"]
+    state = invert_state()
     proofs, counts = drive(lambda: prover_cuda.prove_batched(prover["composers"][:b], key))
     check(not any(counts.values()), f"prove_batched B={b}: launches {counts}, none expected")
+    got = inversions(f"prove_batched B={b} through the graphs", state, 1)
+    check(got == b * key.n, f"prove_batched B={b} through the graphs: {got} elements inverted")
     check(all(same_proof(a, c) for a, c in zip(proofs, prover["proofs"], strict=True)),
           f"prove_batched B={b} through the graphs != phase 7d's proofs")
     (group,) = [g for (gb, n, _), (_, g) in prover_cuda._PHASE_GRAPHS.items()
@@ -1862,6 +1998,10 @@ def run(ckpt_root: str) -> int:
     torch.cuda.empty_cache()
     mark("phase 4")
 
+    # 4b. the field inversion's kernel
+    invert_entry = invert_phase(dev, rng, smi)
+    mark("phase 4b")
+
     # 5a. Merkle checks against the plain version and the int oracle
     small = torch.from_numpy(random_elements((4096,), rng)).to(dev)
     check(torch.equal(merkle.merkle_root(small), merkle.merkle_root(small, plain_mont_fn("opt"))),
@@ -2126,7 +2266,8 @@ def run(ckpt_root: str) -> int:
     last = last_slice_phase(prover)
     for s, n in last["launches"].items():
         main_launches[s] += n
-    log(f"[launches] main path with phase 7i, summed: {main_launches}")
+    log(f"[launches] main path with phase 7i, summed: {main_launches}; hades_field_invert "
+        f"{main_inverts}")
     mark("phase 7i")
 
     # 8. timings at the main path's shapes
@@ -2243,6 +2384,7 @@ def run(ckpt_root: str) -> int:
          "bound_by": bounds[s]["bound_by"], "library_ms": None}
         for s in perm_cuda.SCHEDULES
     ]
+    kernels.append({**invert_entry, "launches": main_inverts})
     log(f"[run] {time.perf_counter() - t_run:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

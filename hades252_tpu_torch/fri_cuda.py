@@ -95,7 +95,7 @@ from .fri import (
     layer_positions,
     tree_columns,
 )
-from .ops import ntt
+from .ops import field_cuda, ntt
 from .ops.perm_cuda import DEFAULT_SCHEDULE, _check_schedule, permute_cuda
 from .params import N_DIGITS, P, R, int_to_digits
 from .plonk import Transcript, _domain_root, statement_digest
@@ -518,9 +518,10 @@ def _deep_dev(stack, vs, gammas, pows, inv_a, inv_b, spec) -> torch.Tensor:
 
 def _inv_mont_dev(xs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Montgomery-form 1/(x_i - point) over the L0 point table, by Fermat
-    per element (field.invert): xs (m0, D), points (K, D) -> (K, m0, D)."""
+    per element (field_cuda.invert: one kernel launch on a card): xs (m0,
+    D), points (K, D) -> (K, m0, D)."""
     with metrics.span("fri.deep.invert"):
-        return field.to_mont(field.invert(field.sub_mod(xs[None], points[:, None])))
+        return field_cuda.invert(field.sub_mod(xs[None], points[:, None]), mont_in=False)
 
 
 # ---------------------------------------------------------------------------

@@ -328,6 +328,55 @@ HADES_FN void copy(uint32_t r[kLimbs], const uint32_t a[kLimbs]) {
   for (int j = 0; j < kLimbs; ++j) r[j] = a[j];
 }
 
+// R^2 mod p, which lifts a canonical value into the Montgomery form
+// (mont_mul(a, R^2) = a R mod p), as immediates.
+HADES_HD uint32_t r2_limb(int i) {
+  switch (i) {
+    case 0: return 0xF3F29C6Du;
+    case 1: return 0xC999E990u;
+    case 2: return 0x87925C23u;
+    case 3: return 0x2B6CEDCBu;
+    case 4: return 0x7254398Fu;
+    case 5: return 0x05D31496u;
+    case 6: return 0x9F59FF11u;
+    default: return 0x0748D9D9u;
+  }
+}
+
+// The exponent p - 2 of Fermat's inverse: p's limbs but the two lowest
+// (p = 1 mod 2^32, so p - 2 borrows from limb 1). 255 bits, 164 of them set.
+HADES_HD uint32_t pm2_limb(int i) {
+  return i == 0 ? 0xFFFFFFFFu : i == 1 ? 0xFFFFFFFEu : p_limb(i);
+}
+
+// r = a^-1 R mod p, the Montgomery form of a^(p-2), so 0 maps to 0:
+// square-and-multiply from the exponent's top bit (bit 30 of limb 7), 254
+// squarings and 163 products in the Montgomery form. mont_in: a is a R mod
+// p, else canonical and lifted by one product with R^2. a < p; r may alias
+// a. Each limb of the exponent is an immediate of its own unrolled copy of
+// the loop, whose rolled bit loop branches the same way in every thread.
+HADES_FN void fermat_invert(uint32_t r[kLimbs], const uint32_t a[kLimbs], bool mont_in) {
+  uint32_t base[kLimbs];
+  if (mont_in) {
+    copy(base, a);
+  } else {
+    uint32_t r2[kLimbs];
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) r2[j] = r2_limb(j);
+    mont_mul(base, a, r2);
+  }
+  copy(r, base);
+#pragma unroll
+  for (int w = kLimbs - 1; w >= 0; --w) {
+    const uint32_t e = pm2_limb(w);
+#pragma unroll 1
+    for (int bit = w == kLimbs - 1 ? 29 : 31; bit >= 0; --bit) {
+      mont_sqr(r, r);
+      if ((e >> bit) & 1u) mont_mul(r, r, base);
+    }
+  }
+}
+
 // x^5 = (x^2)^2 x: two squarings and a product. r may alias x.
 HADES_FN void sbox(uint32_t r[kLimbs], const uint32_t x[kLimbs]) {
   uint32_t x2[kLimbs], x4[kLimbs];

@@ -15,7 +15,8 @@ digests hashed straight from the digit buffer):
 
   phase 1: wire columns -> coefficient forms          (4 iNTTs, batched)
   phase 2: (beta, gamma) -> grand-product z           (a log-step scan of
-           Montgomery ratios and one batched Fermat inversion)
+           Montgomery ratios and one batched Fermat inversion, one
+           kernel launch on the card: ops/field_cuda.py)
   phase 3: (alpha) -> quotient t on the 4n coset      (coset NTTs and the
            gate/permutation/boundary combination, batched)
 
@@ -46,7 +47,7 @@ import torch.nn.functional as F
 
 from . import field, plonk
 from .gadget import Composer
-from .ops import ntt
+from .ops import field_cuda, ntt
 from .params import P, R
 from .plonk import (
     CircuitKey,
@@ -215,7 +216,7 @@ def _phase2_grand_product(wire_evals, beta, gamma, ids_mont, sigma_n_mont,
         field.mont_mul(den_f[:, 0], den_f[:, 1]),
         field.mont_mul(den_f[:, 2], den_f[:, 3]),
     )
-    den_inv = field.to_mont(field.invert(field.from_mont(den)))
+    den_inv = field_cuda.invert(den, mont_in=True)
     ratio = field.mont_mul(num, den_inv)  # Montgomery
     # prefix products: z(omega^i) = prod_{j<i} ratio_j, z(1) = 1
     one = one_mont.expand(ratio.shape[0], 1, -1)

@@ -15,7 +15,7 @@ import weakref
 
 import torch
 
-from ..ops import perm_cuda
+from ..ops import field_cuda, perm_cuda
 from . import metrics
 
 
@@ -44,8 +44,11 @@ class CudaGraph:
     `held` counts the kernel launches of one replay per schedule (what the
     wrappers counted during the capture), `held_states` the states they
     hand the kernels; `replays` counts the replays, each of which adds
-    `held_states` to `perm_cuda.states`. The capture runs nothing, so the
-    states its wrappers counted are taken back out."""
+    `held_states` to `perm_cuda.states`. `held_inverts` and
+    `held_inverted` are the same for `field_cuda`'s inversion kernel: its
+    launches, and the elements that each replay adds to
+    `field_cuda.inverted`. The capture runs nothing, so the states and
+    elements its wrappers counted are taken back out."""
 
     def __init__(self, fn, inputs: tuple, pool=None):
         self._fn, self._inputs = fn, inputs
@@ -57,12 +60,16 @@ class CudaGraph:
                 fn(*inputs)
             torch.cuda.current_stream(device).wait_stream(side)
             before, states = dict(perm_cuda.launches), dict(perm_cuda.states)
+            inverts, inverted = field_cuda.launches, field_cuda.inverted
             self._graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self._graph, pool=pool):
                 self._out = fn(*inputs)
             self.held = {s: perm_cuda.launches[s] - before[s] for s in perm_cuda.SCHEDULES}
             self.held_states = {s: perm_cuda.states[s] - states[s] for s in perm_cuda.SCHEDULES}
             perm_cuda.states.update(states)
+            self.held_inverts = field_cuda.launches - inverts
+            self.held_inverted = field_cuda.inverted - inverted
+            field_cuda.inverted = inverted
         self.replays = 0
         _LIVE_GRAPHS.add(self)
 
@@ -74,6 +81,7 @@ class CudaGraph:
             self.replays += 1
             for s, n in self.held_states.items():
                 perm_cuda.states[s] += n
+            field_cuda.inverted += self.held_inverted
             return _clone(self._out)
 
 

@@ -1,5 +1,5 @@
-"""The H100's bound on the permutation kernels: the counterpart of
-`hades252_tpu/utils/roofline.py`.
+"""The H100's bound on the permutation kernels (the counterpart of
+`hades252_tpu/utils/roofline.py`) and on the field inversion's.
 
 The least time the card could take for b states through a schedule,
 canonical in and out, is the largest of three times (T / C / M):
@@ -95,6 +95,21 @@ def bound(schedule: str, b: int) -> dict:
     times = {"tensor_ms": 2 * tensor * b / tensor_rate * 1e3,
              "cores_ms": cores * b / INT32_OPS_PER_S * 1e3,
              "bytes_ms": (2 * WIDTH * N_DIGITS * 4 * b + table_bytes) / HBM_BYTES_PER_S * 1e3}
+    bound_ms = max(times.values())
+    return {"bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_ms == times["bytes_ms"] else "operations", **times}
+
+
+def invert_bound(n: int, *, mont_in: bool) -> dict:
+    """The least time the card could take for `field_cuda.invert` of n
+    elements, as `bound` gives it (no tensor-core work), counted from
+    `ops/csrc/field.cuh`'s fermat_invert with `bound`'s costs: 254 squarings
+    of 108 multiply-adds and 163 products of 136 (square-and-multiply over
+    the 255 bits of p - 2, 164 of them set), and one product more to lift a
+    canonical input; 64 B read and 64 B written an element."""
+    ops = 254 * 108 + 163 * 136 + (0 if mont_in else 136)
+    times = {"tensor_ms": 0.0, "cores_ms": ops * n / INT32_OPS_PER_S * 1e3,
+             "bytes_ms": 2 * N_DIGITS * 4 * n / HBM_BYTES_PER_S * 1e3}
     bound_ms = max(times.values())
     return {"bound_ms": bound_ms,
             "bound_by": "bytes" if bound_ms == times["bytes_ms"] else "operations", **times}

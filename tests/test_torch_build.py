@@ -193,6 +193,31 @@ int main(int argc, char** argv) {
 """
 
 
+# field.cuh's fermat_invert over 8-limb values: harness IN MONT_IN -> 8 limbs
+# a value on stdout.
+HARNESS_INV = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+#include "field.cuh"
+using namespace hades;
+int main(int argc, char** argv) {
+  FILE* f = fopen(argv[1], "rb");
+  std::vector<uint32_t> v;
+  uint32_t w;
+  while (fread(&w, 4, 1, f) == 1) v.push_back(w);
+  fclose(f);
+  const bool mont_in = atoi(argv[2]) != 0;
+  for (size_t i = 0; i + kLimbs <= v.size(); i += kLimbs) {
+    uint32_t r[kLimbs];
+    fermat_invert(r, &v[i], mont_in);
+    fwrite(r, 4, kLimbs, stdout);
+  }
+  return 0;
+}
+"""
+
+
 def _cxx():
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
@@ -288,6 +313,49 @@ def test_field_chains_on_host_are_exact(tmp_path):
             assert value(row[48:56]) == a * b * rinv % P
             assert value(row[56:64]) == a * a * rinv % P
             assert value(row[64:72]) == (a + b) % P
+
+
+@pytest.fixture(scope="module")
+def harness_inv(tmp_path_factory):
+    d = tmp_path_factory.mktemp("harness_inv")
+    (d / "h.cpp").write_text(HARNESS_INV)
+    subprocess.run([_cxx(), "-O1", "-std=c++17", "-w", f"-I{_build.CSRC}", "-o",
+                    str(d / "h"), str(d / "h.cpp")], check=True, timeout=300)
+    return d / "h"
+
+
+_R = 1 << 256
+_SEEDED_X = int.from_bytes(np.random.default_rng(19).bytes(32), "little") % P
+#: the kernel's inputs: seeded canonical elements, the edges, R and R^2 mod p
+#: (the Montgomery forms of 1 and of R), DEEP's x - point where the point is
+#: x itself (0, which Fermat maps to 0), 2 and its inverse (p + 1) / 2, the
+#: exponent p - 2 itself, and the largest power of two below p
+INV_INPUTS = {
+    "seeded": [int.from_bytes(np.random.default_rng(17).bytes(32), "little") % P
+               for _ in range(24)],
+    "zero": [0], "one": [1], "p_minus_1": [P - 1], "r_mod_p": [_R % P],
+    "r2_mod_p": [_R * _R % P], "x_minus_point_zero": [(_SEEDED_X - _SEEDED_X) % P],
+    "two": [2], "half": [(P + 1) // 2], "p_minus_2": [P - 2],
+    "top_power_of_two": [1 << (P.bit_length() - 1)],
+}
+
+
+@pytest.mark.parametrize("inputs", INV_INPUTS)
+@pytest.mark.parametrize("mont_in", [0, 1])
+def test_fermat_invert_on_host_matches_pow(harness_inv, tmp_path, inputs, mont_in):
+    """field.cuh's fermat_invert (the body of hades_field_invert) compiled
+    for the host: a^(p-2) mod p in the Montgomery form, for a canonical or
+    Montgomery-form a, against Python's pow."""
+    vals = INV_INPUTS[inputs]
+    given = [v * _R % P if mont_in else v for v in vals]
+    limbs = [[(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for x in given]
+    np.asarray(limbs, "<u4").tofile(tmp_path / "in.bin")
+    out = subprocess.run([str(harness_inv), str(tmp_path / "in.bin"), str(mont_in)],
+                         capture_output=True, check=True, timeout=60).stdout
+    rows = np.frombuffer(out, "<u4").reshape(len(vals), 8)
+    for v, row in zip(vals, rows, strict=True):
+        inv = pow(v, P - 2, P)
+        assert sum(int(w) << (32 * i) for i, w in enumerate(row)) == inv * _R % P
 
 
 @pytest.fixture(scope="module")
@@ -552,7 +620,7 @@ def test_source_hash_covers_every_source():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = sorted(p.name for p in _build.CSRC.glob("*.cu*"))
-    assert names == ["field.cuh", "perm.cu", "perm.cuh", "perm_dense.cuh",
+    assert names == ["field.cuh", "field_inv.cu", "perm.cu", "perm.cuh", "perm_dense.cuh",
                      "perm_dense_block.cuh", "perm_hybp.cu", "perm_hybp.cuh", "perm_mxu.cu",
                      "perm_mxu8.cu", "perm_mxu8.cuh", "wgmma.cuh"]
 

@@ -16,7 +16,7 @@ import torch
 
 from hades252_tpu_torch import field, selftest
 from hades252_tpu_torch.models import cipher, merkle, sponge
-from hades252_tpu_torch.ops import make_perm_mont_fn, perm_cuda, permute
+from hades252_tpu_torch.ops import field_cuda, make_perm_mont_fn, perm_cuda, permute
 from hades252_tpu_torch.strategy import ScalarStrategy
 from hades252_tpu_torch.utils import checkpoint
 from hades252_tpu_torch.utils.graphs import _LIVE_GRAPHS
@@ -300,6 +300,57 @@ def test_cuda_tensor_never_takes_the_plain_path(cuda_device, monkeypatch, schedu
     # an input the kernel cannot take raises instead of falling back
     with pytest.raises(ValueError):
         perm_cuda.permute_planar(x[:, :, ::2], schedule=schedule)
+
+
+def _invert_inputs(shape, seed: int, mont_in: bool, device) -> torch.Tensor:
+    """Seeded elements on the card, the first one 0 (DEEP's x - point where
+    the point is x), in the Montgomery form for mont_in."""
+    x = _elements(shape, seed).to(device)
+    x.view(-1, 16)[0] = 0
+    return field.to_mont(x) if mont_in else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1,), (63,), (65,), (1000,), (2, 1 << 15)])
+@pytest.mark.parametrize("mont_in", [False, True])
+def test_field_invert_kernel_matches_plain(cuda_device, shape, mont_in):
+    """hades_field_invert against its plain version (field's torch ops on
+    the card): ragged sizes around its 64-thread blocks, one element, and
+    DEEP's 2 x 2^15 block of a prod proof; one launch a call, and an input
+    it cannot take refused."""
+    x = _invert_inputs(shape, 60 + len(shape) + shape[-1] % 97, mont_in, cuda_device)
+    before = field_cuda.launches
+    got = field_cuda.invert(x, mont_in=mont_in)
+    torch.cuda.synchronize()
+    assert field_cuda.launches == before + 1
+    assert torch.equal(got, field_cuda.invert_plain(x, mont_in=mont_in))
+    assert not got.view(-1, 16)[0].any()
+    strided = torch.stack([x.view(-1, 16)] * 2, dim=-1)[..., 0]  # digits 2 int32 apart
+    with pytest.raises(ValueError):
+        field_cuda.invert(strided, mont_in=mont_in)
+
+
+@pytest.mark.cuda
+def test_field_invert_kernel_replays_in_a_graph(cuda_device):
+    """The kernel captured in a CudaGraph (as phase 2 is): two replays give
+    the plain version's output, and each adds the elements the graph holds
+    to field_cuda.inverted."""
+    from hades252_tpu_torch.utils.graphs import CudaGraph
+
+    x = _invert_inputs((16, 1024), 71, True, cuda_device)
+    n = x.numel() // 16
+    want = field_cuda.invert_plain(x, mont_in=True)
+    launches, inverted = field_cuda.launches, field_cuda.inverted
+    graph = CudaGraph(lambda a: field_cuda.invert(a, mont_in=True), (x.clone(),))
+    assert field_cuda.launches == launches + 2  # the warm-up's and the capture's
+    assert graph.held_inverts == 1 and graph.held_inverted == n
+    assert field_cuda.inverted == inverted + n  # the warm-up's; the capture ran nothing
+    before = field_cuda.inverted
+    clones = [graph(x) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(c, want) for c in clones) and clones[0].data_ptr() != clones[1].data_ptr()
+    assert field_cuda.inverted == before + 2 * n
+    assert field_cuda.launches == launches + 2  # a replay calls no wrapper
 
 
 def _chain_circuit(values):

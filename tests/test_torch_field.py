@@ -9,6 +9,7 @@ import torch
 from hades252_tpu import field as jfield
 from hades252_tpu_torch import field
 from hades252_tpu_torch.params import P, int_to_digits
+from hades252_tpu_torch.utils.encoding import digits_to_ints
 
 torch.set_num_threads(1)
 
@@ -86,3 +87,41 @@ def test_field_rejects_other_dtypes():
         field.add_mod(torch.zeros(16, dtype=torch.float32), torch.zeros(16, dtype=torch.int32))
     with pytest.raises(ValueError):
         field.mont_mul(torch.zeros(15, dtype=torch.int32), torch.zeros(15, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("mont_in", [False, True])
+def test_field_cuda_invert_on_the_cpu_is_the_plain_composition(operands, monkeypatch, mont_in):
+    """ops/field_cuda.invert on a CPU tensor: field.invert between the
+    conversions, bit for bit, in the callers' forms (DEEP's canonical in,
+    phase 2's Montgomery in; the Montgomery form out), the result a^-1 R,
+    0 for 0 (DEEP's x - point = 0 included), and no kernel launched."""
+    from hades252_tpu_torch.ops import field_cuda
+
+    a, _ = operands
+    x = _t(a[::8])
+    zero = field.sub_mod(x[:1], x[:1])  # x - point with the point x itself
+    x = torch.cat([x, zero])
+    given = field.to_mont(x) if mont_in else x
+    monkeypatch.setattr(field_cuda, "launches", 0)
+    monkeypatch.setattr(field_cuda, "inverted", 0)
+    got = field_cuda.invert(given, mont_in=mont_in)
+    if mont_in:
+        assert torch.equal(got, field.to_mont(field.invert(field.from_mont(given))))
+    else:
+        assert torch.equal(got, field.to_mont(field.invert(given)))
+    want = [pow(int(v), P - 2, P) * (1 << 256) % P
+            for v in digits_to_ints(x.numpy().astype(np.uint32))]
+    assert [int(v) for v in digits_to_ints(got.numpy().astype(np.uint32))] == want
+    assert field_cuda.launches == 0 and field_cuda.inverted == 0
+
+
+def test_field_cuda_invert_rejects_what_the_kernel_cannot_take():
+    from hades252_tpu_torch.ops import field_cuda
+
+    with pytest.raises(ValueError):
+        field_cuda.invert(torch.zeros((2, 16), dtype=torch.int64), mont_in=False)
+    with pytest.raises(ValueError):
+        field_cuda.invert(torch.zeros((2, 15), dtype=torch.int32), mont_in=False)
+    with pytest.raises(ValueError):
+        field_cuda.invert(torch.zeros((2, 16), dtype=torch.int32, device="meta"), mont_in=False)
+    assert field_cuda.invert(torch.zeros((0, 16), dtype=torch.int32), mont_in=True).shape == (0, 16)

@@ -21,6 +21,7 @@ the plain version itself, with JAX blocked.
 
 import gc
 import sys
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -447,6 +448,95 @@ def test_device_prover_takes_the_schedule_asked_for(calls):
         fri.prove_succinct(cs[1], pk, PERM), vk)
     one = fri_cuda.prove_succinct_device(cs[0], pk, device="cpu")
     assert serialize.proof_to_bytes(one, vk) == serialize.proof_to_bytes(got[0], vk)
+
+
+def _inverted_by_a_device_proof(monkeypatch, zk: bool):
+    """Two instances through prove_succinct_device_batch on the CPU, zk or
+    not: (every field_cuda.invert call's (elements, mont_in), the key)."""
+    from hades252_tpu_torch.ops import field_cuda
+
+    seen, real = [], field_cuda.invert
+
+    def spy(a, *, mont_in):
+        seen.append((a.numel() // 16, mont_in))
+        return real(a, mont_in=mont_in)
+
+    monkeypatch.setattr(field_cuda, "invert", spy)
+    cs = _instances(gadget, 2)
+    pk, vk = fri.preprocess_succinct(cs[0], fri.FriParams(**PARAMS, pow_bits=0, zk=zk), PERM)
+    rngs = [np.random.default_rng(7 + k) for k in range(2)] if zk else None
+    fri_cuda.prove_succinct_device_batch(cs, pk, rngs, device="cpu")
+    return seen, vk
+
+
+def test_device_prover_inverts_phase2s_and_deeps_denominators(calls, monkeypatch):
+    """A device proof hands field_cuda.invert phase 2's B n denominators
+    (Montgomery in) and DEEP's 2 B m0 (canonical in), one call each:
+    chip_smoke.device_proof_inverted's count, which phase 7f holds the
+    kernel's counter to."""
+    seen, vk = _inverted_by_a_device_proof(monkeypatch, zk=False)
+    m0 = fri.proof_schema(vk.n, vk.params)["m0"]
+    assert sorted(seen) == sorted([(2 * vk.n, True), (2 * 2 * m0, False)])
+    assert sum(n for n, *_ in seen) == chip_smoke.device_proof_inverted(vk, 2)
+
+
+def test_device_prover_with_zk_inverts_what_device_proof_inverted_counts(calls, monkeypatch):
+    """The same with zk, as phase 7f's zk run proves: its blinded key's n
+    and m0 in device_proof_inverted's count."""
+    seen, vk = _inverted_by_a_device_proof(monkeypatch, zk=True)
+    m0 = fri.proof_schema(vk.n, vk.params)["m0"]
+    assert vk.params.zk and sorted(seen) == sorted([(2 * vk.n, True), (2 * 2 * m0, False)])
+    assert sum(n for n, *_ in seen) == chip_smoke.device_proof_inverted(vk, 2)
+
+
+class _InvertingGraph:
+    """utils/graphs.CudaGraph's inversion counts, for chip_smoke.inversions:
+    the launches and elements one replay holds, and the replays."""
+
+    def __init__(self, held_inverts, held_inverted):
+        self.held_inverts, self.held_inverted, self.replays = held_inverts, held_inverted, 0
+
+
+@pytest.mark.parametrize("case", ["eager", "captured_and_replayed", "replayed", "one_too_many"])
+def test_inversions_counts_the_main_paths_launches(monkeypatch, case):
+    """chip_smoke.inversions, as phases 7d-7i hold hades_field_invert's
+    launches: each inversion step is one launch, eager or in a graph's
+    replay; a graph captured in the run adds its warm-up's launch (its
+    capture's runs nothing) and its warm-up's elements, which the count
+    of the run's elements leaves out."""
+    from hades252_tpu_torch.ops import field_cuda
+    from hades252_tpu_torch.utils import graphs
+
+    monkeypatch.setattr(field_cuda, "launches", 10)
+    monkeypatch.setattr(field_cuda, "inverted", 1000)
+    monkeypatch.setattr(chip_smoke, "main_inverts", 0)
+    live = weakref.WeakSet()
+    monkeypatch.setattr(graphs, "_LIVE_GRAPHS", live)
+    old = _InvertingGraph(1, 64)
+    live.add(old)
+    state = chip_smoke.invert_state()
+    field_cuda.launches += 1  # DEEP, eager: 2 x 32 elements
+    field_cuda.inverted += 64
+    if case == "captured_and_replayed":  # phase 2's graph: warm-up, capture, one replay
+        new = _InvertingGraph(1, 128)
+        live.add(new)
+        field_cuda.launches += 2
+        field_cuda.inverted += 128 + 128
+        new.replays += 1
+    elif case in ("replayed", "one_too_many"):
+        old.replays += 1
+        field_cuda.inverted += 64
+        if case == "one_too_many":
+            field_cuda.launches += 1
+            field_cuda.inverted += 64
+    if case == "one_too_many":
+        with pytest.raises(RuntimeError, match="inversion steps"):
+            chip_smoke.inversions(case, state, 2)
+        return
+    steps = 1 if case == "eager" else 2
+    got = chip_smoke.inversions(case, state, steps)
+    assert got == {"eager": 64, "captured_and_replayed": 64 + 128, "replayed": 64 + 64}[case]
+    assert chip_smoke.main_inverts == {"eager": 1, "captured_and_replayed": 3, "replayed": 2}[case]
 
 
 def test_unsatisfied_witness_raises_as_the_host_prover_does(calls):

@@ -53,6 +53,24 @@ def test_bound_scales_with_the_batch_and_refuses_an_unknown_schedule():
         roofline.bound("pallas", 1 << 14)
 
 
+@pytest.mark.parametrize("n,mont_in,cores_ms", [
+    (1 << 16, False, 0.1949),   # DEEP's 2 x 2^15 denominators of a prod proof
+    (1 << 14, True, 0.0486),    # phase 2's at B = 16, n = 1024
+    (1 << 10, True, 0.0030),    # phase 2's at B = 1
+    (1 << 14, False, 0.0487),
+])
+def test_invert_bound_counts_fermat_invert(n, mont_in, cores_ms):
+    """The inversion kernel's bound: 254 squarings of 108 multiply-adds, 163
+    products of 136 and a lift of 136 for a canonical input, over the int32
+    rate; bound by the operations."""
+    got = roofline.invert_bound(n, mont_in=mont_in)
+    ops = 254 * 108 + 163 * 136 + (not mont_in) * 136
+    assert got["cores_ms"] == pytest.approx(ops * n / roofline.INT32_OPS_PER_S * 1e3)
+    assert round(got["cores_ms"], 4) == cores_ms and got["tensor_ms"] == 0
+    assert got["bytes_ms"] == pytest.approx(128 * n / roofline.HBM_BYTES_PER_S * 1e3)
+    assert got["bound_by"] == "operations" and got["bound_ms"] == got["cores_ms"]
+
+
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     with profiling.trace(str(tmp_path / "tr")) as prof:
         torch.ones(64, dtype=torch.int64).cumsum(0)
