@@ -44,6 +44,8 @@ parent = perm([TAG, g0..g3])[1], TAG = 4).
 
 from __future__ import annotations
 
+import numbers
+
 from .gadget import Composer, Constraint, GadgetStrategy, Witness
 
 #: gates emitted by one in-circuit permutation (5 ARK + 8*15 + 59*3 + 67*10)
@@ -310,24 +312,57 @@ def cipher_encryption_circuit(
 # ---------------------------------------------------------------------------
 
 
-def merkle_path_ints(levels, index: int):
+def merkle_path_ints(levels, index, height: int | None = None):
     """Canonical-int path data for merkle_membership_circuit from a
-    models/merkle.py `merkle_levels` build (torch tensors on any device):
-    returns
-    (leaf, groups (height, 4) ints, positions (height,), root)."""
+    models/merkle.py `merkle_levels` build (torch tensors on any device).
+
+    index: one leaf index, which gives one
+    (leaf, groups (height, 4) ints, positions (height,), root);
+    or a sequence (or 1-D tensor) of them, which gives a list of such
+    tuples. height (default: the built tree's) opens the tree of that
+    height whose leftmost subtree is the built one, as merkle_open_batched's
+    `height` does: above the built root each group is the node and three
+    empty subtrees' digests, and the root is that tree's (merkle_lift).
+
+    Each level's groups are one gather, and the leaves, groups and root
+    leave the Montgomery form in one from_mont and reach the host, with the
+    positions, in one copy."""
+    import torch
+
     from . import field
     from .models import merkle
+    from .utils import metrics
     from .utils.encoding import digits_to_ints
 
-    def ints(mont):
-        return digits_to_ints(field.from_mont(mont).cpu().numpy())
-
-    path = merkle.merkle_open(levels, index)
-    groups = [[int(v) for v in ints(sibs)] for sibs, _ in path]
-    positions = [pos for _, pos in path]
-    leaf = int(ints(levels[0][index]))
-    root = int(ints(levels[-1][0]))
-    return leaf, groups, positions, root
+    with metrics.span("merkle.paths"):
+        one = isinstance(index, numbers.Integral)
+        dev, d, a = levels[0].device, levels[0].shape[-1], merkle.ARITY
+        idx = torch.as_tensor([index] if one else index, dtype=torch.int64,
+                              device=dev).reshape(-1)
+        if idx.numel() and not (0 <= int(idx.min()) and int(idx.max()) < levels[0].shape[0]):
+            raise ValueError("leaf index out of range")
+        built, k = len(levels) - 1, idx.shape[0]
+        height = built if height is None else height
+        lifted = merkle.merkle_lift(levels, height)
+        empty = merkle.empty_digests(height, dev)
+        groups = [levels[lvl].view(-1, a, d)[idx >> (2 * lvl + 2)] for lvl in range(built)]
+        groups += [torch.stack([lifted[j]] + [empty[built + j]] * (a - 1)).expand(k, a, d)
+                   for j in range(height - built)]
+        poss = torch.stack([(idx >> (2 * lvl)) & (a - 1) for lvl in range(built)]
+                           + [torch.zeros_like(idx)] * (height - built), dim=1)
+        digits = field.from_mont(torch.cat([levels[0][idx],
+                                            torch.stack(groups, dim=1).reshape(-1, d),
+                                            lifted[-1:]]))
+        host = torch.cat([digits.reshape(-1), poss.reshape(-1).to(digits.dtype)]).cpu().numpy()
+        values = [int(v) for v in digits_to_ints(host[: digits.numel()].reshape(-1, d))]
+        positions = host[digits.numel():].reshape(k, height).tolist()
+        leaves, groups_int, root = values[:k], values[k:-1], values[-1]
+        per = a * height
+        paths = [(leaves[i],
+                  [groups_int[i * per + a * lvl:i * per + a * lvl + a] for lvl in range(height)],
+                  positions[i], root)
+                 for i in range(k)]
+        return paths[0] if one else paths
 
 
 def public_input_column(composer: Composer) -> list[int]:

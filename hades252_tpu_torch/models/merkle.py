@@ -9,6 +9,13 @@ order. Leaves are canonical field elements; a level with fewer than 4^k
 leaves is zero-padded on the right. Each level is one batched permutation
 call over all its parents, and the whole build stays in the Montgomery
 domain: only the leaves are converted in and the root out.
+
+A tree of a stated height (Dusk's note tree has 17 levels) holds the
+built tree as its leftmost subtree and zero leaves everywhere else: above
+the built root, each node is child 0 of its group and its three siblings
+are the digest of an empty subtree of that level (`empty_digests`),
+`merkle_lift` gives the nodes on that path, and `merkle_open_batched`
+opens to the stated height.
 """
 
 from __future__ import annotations
@@ -133,14 +140,74 @@ def merkle_open_compact(levels: list[torch.Tensor], index: int):
     return torch.stack(sibs), torch.tensor(poss, dtype=torch.int32, device=levels[0].device)
 
 
-def merkle_open_batched(levels: list[torch.Tensor], indices):
+@functools.cache
+def empty_digests(height: int, device: torch.device) -> torch.Tensor:
+    """(height, N_DIGITS) int32 Montgomery digests of the empty subtrees of
+    heights 0 to height - 1: an empty leaf is 0, an empty parent the node
+    of four empty children (the root of zero leaves). Constants of the
+    tree's shape, cached per (height, device) as `_tag_mont` is; computed
+    with the device's default permutation (every schedule gives the same
+    bits)."""
+    from ..ops import default_perm_mont_fn
+
+    perm_mont_fn = default_perm_mont_fn(device)
+    z = [torch.zeros(N_DIGITS, dtype=torch.int32, device=device)]
+    while len(z) < height:
+        z.append(_level_up(z[-1].expand(ARITY, N_DIGITS), perm_mont_fn)[0])
+    return torch.stack(z)[:height]
+
+
+def _check_height(levels: list[torch.Tensor], height: int) -> int:
+    """The built tree's height; raises where `height` is below it."""
+    built = len(levels) - 1
+    if height < built:
+        raise ValueError(f"height {height} is below the built tree's {built}")
+    return built
+
+
+def merkle_lift(levels: list[torch.Tensor], height: int) -> torch.Tensor:
+    """The nodes from the built tree's root up to the root of the tree of
+    `height` whose leftmost subtree it is, every other leaf 0:
+    (height - built + 1, N_DIGITS) int32 Montgomery digits, the built root
+    first and the whole tree's root last. Each parent is the node rule over
+    the node and three empty subtrees of its level, on the device's default
+    permutation, as `empty_digests` is."""
+    from ..ops import default_perm_mont_fn
+
+    built = _check_height(levels, height)
+    perm_mont_fn = default_perm_mont_fn(levels[0].device)
+    nodes = [levels[-1][0]]
+    for z in empty_digests(height, levels[0].device)[built:]:
+        group = torch.cat([nodes[-1][None], z.expand(ARITY - 1, N_DIGITS)])
+        nodes.append(_level_up(group, perm_mont_fn)[0])
+    return torch.stack(nodes)
+
+
+def merkle_open_batched(levels: list[torch.Tensor], indices, height: int | None = None):
     """Compact openings of many leaves: (K, height, ARITY - 1, N_DIGITS)
     siblings and (K, height) int32 positions, the same arrays as stacking
     merkle_open_compact over `indices`. Each level is one gather of the K
     groups and one of their siblings, by index arithmetic, instead of K
-    slices."""
+    slices.
+
+    `height` (default: the built tree's) opens the tree of that height
+    whose leftmost subtree is the built tree: each level above the built
+    root has position 0 and the empty subtree's digest of that level three
+    times as its siblings (`empty_digests`), so merkle_verify_batched takes
+    the openings against that tree's root (`merkle_lift`)."""
     with metrics.span("merkle.open"):
-        return _open_batched(levels, indices)
+        height = len(levels) - 1 if height is None else height
+        built = _check_height(levels, height)
+        sibs, poss = _open_batched(levels, indices)
+        if height == built:
+            return sibs, poss
+        with metrics.span("merkle.extend"):
+            k, dev = sibs.shape[0], sibs.device
+            empty = empty_digests(height, dev)[built:]
+            top = empty[None, :, None].expand(k, -1, ARITY - 1, -1)
+            return (torch.cat([sibs, top], dim=1),
+                    torch.cat([poss, torch.zeros((k, height - built), dtype=poss.dtype,
+                                                 device=dev)], dim=1))
 
 
 def _open_batched(levels: list[torch.Tensor], indices):
