@@ -37,7 +37,19 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      bound (`utils/roofline.invert_bound`). Phases 7d-7i hold its launches
      on the main path: each inversion step of a counted run (a phase-2
      grand product, a DEEP step) one launch, eager or in a graph's replay,
-     and a graph captured in the run one more in its warm-up;
+     and a graph captured in the run one more in its warm-up. Then holds the
+     Montgomery conversion's kernel (`hades_field_convert`, through
+     `ops/field_cuda.to_mont` / `from_mont`) against `field`'s torch ops on
+     the card in both directions, with max_abs_err 0: at the 2^20 leaves of
+     phase 5's build, at the verifier's 2^14 nodes read in place as a column
+     of a (K, 5, 16) permutation output, and at 1, 1000 and 2^14 + 3
+     elements as rows, as such a column and as leaves zero-padded to a power
+     of four (the first three elements 0, 1 and p - 1); one launch a call.
+     Then times it (CUDA events, median of 5) at the benchmark build's 4^11
+     leaves and at the verifier's 2^14 nodes, beside the plain version and
+     its bound (`utils/roofline.convert_bound`). Phase 5 holds its launches
+     on the Merkle paths: two a tree (the leaves in, the root out), one a
+     `merkle_levels`, two a verification;
   5. builds the arity-4 Merkle root over 2^20 seeded leaves through
      `merkle_root` (BASELINE config 4) with the default `opt` kernel, and
      over their first 2^16 with the `opt`, `naive` and `mxu8` kernels, and
@@ -365,6 +377,13 @@ PLAIN_SLICE = 1 << 16
 INVERT_TIMED = (((2, 1 << 15), False, "DEEP's denominators of a prod proof"),
                 ((16, 1024), True, "phase 2's at B = 16"))
 INVERT_RAGGED = (1, 63, 65, 1000)
+# the conversion kernel: checked at the main path's sizes and at ragged ones (which
+# end inside a warp's 32 elements) in each layout its callers pass; timed at the
+# benchmark build's 4^11 leaves and the verifier's nodes
+CONVERT_CHECKED = ((MERKLE_LEAVES, "rows"), (OPENINGS, "column"))
+CONVERT_RAGGED = (1, 1000, (1 << 14) + 3)
+CONVERT_TIMED = ((4**11, "rows", "the benchmark build's leaves"),
+                 (OPENINGS, "column", "the verifier's nodes"))
 # --profile: each traced path's Chrome trace, <n>/trace.json, beside the builds
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
 
@@ -667,6 +686,73 @@ def invert_phase(dev: torch.device, rng: np.random.Generator, smi: str) -> dict:
                         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None})
     return entries[0]  # at DEEP's size, the larger
+
+
+def convert_inputs(n: int, layout: str, rng: np.random.Generator, dev) -> torch.Tensor:
+    """n seeded canonical elements on the card, the first three 0, 1 and
+    p - 1: as rows, as a column of a (n, 5, 16) permutation output (rows 80
+    digits apart, which the kernel reads in place: the Merkle verifier's
+    node), or as rows zero-padded to a power of four (the Merkle build's
+    leaves)."""
+    x = random_elements((n,), rng)
+    x[:3] = ints_to_digits([0, 1, P - 1]).astype(np.int32)[:n]
+    x = torch.from_numpy(x).to(dev)
+    if layout == "column":
+        return torch.stack([x] * WIDTH, dim=1)[:, merkle.DIGEST_INDEX]
+    return merkle._pad_to_pow4(x) if layout == "padded" else x
+
+
+def convert_phase(dev: torch.device, rng: np.random.Generator, smi: str) -> dict:
+    """Phase 4b, its second half: hades_field_convert (ops/field_cuda.py)
+    against field's torch ops on the card, both directions, at the main
+    path's sizes and the ragged ones in each layout; one launch a call. Then
+    its time at the benchmark's sizes beside the plain version's and its
+    bound. Returns the kernels' JSON entry (to_mont of 4^11 leaves), without
+    its launches."""
+    launches, calls, max_err = field_cuda.conversions, 0, 0
+    cases = list(CONVERT_CHECKED)
+    cases += [(n, layout) for n in CONVERT_RAGGED for layout in ("rows", "column", "padded")]
+    for n, layout in cases:
+        x = convert_inputs(n, layout, rng, dev)
+        for to in (True, False):
+            got = (field_cuda.to_mont if to else field_cuda.from_mont)(x)
+            want = (field.to_mont if to else field.from_mont)(x)
+            err = int((got.long() - want.long()).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0 and got.shape == x.shape,
+                  f"hades_field_convert != field's at {n} {layout}, to_mont={to}")
+            calls += 1
+        del x, got, want
+        torch.cuda.empty_cache()
+    check(field_cuda.conversions - launches == calls,
+          f"hades_field_convert: {field_cuda.conversions - launches} launches for {calls} calls")
+    log(f"[convert] hades_field_convert == field's to_mont / from_mont at "
+        f"{', '.join(f'{n} {layout}' for n, layout in CONVERT_CHECKED)} and at {CONVERT_RAGGED} "
+        f"elements as rows, a (K, 5, 16) column and padded rows, 0, 1, p - 1 included; "
+        f"{calls} launches")
+    entries = []
+    for n, layout, what in CONVERT_TIMED:
+        x = convert_inputs(n, layout, rng, dev)
+        b = roofline.convert_bound(n)
+        for to in (True, False):
+            convert, plain = ((field_cuda.to_mont, field.to_mont) if to else
+                              (field_cuda.from_mont, field.from_mont))
+            ms = cuda_ms(lambda: convert(x))
+            plain_ms = cuda_ms(lambda: plain(x), reps=1)
+            torch.cuda.empty_cache()
+            direction = "to_mont" if to else "from_mont"
+            log(f"[time] hades_field_convert {direction} {n:,} elements ({what}, {layout}): kernel "
+                f"{ms:.4f} ms (median of {REPS}, {128 * n / ms / 1e9:.3f} TB/s); plain "
+                f"{plain_ms:.2f} ms; bound {b['bound_ms']:.4f} ms by the {b['bound_by']} (cores "
+                f"{b['cores_ms']:.4f} ms), {b['bound_ms'] / ms:.3f} of the time | {smi}")
+            entries.append({"name": "hades_field_convert", "route": "cuda",
+                            "source": "hades252_tpu_torch/ops/csrc/field_conv.cu",
+                            "replaces": None, "max_abs_err": max_err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+                            "bound_by": b["bound_by"], "library_ms": None})
+        del x
+        torch.cuda.empty_cache()
+    return entries[0]
 
 
 #: hades_field_invert's launches on the main path: summed by `inversions`
@@ -1998,8 +2084,9 @@ def run(ckpt_root: str) -> int:
     torch.cuda.empty_cache()
     mark("phase 4")
 
-    # 4b. the field inversion's kernel
+    # 4b. the field inversion's and the conversion's kernels
     invert_entry = invert_phase(dev, rng, smi)
+    convert_entry = convert_phase(dev, rng, smi)
     mark("phase 4b")
 
     # 5a. Merkle checks against the plain version and the int oracle
@@ -2082,10 +2169,22 @@ def run(ckpt_root: str) -> int:
         "resumed (hyb13)": (resume(hyb13_fn), {"hyb13": resumed}),
         "resumed (hybp13)": (resume(hybp13_fn), {"hybp13": resumed}),
     }
-    results, main_launches = {}, {s: 0 for s in perm_cuda.SCHEDULES}
+    # hades_field_convert's launches on the Merkle paths: a tree's leaves in and
+    # root out, a verification's leaves in and nodes out (the node rule's tag
+    # was converted in 5a, once for the card)
+    converts = {"merkle (opt)": 2, "merkle 2^16 (opt)": 2, "merkle 2^16 (naive)": 2,
+                "merkle 2^16 (mxu8)": 2, "levels (hybp)": 1, "open": 0, "verify (hybp)": 2,
+                "verify (hyb)": 2, "verify (opt)": 2, "verify one (hybp)": 2}
+    results, main_launches, main_converts = {}, {s: 0 for s in perm_cuda.SCHEDULES}, 0
     root = None
     for name, (fn, expected) in paths.items():
+        conversions = field_cuda.conversions
         results[name], counts = drive(fn)
+        if name in converts:
+            made = field_cuda.conversions - conversions
+            check(made == converts[name],
+                  f"{name}: hades_field_convert {made} launches, {converts[name]} expected")
+            main_converts += made
         if name == "merkle (opt)":
             root = results[name]
         want = {s: expected.get(s, 0) for s in perm_cuda.SCHEDULES}
@@ -2095,6 +2194,7 @@ def run(ckpt_root: str) -> int:
             main_launches[s] += counts[s]
     check(all(main_launches[s] > 0 for s in perm_cuda.SCHEDULES),
           f"a kernel of the main path never launched: {main_launches}")
+    log(f"[launches] hades_field_convert on the Merkle paths: {main_converts}")
 
     for s in ("naive", "mxu8"):
         check(torch.equal(results["merkle 2^16 (opt)"], results[f"merkle 2^16 ({s})"]),
@@ -2385,6 +2485,7 @@ def run(ckpt_root: str) -> int:
         for s in perm_cuda.SCHEDULES
     ]
     kernels.append({**invert_entry, "launches": main_inverts})
+    kernels.append({**convert_entry, "launches": main_converts})
     log(f"[run] {time.perf_counter() - t_run:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import field
+from ..ops import field_cuda
 from ..params import N_DIGITS, WIDTH
 from ..utils import metrics
 from ..utils.encoding import ints_to_digits
@@ -51,7 +52,7 @@ def _pad(msgs: torch.Tensor) -> torch.Tensor:
 def _init_state(key, nonce, n_padded: int, perm_mont_fn) -> torch.Tensor:
     b = key.shape[0]
     state = torch.cat([_mont_word(TAG_ENC + (n_padded << 32), b, key.device),
-                       field.to_mont(key), field.to_mont(nonce)[:, None],
+                       field_cuda.to_mont(key), field_cuda.to_mont(nonce)[:, None],
                        _mont_word(1, b, key.device)], dim=1)
     return perm_mont_fn(state)
 
@@ -84,14 +85,14 @@ def _run(key, nonce, data, perm_mont_fn, decrypt: bool):
     if data.shape[1] % RATE != 0:
         raise ValueError("data length must be a multiple of the rate")
     b, n_padded = data.shape[0], data.shape[1]
-    chunks = field.to_mont(data).reshape(b, n_padded // RATE, RATE, N_DIGITS)
+    chunks = field_cuda.to_mont(data).reshape(b, n_padded // RATE, RATE, N_DIGITS)
     state = _init_state(key, nonce.to(key.device), n_padded, perm_mont_fn)
     outs = []
     for c in range(chunks.shape[1]):
         state, out = _duplex(state, chunks[:, c], perm_mont_fn, decrypt)
         outs.append(out)
     out = torch.cat(outs, dim=1) if outs else data.new_zeros(data.shape)
-    return field.from_mont(out), field.from_mont(state[:, 1])
+    return field_cuda.from_mont(out), field_cuda.from_mont(state[:, 1])
 
 
 def encrypt(key, nonce, msgs, perm_mont_fn=None):

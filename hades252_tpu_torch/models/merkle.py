@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import field
+from ..ops import field_cuda
 from ..params import N_DIGITS
 from ..utils import metrics
 from ..utils.encoding import ints_to_digits
@@ -38,7 +38,7 @@ DIGEST_INDEX = 1
 @functools.cache
 def _tag_mont(device: torch.device) -> torch.Tensor:
     tag = torch.from_numpy(ints_to_digits([TAG])[0].astype(np.int32))
-    return field.to_mont(tag).to(device)
+    return field_cuda.to_mont(tag.to(device))
 
 
 def tree_levels(n_leaves: int) -> int:
@@ -80,7 +80,7 @@ def merkle_levels(leaves: torch.Tensor, perm_mont_fn=None) -> list[torch.Tensor]
 
         perm_mont_fn = default_perm_mont_fn(leaves.device)
     with metrics.span("merkle.convert"):
-        level = field.to_mont(_pad_to_pow4(leaves))
+        level = field_cuda.to_mont(_pad_to_pow4(leaves))
     levels = [level]
     while level.shape[0] > 1:
         metrics.count("merkle.levels", 1)
@@ -95,7 +95,7 @@ def merkle_root(leaves: torch.Tensor, perm_mont_fn=None) -> torch.Tensor:
     returns (N_DIGITS,) int32 canonical root digits."""
     root = merkle_levels(leaves, perm_mont_fn)[-1][0]
     with metrics.span("merkle.convert"):
-        return field.from_mont(root)
+        return field_cuda.from_mont(root)
 
 
 # ---------------------------------------------------------------------------
@@ -271,13 +271,13 @@ def _verify_batched(root, leaves, sibs, poss, height: int, perm_mont_fn):
     poss = poss.to(torch.int64)
     pos_ok = ((poss >= 0) & (poss < ARITY)).all(dim=1)
     with metrics.span("merkle.convert"):
-        node = field.to_mont(leaves)
+        node = field_cuda.to_mont(leaves)
     tag = _tag_mont(leaves.device).expand(k, 1, N_DIGITS)
     for lvl in range(height):
         children = _insert_at(node, sibs[:, lvl], poss[:, lvl])
         node = perm_mont_fn(torch.cat([tag, children], dim=1))[:, DIGEST_INDEX, :]
     with metrics.span("merkle.convert"):
-        node = field.from_mont(node)
+        node = field_cuda.from_mont(node)
     digest_ok = (node == root[None]).all(dim=-1)
     return pos_ok & digest_ok
 
@@ -292,10 +292,10 @@ def merkle_verify(root, leaf, path, height: int, perm_mont_fn=None) -> bool:
         from ..ops import default_perm_mont_fn
 
         perm_mont_fn = default_perm_mont_fn(leaf.device)
-    node = field.to_mont(leaf)
+    node = field_cuda.to_mont(leaf)
     tag = _tag_mont(leaf.device)
     for sibs, pos in path:
         if not torch.equal(sibs[pos], node):
             return False
         node = perm_mont_fn(torch.cat([tag[None, None], sibs[None]], dim=1))[0, DIGEST_INDEX, :]
-    return torch.equal(field.from_mont(node), root)
+    return torch.equal(field_cuda.from_mont(node), root)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import field
+from ..ops import field_cuda
 from ..params import N_DIGITS, WIDTH
 from ..utils import metrics
 from ..utils.encoding import digits_to_ints, ints_to_digits
@@ -62,7 +63,7 @@ def sponge_hash(msgs: torch.Tensor, perm_mont_fn=None) -> torch.Tensor:
     pad = (-length) % RATE
     msgs = torch.nn.functional.pad(msgs, (0, 0, 0, pad))
     n_chunks = (length + pad) // RATE
-    chunks = field.to_mont(msgs).reshape(b, n_chunks, RATE, N_DIGITS)
+    chunks = field_cuda.to_mont(msgs).reshape(b, n_chunks, RATE, N_DIGITS)
 
     state = _initial_state(b, length, msgs.device)
     for c in range(n_chunks):
@@ -70,7 +71,7 @@ def sponge_hash(msgs: torch.Tensor, perm_mont_fn=None) -> torch.Tensor:
     metrics.count("sponge.messages", b)
     metrics.count("sponge.elements_absorbed", b * length)
     metrics.count("perms.executed", b * n_chunks)
-    return field.from_mont(state[:, DIGEST_INDEX, :])
+    return field_cuda.from_mont(state[:, DIGEST_INDEX, :])
 
 
 class SpongeState:
@@ -113,7 +114,7 @@ class SpongeState:
         if self._absorbed + k > self._total:
             raise ValueError("absorbing past the declared total length")
         self._absorbed += k
-        self._pending.append(field.to_mont(words.to(self._state.device)))
+        self._pending.append(field_cuda.to_mont(words.to(self._state.device)))
         self._pending_n += k
         if self._pending_n >= RATE:
             buf = torch.cat(self._pending, dim=1)
@@ -140,7 +141,7 @@ class SpongeState:
         self._squeezed = 0
         # the digest is squeeze word 0 of this state; keep it so digest()
         # stays the same whatever is squeezed later
-        self._digest = field.from_mont(self._state[:, DIGEST_INDEX, :])
+        self._digest = field_cuda.from_mont(self._state[:, DIGEST_INDEX, :])
 
     def squeeze(self, n_words: int = 1) -> torch.Tensor:
         """(B, n_words, N_DIGITS) canonical output words; the first equals
@@ -155,7 +156,7 @@ class SpongeState:
                 self._squeezed = 0
             out.append(self._state[:, DIGEST_INDEX + self._squeezed, :])
             self._squeezed += 1
-        return field.from_mont(torch.stack(out, dim=1))
+        return field_cuda.from_mont(torch.stack(out, dim=1))
 
     def digest(self) -> torch.Tensor:
         """(B, N_DIGITS) canonical digest, equal to sponge_hash's; does not

@@ -127,6 +127,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.hades_field_invert_launch.argtypes = [p, p, i64, i32, p]
     lib.hades_field_invert_launch.restype = ctypes.c_int
+    lib.hades_field_convert_launch.argtypes = [p, i64, i64, p, i32, p]
+    lib.hades_field_convert_launch.restype = ctypes.c_int
     lib.hades_error_string.argtypes = [ctypes.c_int]
     lib.hades_error_string.restype = ctypes.c_char_p
     return lib

@@ -343,6 +343,19 @@ HADES_HD uint32_t r2_limb(int i) {
   }
 }
 
+// r = a R mod p (kTo: the product with R^2, into the Montgomery form) or
+// a R^-1 mod p (the product with 1, out of it) for any a < 2^256: the
+// constant is below p, so the product is below R p and redc's quotient
+// below 2p, as for mont_mul. The same product as the torch ops' to_mont and
+// from_mont (field.py), so the bits agree. r may alias a.
+template <bool kTo>
+HADES_FN void mont_convert(uint32_t r[kLimbs], const uint32_t a[kLimbs]) {
+  uint32_t c[kLimbs];
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) c[j] = kTo ? r2_limb(j) : (j == 0 ? 1u : 0u);
+  mont_mul(r, a, c);
+}
+
 // The exponent p - 2 of Fermat's inverse: p's limbs but the two lowest
 // (p = 1 mod 2^32, so p - 2 borrows from limb 1). 255 bits, 164 of them set.
 HADES_HD uint32_t pm2_limb(int i) {
@@ -360,10 +373,7 @@ HADES_FN void fermat_invert(uint32_t r[kLimbs], const uint32_t a[kLimbs], bool m
   if (mont_in) {
     copy(base, a);
   } else {
-    uint32_t r2[kLimbs];
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) r2[j] = r2_limb(j);
-    mont_mul(base, a, r2);
+    mont_convert<true>(base, a);
   }
   copy(r, base);
 #pragma unroll

@@ -32,8 +32,8 @@ import datetime
 import torch
 import torch.distributed as tdist
 
-from .. import field
 from ..models.merkle import ARITY, _level_up, _pad_to_pow4, tree_levels
+from ..ops import field_cuda
 from ..params import N_DIGITS
 from ..utils import metrics
 
@@ -244,10 +244,10 @@ def merkle_root_sharded(leaves: torch.Tensor, mesh: Mesh, perm_mont_fn=None) -> 
     gathered = n // ARITY**h_local
     metrics.count("dist.collective_bytes", (gathered - gathered // n_dev) * N_DIGITS * 4)
     with metrics.span("dist.merkle"):
-        level = field.to_mont(_local(padded, mesh))
+        level = field_cuda.to_mont(_local(padded, mesh))
         for _ in range(h_local):
             level = _level_up(level, perm_mont_fn)
         level = _gather(level, mesh)
         for _ in range(total_h - h_local):
             level = _level_up(level, perm_mont_fn)
-        return field.from_mont(level[0])
+        return field_cuda.from_mont(level[0])

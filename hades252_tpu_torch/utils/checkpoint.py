@@ -21,8 +21,8 @@ import os
 import numpy as np
 import torch
 
-from .. import field
 from ..models.merkle import ARITY, _level_up, _pad_to_pow4, tree_levels
+from ..ops import field_cuda
 from ..params import N_DIGITS
 from .encoding import bytes_to_digits, digits_to_bytes
 
@@ -115,15 +115,15 @@ def merkle_root_checkpointed(leaves: torch.Tensor, d: str, perm_mont_fn=None,
 
     start = highest_saved_level(d, height, n)
     if start is None or (start == 0 and not save_leaves):
-        level = field.to_mont(padded)
+        level = field_cuda.to_mont(padded)
         start = 0
         if save_leaves:
             save_level(d, 0, padded_host)
     else:
         loaded = load_level(d, start, n // ARITY**start).astype(np.int32)
-        level = field.to_mont(torch.from_numpy(loaded).to(leaves.device))
+        level = field_cuda.to_mont(torch.from_numpy(loaded).to(leaves.device))
 
     for k in range(start, height):
         level = _level_up(level, perm_mont_fn)
-        save_level(d, k + 1, field.from_mont(level).cpu().numpy())
-    return field.from_mont(level[0]) if height > 0 else padded[0]
+        save_level(d, k + 1, field_cuda.from_mont(level).cpu().numpy())
+    return field_cuda.from_mont(level[0]) if height > 0 else padded[0]

@@ -1,5 +1,6 @@
 """The H100's bound on the permutation kernels (the counterpart of
-`hades252_tpu/utils/roofline.py`) and on the field inversion's.
+`hades252_tpu/utils/roofline.py`) and on the field inversion's and
+conversion's.
 
 The least time the card could take for b states through a schedule,
 canonical in and out, is the largest of three times (T / C / M):
@@ -31,6 +32,13 @@ INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def _bounded(times: dict) -> dict:
+    """T / C / M times with the largest as the bound, and which kind binds."""
+    bound_ms = max(times.values())
+    return {"bound_ms": bound_ms,
+            "bound_by": "bytes" if bound_ms == times["bytes_ms"] else "operations", **times}
 
 
 def bound(schedule: str, b: int) -> dict:
@@ -95,9 +103,7 @@ def bound(schedule: str, b: int) -> dict:
     times = {"tensor_ms": 2 * tensor * b / tensor_rate * 1e3,
              "cores_ms": cores * b / INT32_OPS_PER_S * 1e3,
              "bytes_ms": (2 * WIDTH * N_DIGITS * 4 * b + table_bytes) / HBM_BYTES_PER_S * 1e3}
-    bound_ms = max(times.values())
-    return {"bound_ms": bound_ms,
-            "bound_by": "bytes" if bound_ms == times["bytes_ms"] else "operations", **times}
+    return _bounded(times)
 
 
 def invert_bound(n: int, *, mont_in: bool) -> dict:
@@ -110,9 +116,17 @@ def invert_bound(n: int, *, mont_in: bool) -> dict:
     ops = 254 * 108 + 163 * 136 + (0 if mont_in else 136)
     times = {"tensor_ms": 0.0, "cores_ms": ops * n / INT32_OPS_PER_S * 1e3,
              "bytes_ms": 2 * N_DIGITS * 4 * n / HBM_BYTES_PER_S * 1e3}
-    bound_ms = max(times.values())
-    return {"bound_ms": bound_ms,
-            "bound_by": "bytes" if bound_ms == times["bytes_ms"] else "operations", **times}
+    return _bounded(times)
+
+
+def convert_bound(n: int) -> dict:
+    """The least time the card could take for `field_cuda.to_mont` or
+    `from_mont` of n elements, as `invert_bound` gives it: one Montgomery
+    product of 136 multiply-adds an element (`ops/csrc/field.cuh`'s
+    mont_convert), 64 B read and 64 B written; bound by the bytes."""
+    times = {"tensor_ms": 0.0, "cores_ms": 136 * n / INT32_OPS_PER_S * 1e3,
+             "bytes_ms": 2 * N_DIGITS * 4 * n / HBM_BYTES_PER_S * 1e3}
+    return _bounded(times)
 
 
 _RESOURCE = {"tensor_ms": "tensor cores", "cores_ms": "cuda cores", "bytes_ms": "memory"}

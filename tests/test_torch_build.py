@@ -17,7 +17,7 @@ import chip_smoke
 from hades252_tpu_torch import field, selftest
 from hades252_tpu_torch.models import cipher, merkle, sponge
 from hades252_tpu_torch.ops import _build, perm_cuda
-from hades252_tpu_torch.params import P, digits_to_limbs, mxu8_tables
+from hades252_tpu_torch.params import P, digits_to_limbs, int_to_digits, mxu8_tables
 from hades252_tpu_torch.utils import roofline
 from hades252_tpu_torch.utils.encoding import digits_to_ints
 
@@ -218,6 +218,36 @@ int main(int argc, char** argv) {
 """
 
 
+# field.cuh's mont_convert (the body of hades_field_convert) over 8-limb
+# values: harness IN TO(1: into the Montgomery form, 0: out of it) -> 8 limbs
+# a value on stdout.
+HARNESS_CONV = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+#include "field.cuh"
+using namespace hades;
+int main(int argc, char** argv) {
+  FILE* f = fopen(argv[1], "rb");
+  std::vector<uint32_t> v;
+  uint32_t w;
+  while (fread(&w, 4, 1, f) == 1) v.push_back(w);
+  fclose(f);
+  const bool to = atoi(argv[2]) != 0;
+  for (size_t i = 0; i + kLimbs <= v.size(); i += kLimbs) {
+    uint32_t r[kLimbs];
+    if (to) {
+      mont_convert<true>(r, &v[i]);
+    } else {
+      mont_convert<false>(r, &v[i]);
+    }
+    fwrite(r, 4, kLimbs, stdout);
+  }
+  return 0;
+}
+"""
+
+
 def _cxx():
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
@@ -356,6 +386,45 @@ def test_fermat_invert_on_host_matches_pow(harness_inv, tmp_path, inputs, mont_i
     for v, row in zip(vals, rows, strict=True):
         inv = pow(v, P - 2, P)
         assert sum(int(w) << (32 * i) for i, w in enumerate(row)) == inv * _R % P
+
+
+@pytest.fixture(scope="module")
+def harness_conv(tmp_path_factory):
+    d = tmp_path_factory.mktemp("harness_conv")
+    (d / "h.cpp").write_text(HARNESS_CONV)
+    subprocess.run([_cxx(), "-O1", "-std=c++17", "-w", f"-I{_build.CSRC}", "-o",
+                    str(d / "h"), str(d / "h.cpp")], check=True, timeout=300)
+    return d / "h"
+
+
+#: the conversion's inputs: seeded canonical elements, the edges, R mod p (the
+#: Montgomery form of 1) and the largest 256-bit value, which the product by
+#: a constant below p also reduces
+CONV_INPUTS = {
+    "seeded": [int.from_bytes(np.random.default_rng(21).bytes(32), "little") % P
+               for _ in range(24)],
+    "zero": [0], "one": [1], "p_minus_1": [P - 1], "r_mod_p": [_R % P], "top": [_R - 1],
+}
+
+
+@pytest.mark.parametrize("inputs", CONV_INPUTS)
+@pytest.mark.parametrize("to", [1, 0])
+def test_mont_convert_on_host_matches_int_oracle(harness_conv, tmp_path, inputs, to):
+    """field.cuh's mont_convert (the body of hades_field_convert) compiled
+    for the host: a R mod p into the Montgomery form and a R^-1 mod p out of
+    it, against Python's ints, and the same as field.py's torch ops."""
+    vals = CONV_INPUTS[inputs]
+    limbs = [[(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for x in vals]
+    np.asarray(limbs, "<u4").tofile(tmp_path / "in.bin")
+    out = subprocess.run([str(harness_conv), str(tmp_path / "in.bin"), str(to)],
+                         capture_output=True, check=True, timeout=60).stdout
+    rows = np.frombuffer(out, "<u4").reshape(len(vals), 8)
+    factor = _R % P if to else pow(_R, -1, P)
+    got = [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in rows]
+    assert got == [v * factor % P for v in vals]
+    digits = torch.from_numpy(np.stack([int_to_digits(v) for v in vals]).astype(np.int32))
+    plain = (field.to_mont if to else field.from_mont)(digits)
+    assert [int(v) for v in digits_to_ints(plain.numpy().astype(np.uint32))] == got
 
 
 @pytest.fixture(scope="module")
@@ -620,9 +689,9 @@ def test_source_hash_covers_every_source():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = sorted(p.name for p in _build.CSRC.glob("*.cu*"))
-    assert names == ["field.cuh", "field_inv.cu", "perm.cu", "perm.cuh", "perm_dense.cuh",
-                     "perm_dense_block.cuh", "perm_hybp.cu", "perm_hybp.cuh", "perm_mxu.cu",
-                     "perm_mxu8.cu", "perm_mxu8.cuh", "wgmma.cuh"]
+    assert names == ["field.cuh", "field_conv.cu", "field_inv.cu", "perm.cu", "perm.cuh",
+                     "perm_dense.cuh", "perm_dense_block.cuh", "perm_hybp.cu", "perm_hybp.cuh",
+                     "perm_mxu.cu", "perm_mxu8.cu", "perm_mxu8.cuh", "wgmma.cuh"]
 
 
 def test_ptxas_summary():
@@ -702,6 +771,19 @@ def test_chip_smoke_plain_planar_slices(monkeypatch):
     x = torch.from_numpy(chip_smoke.random_elements((5, 7), rng).transpose(0, 2, 1).copy())
     got = chip_smoke.plain_planar(x, convert=False, schedule="opt")
     assert torch.equal(got, perm_cuda.permute_planar_plain(x, convert=False, schedule="opt"))
+
+
+@pytest.mark.parametrize("layout", ["rows", "column", "padded"])
+def test_chip_smoke_convert_inputs(layout):
+    """Phase 4b's conversion inputs: n elements in the layout the kernel's
+    callers pass, the first three 0, 1 and p - 1, the rest below p."""
+    x = chip_smoke.convert_inputs(1000, layout, np.random.default_rng(6), torch.device("cpu"))
+    rows = {"rows": 1000, "column": 1000, "padded": 1024}[layout]
+    assert x.shape == (rows, 16) and x.dtype == torch.int32
+    assert x.stride(0) == (80 if layout == "column" else 16)
+    vals = digits_to_ints(x.numpy())
+    assert [int(v) for v in vals[:3]] == [0, 1, P - 1]
+    assert all(int(v) < P for v in vals) and not x[1000:].any()
 
 
 def test_chip_smoke_oracles_agree_with_the_port():

@@ -353,6 +353,109 @@ def test_field_invert_kernel_replays_in_a_graph(cuda_device):
     assert field_cuda.launches == launches + 2  # a replay calls no wrapper
 
 
+def _convert_inputs(layout: str, n: int, seed: int, device) -> torch.Tensor:
+    """n seeded elements on the card, the first three 0, 1 and p - 1: as
+    rows, or as a column of a (n, 5, 16) permutation output (rows 80
+    digits apart, the Merkle verifier's node)."""
+    from hades252_tpu_torch.params import P, int_to_digits
+
+    x = _elements((n,), seed)
+    edges = torch.from_numpy(np.stack([int_to_digits(v) for v in (0, 1, P - 1)]).astype(np.int32))
+    x[:3] = edges[:n]
+    x = x.to(device)
+    return x if layout == "rows" else torch.stack([x.flip(0)] * 2 + [x] * 3, dim=1)[:, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, (1 << 14) + 3, 1 << 16])
+@pytest.mark.parametrize("layout", ["rows", "strided_rows"])
+@pytest.mark.parametrize("to", [True, False])
+def test_field_convert_kernel_matches_plain(cuda_device, n, layout, to):
+    """hades_field_convert against field's torch ops on the card: one
+    element, a size that ends inside a warp, 2^16; rows contiguous or read
+    in place 80 digits apart; into and out of the Montgomery form, and
+    into it from leaves zero-padded to a power of four, as the Merkle build
+    converts them. One launch a call, n elements counted."""
+    x = _convert_inputs(layout, n, 90 + n % 89, cuda_device)
+    assert x.stride(0) == (16 if layout == "rows" else 80)
+    convert, plain = (field_cuda.to_mont, field.to_mont) if to else \
+        (field_cuda.from_mont, field.from_mont)
+    launches, converted = field_cuda.conversions, field_cuda.converted
+    got = convert(x)
+    torch.cuda.synchronize()
+    assert field_cuda.conversions == launches + 1 and field_cuda.converted == converted + n
+    assert torch.equal(got, plain(x)) and got.is_contiguous()
+    if to:
+        padded = field_cuda.to_mont(merkle._pad_to_pow4(x))
+        rows = merkle.ARITY ** merkle.tree_levels(n)
+        assert field_cuda.converted == converted + n + rows
+        assert padded.shape == (rows, 16) and torch.equal(padded[:n], got)
+        assert not padded[n:].any()
+
+
+@pytest.mark.cuda
+def test_field_convert_kernel_reads_unaligned_rows_through_a_copy(cuda_device):
+    """Rows the 16-byte vectors cannot reach in place (18 digits apart) are
+    made contiguous first, then converted in one launch."""
+    x = _elements((1000,), 95).to(cuda_device)
+    odd = torch.cat([x, x[:, :2]], dim=1)[:, :16]
+    launches = field_cuda.conversions
+    got = field_cuda.to_mont(odd)
+    torch.cuda.synchronize()
+    assert field_cuda.conversions == launches + 1 and torch.equal(got, field.to_mont(x))
+
+
+@pytest.mark.cuda
+def test_merkle_drivers_never_take_the_plain_conversion(cuda_device, monkeypatch):
+    """The Merkle drivers on a card convert through hades_field_convert
+    only: with field's conversions made to raise, the build, the root, the
+    batched and the single verification run, each conversion one launch,
+    and agree bit for bit with the same drivers on the CPU."""
+    n, k = 1000, 300
+    leaves = _elements((n,), 96)
+    height = merkle.tree_levels(n)
+    idx = torch.from_numpy(np.random.default_rng(97).integers(0, n, k))
+    cpu_levels = merkle.merkle_levels(leaves)
+    cpu_root = field.from_mont(cpu_levels[-1][0])
+    cpu_path = merkle.merkle_open(cpu_levels, 17)
+    cpu_single = [merkle.merkle_verify(cpu_root, leaves[i], cpu_path, height) for i in (17, 18)]
+    assert cpu_single == [True, False]
+    cpu_sibs, cpu_poss = merkle.merkle_open_batched(cpu_levels, idx)
+    tampered = cpu_sibs.clone()
+    tampered[5, 2, 1, 0] ^= 1
+    cpu_ok = merkle.merkle_verify_batched(cpu_root, leaves[idx], tampered, cpu_poss, height)
+    assert not bool(cpu_ok[5]) and int(cpu_ok.sum()) == k - 1
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain conversion ran for a CUDA tensor")
+
+    monkeypatch.setattr(field, "to_mont", refuse)
+    monkeypatch.setattr(field, "from_mont", refuse)
+    dev = leaves.to(cuda_device)
+    merkle._tag_mont(dev.device)  # the node rule's tag, converted once a device
+    launches, converted = field_cuda.conversions, field_cuda.converted
+    levels = merkle.merkle_levels(dev)
+    root = merkle.merkle_root(dev)
+    torch.cuda.synchronize()
+    assert field_cuda.conversions - launches == 3  # the levels', the root's in and out
+    assert field_cuda.converted - converted == 2 * 4**height + 1  # leaves padded to 4^height
+    assert len(levels) == len(cpu_levels)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(levels, cpu_levels))
+    assert torch.equal(root.cpu(), cpu_root)
+    sibs, poss = merkle.merkle_open_batched(levels, idx.to(cuda_device))
+    assert torch.equal(sibs.cpu(), cpu_sibs) and torch.equal(poss.cpu(), cpu_poss)
+    launches, converted = field_cuda.conversions, field_cuda.converted
+    ok = merkle.merkle_verify_batched(root, dev[idx.to(cuda_device)], tampered.to(cuda_device),
+                                      poss, height)
+    torch.cuda.synchronize()
+    assert field_cuda.conversions - launches == 2 and field_cuda.converted - converted == 2 * k
+    assert torch.equal(ok.cpu(), cpu_ok)
+    path = merkle.merkle_open(levels, 17)
+    launches = field_cuda.conversions
+    assert [merkle.merkle_verify(root, dev[i], path, height) for i in (17, 18)] == cpu_single
+    assert field_cuda.conversions - launches == 3  # 17's in and out; 18 fails at the leaf
+
+
 def _chain_circuit(values):
     """A circuit of 2 len(values) gates with shared wires and a public
     output."""

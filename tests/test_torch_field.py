@@ -125,3 +125,59 @@ def test_field_cuda_invert_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError):
         field_cuda.invert(torch.zeros((2, 16), dtype=torch.int32, device="meta"), mont_in=False)
     assert field_cuda.invert(torch.zeros((0, 16), dtype=torch.int32), mont_in=True).shape == (0, 16)
+
+
+def _layouts(a: np.ndarray) -> dict:
+    """The digit tensors the conversions' callers pass: rows, a column of a
+    permutation's (K, 5, 16) output (rows 80 digits apart, the Merkle
+    verifier's node), one element, and a batch of messages."""
+    x = _t(a)
+    states = torch.stack([x] * 5, dim=1)
+    return {"rows": x, "strided_rows": states[:, 1], "one": x[3],
+            "batched": x[:70].reshape(2, 35, 16)}
+
+
+@pytest.mark.parametrize("to", [True, False])
+@pytest.mark.parametrize("layout", ["rows", "strided_rows", "one", "batched"])
+def test_field_cuda_convert_on_the_cpu_is_field_s(operands, monkeypatch, to, layout):
+    """ops/field_cuda.to_mont / from_mont on a CPU tensor: field's own
+    conversion, bit for bit, on each layout the callers pass, a contiguous
+    result of the input's shape, and no kernel launched."""
+    from hades252_tpu_torch.ops import field_cuda
+
+    x = _layouts(operands[0])[layout]
+    monkeypatch.setattr(field_cuda, "conversions", 0)
+    monkeypatch.setattr(field_cuda, "converted", 0)
+    got = (field_cuda.to_mont if to else field_cuda.from_mont)(x)
+    assert torch.equal(got, (field.to_mont if to else field.from_mont)(x))
+    assert got.shape == x.shape and got.is_contiguous()
+    assert field_cuda.conversions == 0 and field_cuda.converted == 0
+
+
+def test_field_cuda_to_mont_pads_rows_with_zeros(operands):
+    """to_mont of leaves zero-padded to a power of four, as the Merkle build
+    converts them, is their conversion followed by zero rows (0 is its own
+    Montgomery form)."""
+    from hades252_tpu_torch.models.merkle import _pad_to_pow4
+    from hades252_tpu_torch.ops import field_cuda
+
+    x = _t(operands[0][:13])
+    got = field_cuda.to_mont(_pad_to_pow4(x))
+    assert got.shape == (16, 16) and not got[13:].any()
+    assert torch.equal(got[:13], field.to_mont(x))
+
+
+def test_field_cuda_convert_rejects_what_the_kernel_cannot_take():
+    from hades252_tpu_torch.ops import field_cuda
+
+    x = torch.zeros((4, 16), dtype=torch.int32)
+    for convert in (field_cuda.to_mont, field_cuda.from_mont):
+        with pytest.raises(ValueError):
+            convert(x.long())
+        with pytest.raises(ValueError):
+            convert(torch.zeros((4, 15), dtype=torch.int32))
+        with pytest.raises(ValueError):
+            convert(torch.stack([x, x], dim=-1)[..., 0])  # digits 2 int32 apart
+        with pytest.raises(ValueError):
+            convert(torch.zeros((4, 16), dtype=torch.int32, device="meta"))
+        assert convert(torch.zeros((0, 16), dtype=torch.int32)).shape == (0, 16)

@@ -201,6 +201,33 @@ def test_merkle_verify_matches_jax(n):
     assert merkle.merkle_verify(root, node, merkle.merkle_open(levels, 5)[1:], height - 1)
 
 
+def test_merkle_drivers_convert_through_field_cuda(monkeypatch):
+    """Every conversion of the Merkle drivers goes through ops/field_cuda
+    (one kernel launch on a card, field's own ops on the CPU): the build's
+    leaves zero-padded to a power of four, then converted, the root out; a verification's leaves in and its nodes out, read in place from
+    the permutation's output."""
+    from hades252_tpu_torch.ops import field_cuda
+
+    leaves, _, levels, idx, _, (sibs, poss) = _opened(50)
+    calls = []
+    for name in ("to_mont", "from_mont"):
+        def spy(a, _real=getattr(field_cuda, name), _name=name):
+            calls.append((_name, tuple(a.shape), a.is_contiguous()))
+            return _real(a)
+        monkeypatch.setattr(field_cuda, name, spy)
+    root = merkle.merkle_root(_t(leaves))
+    assert torch.equal(root, field.from_mont(levels[-1][0]))
+    assert calls == [("to_mont", (64, 16), True), ("from_mont", (16,), True)]
+    calls.clear()
+    height = merkle.tree_levels(50)
+    opened = field.from_mont(levels[0][idx])  # a padding leaf among them
+    assert bool(merkle.merkle_verify_batched(root, opened, sibs, poss, height).all())
+    assert calls == [("to_mont", (7, 16), True), ("from_mont", (7, 16), False)]
+    calls.clear()
+    assert merkle.merkle_verify(root, _t(leaves[5]), merkle.merkle_open(levels, 5), height)
+    assert [c[0] for c in calls] == ["to_mont", "from_mont"]
+
+
 def test_model_input_validation():
     with pytest.raises(ValueError):
         sponge.sponge_hash(torch.zeros((3, 16), dtype=torch.int32))

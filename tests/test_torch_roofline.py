@@ -71,6 +71,21 @@ def test_invert_bound_counts_fermat_invert(n, mont_in, cores_ms):
     assert got["bound_by"] == "operations" and got["bound_ms"] == got["cores_ms"]
 
 
+@pytest.mark.parametrize("n,bytes_ms", [
+    (4 ** 11, 0.1603),          # the Merkle build's leaves
+    (1 << 14, 0.0006),          # the openings' leaves and nodes
+])
+def test_convert_bound_counts_one_product(n, bytes_ms):
+    """The conversion kernel's bound: 64 B read and 64 B written an element
+    over the memory rate, against one product's 136 multiply-adds; bound by
+    the bytes."""
+    got = roofline.convert_bound(n)
+    assert got["bytes_ms"] == pytest.approx(128 * n / roofline.HBM_BYTES_PER_S * 1e3)
+    assert got["cores_ms"] == pytest.approx(136 * n / roofline.INT32_OPS_PER_S * 1e3)
+    assert round(got["bytes_ms"], 4) == bytes_ms and got["tensor_ms"] == 0
+    assert got["bound_by"] == "bytes" and got["bound_ms"] == got["bytes_ms"]
+
+
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     with profiling.trace(str(tmp_path / "tr")) as prof:
         torch.ones(64, dtype=torch.int64).cumsum(0)
