@@ -1449,8 +1449,8 @@ def aggregate_verify_phase(composers: list, succinct: dict) -> dict:
                    torch.from_numpy(sibs.astype(np.int32)).to(dev),
                    torch.from_numpy(poss.astype(np.int64)).to(dev))
     graph = fri_cuda.chain_graph(CHAIN_OPENINGS, height, "hybp", dev)
-    check(torch.equal(graph(*chain_eager), fri_cuda._chain_nodes_body(
-        *chain_eager, fri_cuda._perm_fn("hybp"), fri_cuda._node_tag(dev))),
+    check(torch.equal(graph(*chain_eager), merkle.chain_nodes(
+        *chain_eager, fri_cuda._node_tag(dev), fri_cuda._perm_fn("hybp"))),
           "the chain's graph replay != its eager body")
     times["chain"] = wall
     log(f"[device verify] device_chain_fn over {CHAIN_OPENINGS} openings of a "

@@ -19,7 +19,7 @@ import torch
 
 from . import field, prover_cuda, selftest
 from .models import cipher, merkle, sponge
-from .ops import perm_cuda, permute
+from .ops import perm_cuda, permute, resolve_device
 from .parallel import dist, multihost
 from .params import P
 from .utils import native
@@ -43,11 +43,9 @@ def entry(device="cuda"):
     torch oracle `permute` and a (256, 5, 16) batch of raw 16-bit digits
     from the same seed, as the JAX entry gives off the TPU. Without a card
     the default raises."""
-    dev = torch.device(device)
+    dev = resolve_device("entry", device)
     rng = np.random.default_rng(0)
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("entry: no CUDA device; pass device='cpu' for the torch oracle")
         selftest.assert_device_correct(schedules=(perm_cuda.DEFAULT_SCHEDULE,), device=dev,
                                        include_mont=False)
         x = rng.integers(0, 1 << 16, (5, 16, 1024), dtype=np.int64)

@@ -95,7 +95,9 @@ from .fri import (
     layer_positions,
     tree_columns,
 )
-from .ops import field_cuda, ntt
+from .models.merkle import chain_nodes, node_hash
+from .models.sponge import absorb
+from .ops import field_cuda, ntt, resolve_device
 from .ops.perm_cuda import DEFAULT_SCHEDULE, _check_schedule, permute_cuda
 from .params import N_DIGITS, P, R, int_to_digits
 from .plonk import Transcript, _domain_root, statement_digest
@@ -105,35 +107,16 @@ from .utils.encoding import digits_to_ints, ints_to_digits
 from .utils.graphs import _GRAPHS, CudaGraph
 
 
-def _device(device) -> torch.device:
-    """The device to run on: the card unless the caller asks for the CPU.
-    Raises without a card and for a device with no kernel; a CUDA device
-    gets its index, so that caches keyed by it meet one key."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device (pass device='cpu' for the plain version)")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"no kernel for device {dev}")
-    return dev
-
-
 def _entry_device(who: str, schedule: str, device, mesh=None) -> torch.device:
     """An entry point's device after checking its schedule: with a mesh
     (parallel/dist.Mesh) the mesh's, which `device` may not contradict;
-    else _device's, with the entry point's name in front of a missing
-    card's message."""
+    else ops.resolve_device's."""
     _check_schedule(schedule)
     if mesh is not None:
         from .parallel.dist import mesh_device
 
         return mesh_device(mesh, device)
-    try:
-        return _device(device)
-    except RuntimeError as e:
-        raise RuntimeError(f"{who}: {e}") from None
+    return resolve_device(who, device)
 
 
 def device_pool_perm(schedule: str = DEFAULT_SCHEDULE, device="cuda"):
@@ -275,13 +258,11 @@ def _leaf_tag(bs: int, device: torch.device) -> torch.Tensor:
 def _tree_levels_body(level: torch.Tensor, perm_fn, node_tag: torch.Tensor) -> list:
     """All arity-4 tree levels from (B, N, D) leaf digests (N a power of
     4), node rule identical to fri.tree_build_digits: every level is one
-    batched permutation over all B rows' nodes."""
+    batched permutation over all B rows' nodes (merkle.node_hash)."""
     levels = [level]
     while level.shape[1] > 1:
         b, k = level.shape[0], level.shape[1] // ARITY
-        children = level.reshape(b * k, ARITY, N_DIGITS)
-        states = torch.cat([node_tag.expand(b * k, 1, N_DIGITS), children], dim=1)
-        level = perm_fn(states)[:, DIGEST_INDEX].reshape(b, k, N_DIGITS)
+        level = node_hash(level.reshape(b, k, ARITY, N_DIGITS), node_tag, perm_fn)
         levels.append(level)
     return levels
 
@@ -295,8 +276,7 @@ def _sponge_digests_body(blocks: torch.Tensor, perm_fn, leaf_tag: torch.Tensor) 
     blocks = F.pad(blocks, (0, 0, 0, n_chunks * 4 - bs))
     state = perm_fn(torch.cat([leaf_tag.expand(k, 1, N_DIGITS), blocks[:, 0:4]], dim=1))
     for c in range(1, n_chunks):
-        word = field.add_mod(state[:, 1:5], blocks[:, 4 * c : 4 * c + 4])
-        state = perm_fn(torch.cat([state[:, :1], word], dim=1))
+        state = absorb(state, blocks[:, 4 * c : 4 * c + 4], perm_fn)
     return state[:, DIGEST_INDEX]
 
 
@@ -1146,36 +1126,16 @@ def prove_aggregate_device(composers, pk: ProvingKey, rng=None, *,
 # ---------------------------------------------------------------------------
 
 
-def _chain_nodes_body(node, sibs, poss, perm_fn, node_tag) -> torch.Tensor:
-    """Recompute the root-level digests of K compact openings: node (K, D)
-    canonical digits of the starting entries, sibs (K, h, 3, D), poss
-    (K, h) int64. At each level the node is put back among its siblings
-    (fri._insert_at's rule; a position out of range is clamped, and the
-    host's range check rejects its row) and the K groups are hashed in one
-    permutation. The chain_fn of fri.tree_verify_batched."""
-    k, h = poss.shape
-    tag = node_tag.expand(k, 1, N_DIGITS)
-    for lvl in range(h):
-        pos, sl = poss[:, lvl], sibs[:, lvl]
-        cols = []
-        for j in range(ARITY):
-            idx = torch.clamp(j - (pos < j).long(), 0, ARITY - 2)
-            s = torch.gather(sl, 1, idx[:, None, None].expand(k, 1, N_DIGITS))[:, 0]
-            cols.append(torch.where((pos == j)[:, None], node, s))
-        node = perm_fn(torch.cat([tag, torch.stack(cols, dim=1)], dim=1))[:, DIGEST_INDEX]
-    return node
-
-
 @functools.lru_cache(maxsize=_GRAPHS)
 def chain_graph(k: int, h: int, schedule: str, device: torch.device) -> CudaGraph:
-    """_chain_nodes_body of K openings of height h as one CUDA graph, captured
-    at its first use: the counterpart of the jitted `_chain_nodes_dev`."""
+    """merkle.chain_nodes of K openings of height h under the tree nodes'
+    tag, as one CUDA graph captured at its first use: the counterpart of the
+    jitted `_chain_nodes_dev`."""
     tag, perm_fn = _node_tag(device), _perm_fn(schedule)
     inputs = (torch.zeros((k, N_DIGITS), dtype=torch.int32, device=device),
               torch.zeros((k, h, ARITY - 1, N_DIGITS), dtype=torch.int32, device=device),
               torch.zeros((k, h), dtype=torch.int64, device=device))
-    return CudaGraph(lambda node, sibs, poss: _chain_nodes_body(node, sibs, poss, perm_fn, tag),
-                     inputs)
+    return CudaGraph(lambda node, sibs, poss: chain_nodes(node, sibs, poss, tag, perm_fn), inputs)
 
 
 def device_chain_fn(node, sibs, poss, *, schedule: str = DEFAULT_SCHEDULE,
@@ -1193,7 +1153,7 @@ def device_chain_fn(node, sibs, poss, *, schedule: str = DEFAULT_SCHEDULE,
     if dev.type == "cuda" and k and h:
         out = chain_graph(k, h, schedule, dev)(*args)
     else:
-        out = _chain_nodes_body(*(a.to(dev) for a in args), _perm_fn(schedule), _node_tag(dev))
+        out = chain_nodes(*(a.to(dev) for a in args), _node_tag(dev), _perm_fn(schedule))
     return out.cpu().numpy().astype(np.uint32)
 
 
@@ -1362,8 +1322,7 @@ def _fused_pool_body(leaf_blocks, nodes_lvls, sels, root_sels, perm_fn, node_tag
     roots = [pool[root_sels[0]]]  # single-leaf trees: the root is the leaf digest
     for lvl, sel in enumerate(sels):
         children = torch.cat([pool, _widen(nodes_lvls[lvl]), zero])[sel]   # (G, ARITY, D)
-        states = torch.cat([node_tag.expand(children.shape[0], 1, N_DIGITS), children], dim=1)
-        pool = perm_fn(states)[:, DIGEST_INDEX]
+        pool = node_hash(children, node_tag, perm_fn)
         roots.append(pool[root_sels[lvl + 1]])
     return tuple(roots)
 

@@ -10,6 +10,11 @@ leaves is zero-padded on the right. Each level is one batched permutation
 call over all its parents, and the whole build stays in the Montgomery
 domain: only the leaves are converted in and the root out.
 
+`node_hash`, `insert_at` and `chain_nodes` are the node rule's one home.
+They take the tag and the permutation as arguments, so `fri_cuda`'s trees,
+pooled phase and chains (fri.TAG_PCS, canonical) and `parallel/dist.py`
+call them too.
+
 A tree of a stated height (Dusk's note tree has 17 levels) holds the
 built tree as its leftmost subtree and zero leaves everywhere else: above
 the built root, each node is child 0 of its group and its three siblings
@@ -56,14 +61,21 @@ def _pad_to_pow4(leaves: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(leaves, (0, 0, 0, full - n))
 
 
+def node_hash(children: torch.Tensor, tag: torch.Tensor, perm_fn) -> torch.Tensor:
+    """The node rule over groups: (..., ARITY, D) children -> (..., D)
+    digests, every group one row of one permutation call. The tag (D,) and
+    perm_fn share a domain (here Montgomery, canonical in fri_cuda)."""
+    lead = children.shape[:-2]
+    groups = children.reshape(-1, ARITY, N_DIGITS)
+    states = torch.cat([tag.expand(groups.shape[0], 1, N_DIGITS), groups], dim=1)
+    return perm_fn(states)[:, DIGEST_INDEX].reshape(*lead, N_DIGITS)
+
+
 def _level_up(nodes_mont: torch.Tensor, perm_mont_fn) -> torch.Tensor:
     """One tree level: (N, D) Montgomery node values -> (N/4, D) parents."""
     with metrics.span("merkle.level"):
-        n = nodes_mont.shape[0]
-        children = nodes_mont.reshape(n // ARITY, ARITY, N_DIGITS)
-        tag = _tag_mont(nodes_mont.device).expand(n // ARITY, 1, N_DIGITS)
-        states = torch.cat([tag, children], dim=1)  # (N/4, WIDTH, D)
-        return perm_mont_fn(states)[:, DIGEST_INDEX, :]
+        return node_hash(nodes_mont.reshape(-1, ARITY, N_DIGITS), _tag_mont(nodes_mont.device),
+                         perm_mont_fn)
 
 
 def merkle_levels(leaves: torch.Tensor, perm_mont_fn=None) -> list[torch.Tensor]:
@@ -228,7 +240,7 @@ def _open_batched(levels: list[torch.Tensor], indices):
     return torch.stack(sibs, dim=1), torch.stack(poss, dim=1)
 
 
-def _insert_at(node: torch.Tensor, sibs: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def insert_at(node: torch.Tensor, sibs: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Rebuild the ARITY-child group: node (K, D) placed at pos (K,) among
     siblings (K, ARITY - 1, D). A position outside [0, ARITY) places the
     node nowhere."""
@@ -238,6 +250,16 @@ def _insert_at(node: torch.Tensor, sibs: torch.Tensor, pos: torch.Tensor) -> tor
         s = torch.gather(sibs, 1, idx[:, None, None].expand(-1, 1, sibs.shape[-1]))[:, 0]
         cols.append(torch.where((pos == j)[:, None], node, s))
     return torch.stack(cols, dim=1)
+
+
+def chain_nodes(node: torch.Tensor, sibs: torch.Tensor, poss: torch.Tensor, tag: torch.Tensor,
+                perm_fn) -> torch.Tensor:
+    """The top digests of K compact openings: node (K, D), sibs (K, h,
+    ARITY - 1, D), poss (K, h) int64; insert_at then node_hash a level. The
+    callers fold their range check of poss into the verdict."""
+    for lvl in range(poss.shape[1]):
+        node = node_hash(insert_at(node, sibs[:, lvl], poss[:, lvl]), tag, perm_fn)
+    return node
 
 
 def merkle_verify_batched(root, leaves, sibs, poss, height: int, perm_mont_fn=None):
@@ -251,7 +273,7 @@ def merkle_verify_batched(root, leaves, sibs, poss, height: int, perm_mont_fn=No
     level, so an unbound path length would let an internal node verify as a
     leaf; a path of another length rejects every row. Positions come from
     the prover and are range-checked: for a position outside [0, ARITY)
-    `_insert_at` never places the node, so the group would be all
+    `insert_at` never places the node, so the group would be all
     proof-supplied siblings, which on a padded tree (where duplicate
     sibling digests exist) could forge membership. The check is folded into
     the verdict.
@@ -265,17 +287,13 @@ def _verify_batched(root, leaves, sibs, poss, height: int, perm_mont_fn):
         from ..ops import default_perm_mont_fn
 
         perm_mont_fn = default_perm_mont_fn(leaves.device)
-    k = leaves.shape[0]
     if sibs.shape[1] != height or poss.shape[1] != height:
-        return torch.zeros((k,), dtype=torch.bool, device=leaves.device)
+        return torch.zeros((leaves.shape[0],), dtype=torch.bool, device=leaves.device)
     poss = poss.to(torch.int64)
     pos_ok = ((poss >= 0) & (poss < ARITY)).all(dim=1)
     with metrics.span("merkle.convert"):
         node = field_cuda.to_mont(leaves)
-    tag = _tag_mont(leaves.device).expand(k, 1, N_DIGITS)
-    for lvl in range(height):
-        children = _insert_at(node, sibs[:, lvl], poss[:, lvl])
-        node = perm_mont_fn(torch.cat([tag, children], dim=1))[:, DIGEST_INDEX, :]
+    node = chain_nodes(node, sibs, poss, _tag_mont(leaves.device), perm_mont_fn)
     with metrics.span("merkle.convert"):
         node = field_cuda.from_mont(node)
     digest_ok = (node == root[None]).all(dim=-1)
@@ -297,5 +315,5 @@ def merkle_verify(root, leaf, path, height: int, perm_mont_fn=None) -> bool:
     for sibs, pos in path:
         if not torch.equal(sibs[pos], node):
             return False
-        node = perm_mont_fn(torch.cat([tag[None, None], sibs[None]], dim=1))[0, DIGEST_INDEX, :]
+        node = node_hash(sibs, tag, perm_mont_fn)
     return torch.equal(field_cuda.from_mont(node), root)

@@ -38,9 +38,12 @@ def _initial_state(n_streams: int, length: int, device) -> torch.Tensor:
     return state
 
 
-def _absorb(state: torch.Tensor, chunk_mont: torch.Tensor, perm_mont_fn) -> torch.Tensor:
-    fed = field.add_mod(state[:, 1:, :], chunk_mont)
-    return perm_mont_fn(torch.cat([state[:, :1, :], fed], dim=1))
+def absorb(state: torch.Tensor, chunk: torch.Tensor, perm_fn) -> torch.Tensor:
+    """One sponge step: the (B, RATE, D) chunk added into words 1..4 of the
+    (B, WIDTH, D) state, then permuted, all in one domain (here Montgomery,
+    canonical in fri_cuda's leaf sponges)."""
+    fed = field.add_mod(state[:, 1:, :], chunk)
+    return perm_fn(torch.cat([state[:, :1, :], fed], dim=1))
 
 
 def sponge_hash(msgs: torch.Tensor, perm_mont_fn=None) -> torch.Tensor:
@@ -67,7 +70,7 @@ def sponge_hash(msgs: torch.Tensor, perm_mont_fn=None) -> torch.Tensor:
 
     state = _initial_state(b, length, msgs.device)
     for c in range(n_chunks):
-        state = _absorb(state, chunks[:, c], perm_mont_fn)
+        state = absorb(state, chunks[:, c], perm_mont_fn)
     metrics.count("sponge.messages", b)
     metrics.count("sponge.elements_absorbed", b * length)
     metrics.count("perms.executed", b * n_chunks)
@@ -127,7 +130,7 @@ class SpongeState:
         return self
 
     def _mix(self, chunk_mont: torch.Tensor) -> None:
-        self._state = _absorb(self._state, chunk_mont, self._perm)
+        self._state = absorb(self._state, chunk_mont, self._perm)
         metrics.count("perms.executed", self._b)
 
     def _finalize(self) -> None:

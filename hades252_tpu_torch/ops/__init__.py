@@ -2,6 +2,7 @@
 
 `make_perm_mont_fn` is the seam the models (sponge, Merkle, cipher) build on:
 a function (B, WIDTH, N_DIGITS) Montgomery-domain state -> permuted state.
+`resolve_device` is every device entry point's one device rule.
 """
 
 from __future__ import annotations
@@ -12,6 +13,22 @@ import torch
 
 from .perm_cuda import DEFAULT_SCHEDULE, _check_schedule, permute_cuda_mont
 from .perm_ref import permute, permute_mont  # noqa: F401
+
+
+def resolve_device(who: str, device) -> torch.device:
+    """The device the entry point `who` runs on: "cuda" gets the current
+    card's index, so that caches keyed by device meet one key whichever
+    entry point filled them. Raises RuntimeError without a card, ValueError
+    for a device that is neither the CPU nor a card."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"no kernel for device {dev}")
+    return dev
 
 
 def default_perm_mont_fn(device):

@@ -32,8 +32,8 @@ import datetime
 import torch
 import torch.distributed as tdist
 
-from ..models.merkle import ARITY, _level_up, _pad_to_pow4, tree_levels
-from ..ops import field_cuda
+from ..models.merkle import ARITY, _level_up, _pad_to_pow4, chain_nodes, tree_levels
+from ..ops import field_cuda, resolve_device
 from ..params import N_DIGITS
 from ..utils import metrics
 
@@ -83,12 +83,7 @@ def make_mesh(n_devices: int | None = None, *, device=None) -> Mesh | None:
         n_devices = world
     if not 1 <= n_devices <= world:
         raise ValueError(f"a mesh of {n_devices} ranks in a world of {world}")
-    dev = torch.device(f"cuda:{local_rank(rank)}" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("make_mesh: no CUDA device; pass device='cpu' for a mesh on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+    dev = resolve_device("make_mesh", f"cuda:{local_rank(rank)}" if device is None else device)
     group = tdist.new_group(list(range(n_devices)), timeout=_group_timeout)
     if rank >= n_devices:
         return None
@@ -166,19 +161,20 @@ def chain_nodes_sharded(node, sibs, poss, mesh: Mesh, perm_fn=None) -> torch.Ten
     """Mesh-sharded verification chains: the K compact-opening rows of a
     pooled height group shard over the mesh (rows are independent chains)
     and each rank runs its whole h-level chain through
-    fri_cuda._chain_nodes_body, the body of the unsharded device_chain_fn.
+    merkle.chain_nodes under the tree nodes' tag, as the unsharded
+    device_chain_fn does.
     node (K, N_DIGITS) int32 canonical digits, sibs (K, h, 3, N_DIGITS)
     int32, poss (K, h) integer; K divisible by the mesh size. Returns the
     (K, N_DIGITS) root-level digests, bit-identical to fri's host loop.
     perm_fn defaults to the `opt` kernel."""
-    from ..fri_cuda import _chain_nodes_body, _node_tag, _perm_fn
+    from ..fri_cuda import _node_tag, _perm_fn
     from ..ops.perm_cuda import DEFAULT_SCHEDULE
 
     if perm_fn is None:
         perm_fn = _perm_fn(DEFAULT_SCHEDULE)
     _check_rows(node.shape[0], mesh, "openings")
-    digests = _chain_nodes_body(_local(node, mesh), _local(sibs, mesh),
-                                _local(poss, mesh).long(), perm_fn, _node_tag(mesh.device))
+    digests = chain_nodes(_local(node, mesh), _local(sibs, mesh), _local(poss, mesh).long(),
+                          _node_tag(mesh.device), perm_fn)
     return _gather(digests, mesh)
 
 

@@ -47,7 +47,7 @@ import torch.nn.functional as F
 
 from . import field, plonk
 from .gadget import Composer
-from .ops import field_cuda, ntt
+from .ops import field_cuda, ntt, resolve_device
 from .params import P, R
 from .plonk import (
     CircuitKey,
@@ -451,13 +451,11 @@ def prove_batched(composers: list[Composer],
     if not composers:
         return []
     if mesh is None:
-        device = torch.device(device)
+        device = resolve_device("prove_batched", device)
     else:
         from .parallel.dist import mesh_device
 
         device = mesh_device(mesh, device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("prove_batched: no CUDA device; pass device='cpu' to prove on the CPU")
     phase1, phase2, phase3 = _select_phases(mesh, device)
     if key is None:
         key = plonk.preprocess(composers[0])

@@ -804,8 +804,8 @@ def test_verifier_graphs_replay_their_eager_bodies(cuda_device):
             sibs = _elements((k, h, 3), int(rng.integers(1 << 30))).to(dev)
             poss = torch.from_numpy(rng.integers(0, 4, (k, h))).to(dev)
             got = graph(node, sibs, poss)
-            want = fri_cuda._chain_nodes_body(node, sibs, poss, fri_cuda._perm_fn("opt"),
-                                              fri_cuda._node_tag(dev))
+            want = merkle.chain_nodes(node, sibs, poss, fri_cuda._node_tag(dev),
+                                      fri_cuda._perm_fn("opt"))
             assert torch.equal(got, want)
 
     vk, proofs, pis = _spoiled_fast_proofs(False)

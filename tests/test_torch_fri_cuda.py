@@ -575,3 +575,46 @@ def test_default_device_is_the_card_and_raises_without_one(calls):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fri_cuda.prove_succinct_device_batch([c, tiny(gadget, 2, 9)], pk)
     assert calls == []
+
+
+def test_one_device_rule_gives_a_key_one_table_entry(monkeypatch, calls):
+    """ops.resolve_device gives "cuda" the current card's index, so that
+    prove_batched and the device provers read a key's device tables from
+    one cache entry. The card's queries are stubbed and the tables stay
+    host tensors; each entry point stops at its first table."""
+    from hades252_tpu_torch import prover_cuda
+    from hades252_tpu_torch.ops import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    card = torch.device("cuda", 0)
+    assert resolve_device("t", "cuda") == card and resolve_device("t", "cuda:0") == card
+    assert resolve_device("t", "cpu") == CPU
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        resolve_device("t", "meta")
+
+    def host(digits, device):
+        return torch.from_numpy(digits.astype(np.int32))
+
+    monkeypatch.setattr(prover_cuda, "_to_device", host)
+    monkeypatch.setattr(fri_cuda, "_to_device", host)
+    tables, real = [], prover_cuda._device_tables
+
+    class Stop(Exception):
+        pass
+
+    def first_table(key, device, m=None, d_z=None):
+        tables.append((device, real(key, device, m, d_z)))
+        raise Stop
+
+    monkeypatch.setattr(prover_cuda, "_device_tables", first_table)
+    c = tiny(gadget)
+    pk, _ = fri.preprocess_succinct(c, fri.FriParams(**PARAMS, pow_bits=0), PERM)
+    for prove in (lambda: prover_cuda.prove_batched([c], pk.key),
+                  lambda: fri_cuda.prove_succinct_device(c, pk),
+                  lambda: fri_cuda.prove_aggregate_device([c], pk)):
+        with pytest.raises(Stop):
+            prove()
+    assert [d for d, _ in tables] == [card] * 3
+    assert tables[1][1] is tables[0][1] and tables[2][1] is tables[0][1]
+    assert calls == []

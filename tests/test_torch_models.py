@@ -201,6 +201,29 @@ def test_merkle_verify_matches_jax(n):
     assert merkle.merkle_verify(root, node, merkle.merkle_open(levels, 5)[1:], height - 1)
 
 
+def test_insert_at_matches_jax():
+    """merkle.insert_at against the JAX package's, positions outside
+    [0, ARITY) included: they place the node nowhere."""
+    poss = np.array([-1, 0, 1, 2, 3, 4, 7])
+    node, sibs = _elements((7,), 41), _elements((7, 3), 42)
+    ours = merkle.insert_at(_t(node), _t(sibs), torch.from_numpy(poss))
+    _same(ours, jmerkle._insert_at(jnp.asarray(node), jnp.asarray(sibs), jnp.asarray(poss)))
+
+
+@pytest.mark.parametrize("lead", [(), (2, 3)])
+def test_node_hash_over_leading_axes_is_the_jax_level(lead):
+    """merkle.node_hash over (..., ARITY, D) children keeps the leading axes
+    and gives the JAX package's `_level_up` of the same groups."""
+    n = int(np.prod(lead, dtype=int))
+    children = field.to_mont(_t(_elements((n * 4,), 50 + n)))
+    theirs = jmerkle._level_up(jnp.asarray(children.numpy().astype(np.uint32)),
+                               jax_make_perm_mont_fn("ref"))
+    ours = merkle.node_hash(children.reshape(*lead, 4, 16), merkle._tag_mont(torch.device("cpu")),
+                            make_perm_mont_fn("ref"))
+    assert ours.shape == (*lead, 16)
+    _same(ours.reshape(n, 16), theirs)
+
+
 def test_merkle_drivers_convert_through_field_cuda(monkeypatch):
     """Every conversion of the Merkle drivers goes through ops/field_cuda
     (one kernel launch on a card, field's own ops on the CPU): the build's

@@ -116,6 +116,11 @@ def test_prove_batched_defaults_to_the_card(monkeypatch):
         prover_cuda.prove_batched([_instance(gadget, 3, 5)])
 
 
+def test_prove_batched_refuses_a_device_with_no_kernel():
+    with pytest.raises(ValueError, match="no kernel for device"):
+        prover_cuda.prove_batched([_instance(gadget, 3, 5)], device="meta")
+
+
 def test_key_tables_equal_jax(rng):
     jcs, cs = _circuits(rng, "chain")
     key, jkey = plonk.preprocess(cs[0]), jplonk.preprocess(jcs[0])

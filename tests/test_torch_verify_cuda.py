@@ -2,8 +2,9 @@
 of `hades252_tpu/fri_tpu.py:1467-1821`) against the JAX package and both
 packages' host verifiers, on the CPU.
 
-- `_chain_nodes_body` / `device_chain_fn`, the sibling-opening chain, equal
-  to the JAX body and to `fri.tree_verify_batched`'s host loop;
+- `merkle.chain_nodes` under the tree nodes' tag / `device_chain_fn`, the
+  sibling-opening chain, equal to the JAX body and to
+  `fri.tree_verify_batched`'s host loop;
 - `_fused_verify_plan` equal, array for array, to the JAX package's on the
   entries both packages' verifiers build (captured through an
   `entries_check` spy), its shapes the same for every query set, its
@@ -36,6 +37,7 @@ from hades252_tpu import fri_tpu as jfri_tpu
 from hades252_tpu import gadget as jgadget
 from hades252_tpu import serialize as jser
 from hades252_tpu_torch import aggregate, fri, fri_cuda, gadget, serialize
+from hades252_tpu_torch.models import merkle
 from hades252_tpu_torch.params import P
 from hades252_tpu_torch.utils import native
 from hades252_tpu_torch.utils.encoding import ints_to_digits
@@ -167,9 +169,9 @@ def test_chain_nodes_body_matches_jax_and_the_host_loop(calls, n_leaves):
     sibs, poss = fri.tree_open_batched(levels, idx)
     values = [leaves[i] for i in idx]
     node = ints_to_digits(values, shape=(len(idx),))
-    got = fri_cuda._chain_nodes_body(
+    got = merkle.chain_nodes(
         torch.from_numpy(node.astype(np.int32)), torch.from_numpy(sibs.astype(np.int32)),
-        torch.from_numpy(poss.astype(np.int64)), native_perm, fri_cuda._node_tag(CPU))
+        torch.from_numpy(poss.astype(np.int64)), fri_cuda._node_tag(CPU), native_perm)
     jgot = jfri_tpu._chain_nodes_body(node, sibs, poss, jperm_rows, pad_to=1)
     assert np.array_equal(got.numpy(), np.asarray(jgot).astype(np.int32))
     assert all(np.array_equal(row, ints_to_digits([root], shape=(1,))[0]) for row in got.numpy())
