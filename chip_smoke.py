@@ -49,7 +49,20 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      leaves and at the verifier's 2^14 nodes, beside the plain version and
      its bound (`utils/roofline.convert_bound`). Phase 5 holds its launches
      on the Merkle paths: two a tree (the leaves in, the root out), one a
-     `merkle_levels`, two a verification;
+     `merkle_levels`, two a verification. Then holds the element-wise
+     ops' kernel (`hades_field_arith`, through `ops/field_cuda.mont_mul`,
+     `add_mod` and `sub_mod`) against `field`'s torch ops on the card, each
+     op with max_abs_err 0: at batch16's phase-3 rows (16 x 4 x 4,096), a
+     (16, 1, 1) challenge against a (1, 4, 4,096) table, an NTT stage of
+     (16, 4, 1,024) rows at L = 2, 64 and 1,024 (the upper half by the
+     (L/2, 16) twiddle row, and the two strided halves), and 1, 33 and
+     8,191 rows (0, 1 and p - 1 against each other first); one launch a
+     call. Then times each op at the first two and the last stage, eager
+     and as 20 calls in one CUDA graph (the device's time, as the prover's
+     phases run it; CUDA events, median of 5), beside `field`'s and the
+     bound (`utils/roofline.arith_bound`). Phases 7d-7i read its launches
+     and elements on the main path (a prover's run launches every op; phase
+     7i's prove_batched launches none outside its phases' graphs);
   5. builds the arity-4 Merkle root over 2^20 seeded leaves through
      `merkle_root` (BASELINE config 4) with the default `opt` kernel, and
      over their first 2^16 with the `opt`, `naive` and `mxu8` kernels, and
@@ -234,7 +247,9 @@ kernels from `hades252_tpu_torch/ops/csrc/`, then:
      config 5's scaling efficiency.
 
 Each path of phases 5-7b and 7e-7i runs with the launch counts set to 0 just
-before it and read just after; the kernels' JSON line reports their sum (the
+before it and read just after (`hades_field_arith`'s, by op, beside the
+permutation's, with each graph replay's held launches and elements added);
+the kernels' JSON line reports their sum (the
 spawned ranks' counts of their first tree and of the dry run included; the
 examples' subprocesses are not counted). The
 earlier paths run at the depth they had: the `naive` and `mxu8` cross-check
@@ -384,6 +399,16 @@ CONVERT_CHECKED = ((MERKLE_LEAVES, "rows"), (OPENINGS, "column"))
 CONVERT_RAGGED = (1, 1000, (1 << 14) + 3)
 CONVERT_TIMED = ((4**11, "rows", "the benchmark build's leaves"),
                  (OPENINGS, "column", "the verifier's nodes"))
+# the element-wise kernel: checked at the main path's shapes (batch16's phase-3 rows
+# of B x 4 x 4n, a challenge against its (1, 4, 4n) table, the three ops of an NTT
+# stage of (B, 4, n) rows at L = 2, 64 and n: the upper half against the stage's
+# (L/2, 16) twiddle row, the two strided halves against each other) and at ragged
+# row counts (which end inside a warp's 32 elements and a block's 256); timed at the
+# first two and at the last stage, eager and as ARITH_GRAPH_CALLS calls in one graph
+ARITH_ROWS = (16, 4, 4096)
+ARITH_STAGE_ROWS, ARITH_STAGES = (16, 4, 1024), (2, 64, 1024)
+ARITH_RAGGED = (1, 33, 8191)
+ARITH_GRAPH_CALLS = 20
 # --profile: each traced path's Chrome trace, <n>/trace.json, beside the builds
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile")
 
@@ -545,6 +570,7 @@ def prover_phase(dev: torch.device, rng: np.random.Generator) -> dict:
     first_s = time.perf_counter() - t0
     check(not any(counts.values()), f"prove_batched B={b}: launches {counts}, none expected")
     got = inversions(f"prove_batched B={b}", state, 1)
+    ariths(f"prove_batched B={b}", state, prover=True)
     check(got == b * key.n, f"prove_batched B={b}: {got} elements inverted, {b * key.n} expected")
     t0 = time.perf_counter()
     host = [plonk.prove(c, key) for c in composers[:b]]
@@ -558,6 +584,7 @@ def prover_phase(dev: torch.device, rng: np.random.Generator) -> dict:
     every, counts = drive(lambda: prover_cuda.prove_batched(composers, key))
     check(not any(counts.values()), f"prove_batched B={len(composers)}: launches {counts}, none expected")
     got = inversions(f"prove_batched B={len(composers)}", state, 1)
+    ariths(f"prove_batched B={len(composers)}", state, prover=True)
     check(got == len(composers) * key.n,
           f"prove_batched B={len(composers)}: {got} elements inverted, "
           f"{len(composers) * key.n} expected")
@@ -755,6 +782,106 @@ def convert_phase(dev: torch.device, rng: np.random.Generator, smi: str) -> dict
     return entries[0]
 
 
+def graph_ms(fn, calls: int = ARITH_GRAPH_CALLS) -> float:
+    """The device's milliseconds a call of fn: `calls` calls captured in one
+    CUDA graph (as the prover's phases run them, with no host work between
+    the launches), a replay timed by `cuda_ms` and divided by `calls`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay) / calls
+
+
+def arith_cases(dev, rng: np.random.Generator) -> list:
+    """hades_field_arith's operand pairs at the main path's shapes and the
+    ragged ones: (what, a, b, timed); the
+    first three elements of each operand's rows 0, 1 and p - 1 against
+    each other."""
+    edges = ints_to_digits([0, 1, P - 1]).astype(np.int32)
+
+    def rows(shape, outer: bool):
+        x = random_elements(shape, rng)
+        flat = x.reshape(-1, N_DIGITS)
+        k = min(9, len(flat))
+        flat[:k] = (np.repeat(edges, 3, 0) if outer else np.tile(edges, (3, 1)))[:k]
+        return torch.from_numpy(x).to(dev)
+
+    x, y = rows(ARITH_ROWS, True), rows(ARITH_ROWS, False)
+    beta = rows((ARITH_ROWS[0],), True)[:, None, None, :]
+    cases = [(f"{ARITH_ROWS} rows (batch16's phase 3)", x, y, True),
+             (f"a ({ARITH_ROWS[0]}, 1, 1) challenge by a (1, {', '.join(map(str, ARITH_ROWS[1:]))}) "
+              "table", beta, y[:1], True)]
+    z, tw = rows(ARITH_STAGE_ROWS, True), rows((ARITH_STAGE_ROWS[-1] // 2,), False)
+    for length in ARITH_STAGES:
+        zr = z.reshape(*ARITH_STAGE_ROWS[:-1], ARITH_STAGE_ROWS[-1] // length, length, N_DIGITS)
+        half, timed = length // 2, length == ARITH_STAGES[-1]
+        cases.append((f"an NTT stage at L = {length}: the upper half by the twiddle row",
+                      zr[..., half:, :], tw[:half], timed))
+        cases.append((f"an NTT stage at L = {length}: the strided halves", zr[..., :half, :],
+                      zr[..., half:, :], timed))
+    flat_x, flat_y = x.view(-1, N_DIGITS), y.view(-1, N_DIGITS)
+    cases += [(f"{n} rows", flat_x[:n], flat_y[1 : n + 1], False) for n in ARITH_RAGGED]
+    return cases
+
+
+def arith_phase(dev: torch.device, rng: np.random.Generator, smi: str) -> dict:
+    """Phase 4b, its third part: hades_field_arith (ops/field_cuda.py's
+    mont_mul, add_mod, sub_mod) against field's torch ops on the card, each
+    op at the main path's shapes and the ragged ones, with max_abs_err 0, a
+    new contiguous int32 tensor of the broadcast shape and one launch a
+    call. Then each op's time at the timed shapes: eager (CUDA events, the
+    wrapper's host time included), as calls in one CUDA graph (the device's
+    time, as the prover's phases run it), `field`'s and the bound
+    (`utils/roofline.arith_bound`). Returns the kernels' JSON entry (the
+    phase-3 product in a graph), without its launches."""
+    ops = {"mul": "mont_mul", "add": "add_mod", "sub": "sub_mod"}
+    launches, calls, max_err = dict(field_cuda.arith_launches), dict.fromkeys(ops, 0), 0
+    cases = arith_cases(dev, rng)
+    for what, a, b, _ in cases:
+        for op, name in ops.items():
+            got, want = getattr(field_cuda, name)(a, b), getattr(field, name)(a, b)
+            err = int((got.long() - want.long()).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0 and got.shape == want.shape and got.is_contiguous()
+                  and got.dtype == torch.int32, f"hades_field_arith {op} != field.{name} at {what}")
+            calls[op] += 1
+            del got, want
+        torch.cuda.empty_cache()
+    got = {op: field_cuda.arith_launches[op] - launches[op] for op in ops}
+    check(got == calls, f"hades_field_arith: launches {got} for calls {calls}")
+    log(f"[arith] hades_field_arith == field's mont_mul / add_mod / sub_mod at "
+        f"{'; '.join(what for what, *_ in cases)}; 0, 1, p - 1 included; {got} launches")
+    entries = []
+    for what, a, b, timed in cases:
+        if not timed:
+            continue
+        for op, name in ops.items():
+            kernel, plain = getattr(field_cuda, name), getattr(field, name)
+            n = kernel(a, b).numel() // N_DIGITS
+            ms, eager_ms = graph_ms(lambda: kernel(a, b)), cuda_ms(lambda: kernel(a, b))
+            plain_ms = cuda_ms(lambda: plain(a, b), reps=1)
+            torch.cuda.empty_cache()
+            read = (a.numel() + b.numel()) // N_DIGITS  # a broadcast operand's elements once
+            bound = roofline.arith_bound(n, op, read=read)
+            log(f"[time] hades_field_arith {op} {n:,} elements ({what}): kernel {ms:.4f} ms in a "
+                f"graph ({ARITH_GRAPH_CALLS} calls, median of {REPS}; "
+                f"{64 * (read + n) / ms / 1e9:.3f} TB/s), {eager_ms:.4f} ms eager; plain "
+                f"{plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms by the {bound['bound_by']} "
+                f"(cores {bound['cores_ms']:.4f} ms), {bound['bound_ms'] / ms:.3f} of the time | {smi}")
+            entries.append({"name": "hades_field_arith", "route": "cuda",
+                            "source": "hades252_tpu_torch/ops/csrc/field_arith.cu",
+                            "replaces": None, "max_abs_err": max_err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                            "bound_by": bound["bound_by"], "library_ms": None})
+    return entries[0]
+
+
 #: hades_field_invert's launches on the main path: summed by `inversions`
 #: over the runs that phases 7d-7i count
 main_inverts = 0
@@ -786,6 +913,34 @@ def inversions(name: str, state: tuple, steps: int) -> int:
           f"inversion steps expected")
     main_inverts += eager + replayed + warm
     return field_cuda.inverted - inverted - sum(g.held_inverted for g in new)
+
+
+#: hades_field_arith's launches on the main path, by op: summed by `ariths`
+#: over the runs that phases 7d-7i count
+main_arith = dict.fromkeys(field_cuda.ARITH_OPS, 0)
+
+
+def ariths(name: str, state: tuple, *, prover: bool) -> dict:
+    """hades_field_arith in the counted run since `state` (invert_state()),
+    whose counts `drive` set to 0: by op, the launches that ran, eager or
+    in the replays of the graphs that hold them (a graph captured in the run
+    launched what it holds once more, in its warm-up; the capture's own
+    launch runs nothing), and the elements they wrote. A prover's run
+    launches every op. Adds the launches to `main_arith` and returns
+    {op: (launches, elements)}."""
+    before, after = state[-1], graph_replays()
+    new = [g for g in after if g not in before]
+    out = {}
+    for op in field_cuda.ARITH_OPS:
+        warm = sum(g.held_arith[op] for g in new)
+        replayed = sum((n - before.get(g, 0)) * g.held_arith[op] for g, n in after.items())
+        ran = field_cuda.arith_launches[op] - warm + replayed
+        out[op] = (ran, field_cuda.arith_elements[op])
+        main_arith[op] += ran
+    check(not prover or all(n > 0 for n, _ in out.values()),
+          f"{name}: hades_field_arith launches {out}, every op expected")
+    log(f"[launches] {name}: hades_field_arith (launches, elements) {out}")
+    return out
 
 
 def kernel_timed(fn):
@@ -1101,6 +1256,7 @@ def device_prover_phase(composers: list, succinct: dict) -> dict:
             launches[s] += counts[s] + graph.held[s]
         log(f"[launches] {name}: opt {eager} eager + {in_graph} in one replay of the FRI phase's graph")
         got, want = inversions(name, state, 2), device_proof_inverted(vk, len(proofs))
+        ariths(name, state, prover=True)
         check(got == want, f"{name}: {got} elements inverted, {want} expected")
         return proofs, wall, peak
 
@@ -1278,6 +1434,7 @@ def aggregate_verify_phase(composers: list, succinct: dict) -> dict:
         for s in perm_cuda.SCHEDULES:
             launches[s] += counts[s] + replayed[s]
         inversions(name, state, steps)
+        ariths(name, state, prover=False)
         log(f"[launches] {name}: {schedule} {eager} eager + {in_graph} in graph replays")
         return out, wall, peak
 
@@ -1581,6 +1738,8 @@ def sharded_rank(rank: int, world: int, coord: str, backend: str, leaves: np.nda
             proofs, n = drive(lambda: prover_cuda.prove_batched(composers, key, mesh=mesh))
             inversions(f"rank {rank}: prove_batched(mesh=)", state, 1)
             res["inverts"] = main_inverts - inverts
+            res["arith"] = {op: n for op, (n, _) in ariths(f"rank {rank}: prove_batched(mesh=)",
+                                                          state, prover=True).items()}
             res["proofs"] = [(p.wires, p.z, p.t, p.commitments) for p in proofs]
             res["launches"] = {s: counts[s] + n[s] for s in perm_cuda.SCHEDULES}
         return res
@@ -1618,6 +1777,7 @@ def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) 
         for s in perm_cuda.SCHEDULES:
             launches[s] += total[s]
         inversions(name, state, steps)
+        ariths(name, state, prover=False)
         log(f"[launches] {name}: {total}")
         return out
 
@@ -1723,6 +1883,8 @@ def sharded_phase(inputs: dict, prover: dict, succinct: dict, agg_verify: dict) 
         check(res["inverts"] == 1, f"gloo rank {r}: hades_field_invert launched {res['inverts']} "
               "times, once expected (its shard's phase 2)")
         main_inverts += res["inverts"]
+        for op, n in res["arith"].items():
+            main_arith[op] += n
     times["gloo"] = [res["walls"] for res in ranks]
     times["gloo bytes"] = ranks[0]["collective_bytes"]
     log(f"[sharded] {GLOO_RANKS} ranks spawned on cuda:0 over gloo: each rank's root == phase "
@@ -1784,6 +1946,15 @@ def prover_graphs_against_bodies(prover: dict) -> dict:
     proofs, counts = drive(lambda: prover_cuda.prove_batched(prover["composers"][:b], key))
     check(not any(counts.values()), f"prove_batched B={b}: launches {counts}, none expected")
     got = inversions(f"prove_batched B={b} through the graphs", state, 1)
+    before = state[-1]
+    replayed = {g: n - before.get(g, 0) for g, n in graph_replays().items()}
+    new = [g for g in replayed if g not in before]
+    ran = ariths(f"prove_batched B={b} through the graphs", state, prover=True)
+    check(all(field_cuda.arith_launches[op] == sum(2 * g.held_arith[op] for g in new)
+              and ran[op][1] == sum(n * g.held_arith_elements[op] for g, n in replayed.items())
+              + sum(g.held_arith_elements[op] for g in new) for op in ran),
+          f"prove_batched B={b} through the graphs: hades_field_arith {ran}, all of it in the "
+          "replays of the phases' graphs expected")
     check(got == b * key.n, f"prove_batched B={b} through the graphs: {got} elements inverted")
     check(all(same_proof(a, c) for a, c in zip(proofs, prover["proofs"], strict=True)),
           f"prove_batched B={b} through the graphs != phase 7d's proofs")
@@ -1832,7 +2003,9 @@ def last_slice_phase(prover: dict) -> dict:
     t_phase = time.perf_counter()
     prover_graphs_against_bodies(prover)
 
+    state = invert_state()
     (out, x), counts = drive(lambda: (lambda fn, args: (fn(*args), args[0]))(*entry_points.entry()))
+    ariths("entry()", state, prover=False)
     want = {**{s: 0 for s in perm_cuda.SCHEDULES}, perm_cuda.DEFAULT_SCHEDULE: 2}
     check(counts == want, f"entry(): launches {counts} != {want} (the KAT gate's and fn's)")
     check(x.shape == (WIDTH, 16, 1024) and x.device.type == "cuda"
@@ -1922,8 +2095,11 @@ def profile_path(name: str, fn, log_dir: str) -> None:
 
 def drive(fn):
     """Run one path of the main path with the launch counts set to 0 just
-    before it; returns its result and the counts read just after."""
+    before it (hades_field_arith's too, which `ariths` reads); returns its
+    result and the permutation's counts read just after."""
     perm_cuda.reset_launches()
+    for op in field_cuda.ARITH_OPS:
+        field_cuda.arith_launches[op] = field_cuda.arith_elements[op] = 0
     out = fn()
     torch.cuda.synchronize()
     return out, dict(perm_cuda.launches)
@@ -2084,9 +2260,10 @@ def run(ckpt_root: str) -> int:
     torch.cuda.empty_cache()
     mark("phase 4")
 
-    # 4b. the field inversion's and the conversion's kernels
+    # 4b. the field inversion's, the conversion's and the element-wise ops' kernels
     invert_entry = invert_phase(dev, rng, smi)
     convert_entry = convert_phase(dev, rng, smi)
+    arith_entry = arith_phase(dev, rng, smi)
     mark("phase 4b")
 
     # 5a. Merkle checks against the plain version and the int oracle
@@ -2367,7 +2544,7 @@ def run(ckpt_root: str) -> int:
     for s, n in last["launches"].items():
         main_launches[s] += n
     log(f"[launches] main path with phase 7i, summed: {main_launches}; hades_field_invert "
-        f"{main_inverts}")
+        f"{main_inverts}; hades_field_arith {main_arith}")
     mark("phase 7i")
 
     # 8. timings at the main path's shapes
@@ -2486,6 +2663,7 @@ def run(ckpt_root: str) -> int:
     ]
     kernels.append({**invert_entry, "launches": main_inverts})
     kernels.append({**convert_entry, "launches": main_converts})
+    kernels.append({**arith_entry, "launches": sum(main_arith.values())})
     log(f"[run] {time.perf_counter() - t_run:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(smi)

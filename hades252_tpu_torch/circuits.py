@@ -329,8 +329,8 @@ def merkle_path_ints(levels, index, height: int | None = None):
     positions, in one copy."""
     import torch
 
-    from . import field
     from .models import merkle
+    from .ops import field_cuda
     from .utils import metrics
     from .utils.encoding import digits_to_ints
 
@@ -350,9 +350,9 @@ def merkle_path_ints(levels, index, height: int | None = None):
                    for j in range(height - built)]
         poss = torch.stack([(idx >> (2 * lvl)) & (a - 1) for lvl in range(built)]
                            + [torch.zeros_like(idx)] * (height - built), dim=1)
-        digits = field.from_mont(torch.cat([levels[0][idx],
-                                            torch.stack(groups, dim=1).reshape(-1, d),
-                                            lifted[-1:]]))
+        digits = field_cuda.from_mont(torch.cat([levels[0][idx],
+                                                 torch.stack(groups, dim=1).reshape(-1, d),
+                                                 lifted[-1:]]))
         host = torch.cat([digits.reshape(-1), poss.reshape(-1).to(digits.dtype)]).cpu().numpy()
         values = [int(v) for v in digits_to_ints(host[: digits.numel()].reshape(-1, d))]
         positions = host[digits.numel():].reshape(k, height).tolist()

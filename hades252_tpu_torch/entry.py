@@ -17,9 +17,9 @@ import functools
 import numpy as np
 import torch
 
-from . import field, prover_cuda, selftest
+from . import prover_cuda, selftest
 from .models import cipher, merkle, sponge
-from .ops import perm_cuda, permute, resolve_device
+from .ops import field_cuda, perm_cuda, permute, resolve_device
 from .parallel import dist, multihost
 from .params import P
 from .utils import native
@@ -113,7 +113,7 @@ def _dryrun_rank(rank: int, world: int, coordinator: str, backend: str, device) 
                 raise RuntimeError("sharded Merkle root != the one-device root")
         # the proving stack: the instance-sharded wire iNTT (prover phase 1)
         phase1, _, _ = dist.sharded_phases(mesh)
-        wires = field.to_mont(scalars(world, 4, 4))
+        wires = field_cuda.to_mont(scalars(world, 4, 4))
         if not torch.equal(phase1(wires), prover_cuda._phase1_wires(wires)):
             raise RuntimeError("the mesh-sharded prover phase != the one-device phase")
         return dict(perm_cuda.launches)

@@ -19,7 +19,8 @@ Four parts live here.
       and a level, for all B instances together; only the roots cross to
       the host transcripts;
     - all claimed evaluations are one device evaluation and one fetch;
-    - the DEEP composition and its inversions are pointwise field ops;
+    - the DEEP composition and its inversions are pointwise field ops
+      (`ops/field_cuda.py`: one kernel launch each on the card);
     - the whole FRI commit phase (per fold: the challenge from an in-trace
       transcript, the fold, and on the scheduled layers the block tree and
       its root's absorb) is one CUDA graph a shape on the card, the
@@ -72,7 +73,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import aggregate, field, fri, plonk, prover_cuda
+from . import aggregate, fri, plonk, prover_cuda
 from .aggregate import (
     KEY_EVAL_ORDER,
     WIRE_EVAL_ORDER,
@@ -412,17 +413,17 @@ def _eval_rows_dev(polys: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     products are exact mod p). The power table by doubling (log L
     mont_muls), then one product and a log-depth modular-add reduction."""
     b, r, ln = polys.shape[0], polys.shape[1], polys.shape[2]
-    ptm = field.to_mont(pts)[:, :, None]
-    pows = field.to_mont(field._const("one", polys.device).expand(b, r, 1, N_DIGITS))
+    ptm = field_cuda.to_mont(pts)[:, :, None]
+    pows = _on_device(_scalar_mont, (1,), polys.device).expand(b, r, 1, N_DIGITS)
     while pows.shape[2] < ln:
-        xk = field.mont_mul(pows[:, :, -1:], ptm)  # x^m in Montgomery form
-        pows = torch.cat([pows, field.mont_mul(pows, xk)], dim=2)
-    terms = field.mont_mul(pows[:, :, :ln], polys)  # x^i c_i, canonical
+        xk = field_cuda.mont_mul(pows[:, :, -1:], ptm)  # x^m in Montgomery form
+        pows = torch.cat([pows, field_cuda.mont_mul(pows, xk)], dim=2)
+    terms = field_cuda.mont_mul(pows[:, :, :ln], polys)  # x^i c_i, canonical
     while terms.shape[2] > 1:
         if terms.shape[2] % 2:
             terms = F.pad(terms, (0, 0, 0, 1))
         m = terms.shape[2] // 2
-        terms = field.add_mod(terms[:, :, :m], terms[:, :, m:])
+        terms = field_cuda.add_mod(terms[:, :, :m], terms[:, :, m:])
     return terms[:, :, 0]
 
 
@@ -451,20 +452,22 @@ def _blind_dev(coeffs: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     the tiny-circuit case) come out as the host loop's."""
     n, k = coeffs.shape[-2], r.shape[-2]
     out = F.pad(coeffs, (0, 0, 0, k))
-    return field.sub_mod(field.add_mod(out, F.pad(r, (0, 0, n, 0))), F.pad(r, (0, 0, 0, n)))
+    return field_cuda.sub_mod(field_cuda.add_mod(out, F.pad(r, (0, 0, n, 0))),
+                              F.pad(r, (0, 0, 0, n)))
 
 
 # ---------------------------------------------------------------------------
 # DEEP composition
 # ---------------------------------------------------------------------------
 
-#: L0 positions the DEEP composition takes at once. One field.mont_mul
-#: holds, for each element of its operands, the 16 x 16 int64 digit
-#: products (2,048 B) and their skewed pad (4,224 B): 6,272 B. A slab of
-#: B = 8 instances x 2^15 positions then holds 1.64 GB (2^18 x 6,272 B) in
-#: one product, 2% of the H100's 80 GB, and the next slab reuses it; a
-#: prod proof (B = 1, m0 = 2^15) is one slab. The composition is pointwise
-#: along L0, so the slabs give the same values.
+#: L0 positions the DEEP composition takes at once. On the card a product
+#: is one kernel launch with no temporaries; `field.mont_mul`'s torch ops
+#: (the CPU's) hold, for each element of its operands, the 16 x 16 int64
+#: digit products (2,048 B) and their skewed pad (4,224 B): 6,272 B, so a
+#: slab of B = 8 instances x 2^15 positions holds 1.64 GB (2^18 x 6,272 B)
+#: in one product, and the next slab reuses it; a prod proof (B = 1, m0 =
+#: 2^15) is one slab. The composition is pointwise along L0, so the slabs
+#: give the same values.
 DEEP_CHUNK = 1 << 15
 
 
@@ -473,11 +476,11 @@ def _deep_terms_chunk(stack, vs, gammas, pows, inv_a, inv_b, spec) -> torch.Tens
     slab)."""
     acc = torch.zeros((stack.shape[0],) + stack.shape[2:], dtype=torch.int32, device=stack.device)
     for j, (row, s_idx, shifted) in enumerate(spec):
-        diff = field.sub_mod(stack[:, row], vs[:, j, None])
-        term = field.mont_mul(diff, pows[s_idx])
-        term = field.mont_mul(term, inv_b if shifted else inv_a)
-        term = field.mont_mul(term, gammas[:, j, None])
-        acc = field.add_mod(acc, term)
+        diff = field_cuda.sub_mod(stack[:, row], vs[:, j, None])
+        term = field_cuda.mont_mul(diff, pows[s_idx])
+        term = field_cuda.mont_mul(term, inv_b if shifted else inv_a)
+        term = field_cuda.mont_mul(term, gammas[:, j, None])
+        acc = field_cuda.add_mod(acc, term)
     return acc
 
 
@@ -501,7 +504,7 @@ def _inv_mont_dev(xs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     per element (field_cuda.invert: one kernel launch on a card): xs (m0,
     D), points (K, D) -> (K, m0, D)."""
     with metrics.span("fri.deep.invert"):
-        return field_cuda.invert(field.sub_mod(xs[None], points[:, None]), mont_in=False)
+        return field_cuda.invert(field_cuda.sub_mod(xs[None], points[:, None]), mont_in=False)
 
 
 # ---------------------------------------------------------------------------
@@ -515,9 +518,10 @@ def _fold_dev(evals, beta_mont, xinv_mont, inv2_mont) -> torch.Tensor:
     (B, m/2, D), equal to fri.fold_evals per instance."""
     half = evals.shape[1] // 2
     a, b = evals[:, :half], evals[:, half:]
-    even = field.add_mod(a, b)
-    odd = field.mont_mul(field.sub_mod(a, b), xinv_mont)
-    return field.mont_mul(field.add_mod(even, field.mont_mul(odd, beta_mont[:, None])), inv2_mont)
+    even = field_cuda.add_mod(a, b)
+    odd = field_cuda.mont_mul(field_cuda.sub_mod(a, b), xinv_mont)
+    scaled = field_cuda.mont_mul(odd, beta_mont[:, None])
+    return field_cuda.mont_mul(field_cuda.add_mod(even, scaled), inv2_mont)
 
 
 # The in-trace Fiat-Shamir transcript, the device twin of plonk.Transcript:
@@ -530,7 +534,7 @@ def _fold_dev(evals, beta_mont, xinv_mont, inv2_mont) -> torch.Tensor:
 def _tr_absorb1(state, val, perm_fn) -> torch.Tensor:
     """Transcript.absorb of one value an instance: state (B, 5, D), val
     (B, D), canonical."""
-    word = field.add_mod(state[:, 1], val)
+    word = field_cuda.add_mod(state[:, 1], val)
     return perm_fn(torch.cat([state[:, :1], word[:, None], state[:, 2:]], dim=1))
 
 
@@ -568,7 +572,7 @@ def _fri_phase_body(f0, tr_state, xinvs, inv2, node_tag, leaf_tags, perm_fn) -> 
     layer_evals, layer_levels = [], []
     for k, xinv in enumerate(xinvs, start=1):
         beta, tr_state = _tr_challenge(tr_state, perm_fn)
-        cur = _fold_dev(cur, field.to_mont(beta), xinv, inv2)
+        cur = _fold_dev(cur, field_cuda.to_mont(beta), xinv, inv2)
         bs = committed.get(k)
         if bs:
             levels = _block_tree_body(_layer_blocks(cur, bs), perm_fn, node_tag, leaf_tags[bs])
@@ -631,7 +635,7 @@ def _grind_window_body(states, nonce_digits, pow_bits: int, perm_fn) -> tuple:
     nonce_digits (C, D) canonical candidates. Returns ((B,) any hit,
     (B,) first hit's index), which keeps the host's smallest-nonce rule."""
     b, c = states.shape[0], nonce_digits.shape[0]
-    word = field.add_mod(states[:, None, 1], nonce_digits[None])
+    word = field_cuda.add_mod(states[:, None, 1], nonce_digits[None])
     full = torch.cat([states[:, None, :1].expand(b, c, 1, N_DIGITS), word[:, :, None],
                       states[:, None, 2:].expand(b, c, 3, N_DIGITS)], dim=2)
     out = perm_fn(full.reshape(b * c, 5, N_DIGITS))

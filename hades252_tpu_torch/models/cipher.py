@@ -27,7 +27,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import field
 from ..ops import field_cuda
 from ..params import N_DIGITS, WIDTH
 from ..utils import metrics
@@ -40,7 +39,7 @@ TAG_ENC = 6  # domain tag (Merkle trees use 4, the arity; the sponge uses L)
 def _mont_word(value: int, b: int, device) -> torch.Tensor:
     """(b, 1, N_DIGITS) int32: the Montgomery form of a canonical int."""
     digits = torch.from_numpy(ints_to_digits([value])[0].astype(np.int32))
-    return field.to_mont(digits).to(device).expand(b, 1, N_DIGITS)
+    return field_cuda.to_mont(digits).to(device).expand(b, 1, N_DIGITS)
 
 
 def _pad(msgs: torch.Tensor) -> torch.Tensor:
@@ -62,10 +61,10 @@ def _duplex(state, chunk_mont, perm_mont_fn, decrypt: bool):
     ciphertext (decrypt) in Montgomery form. Returns (state', out_mont)."""
     ks = state[:, 1 : 1 + RATE]
     if decrypt:
-        out = field.sub_mod(chunk_mont, ks)      # plaintext
+        out = field_cuda.sub_mod(chunk_mont, ks)      # plaintext
         fed = chunk_mont                         # the duplex absorbs ciphertext
     else:
-        out = field.add_mod(chunk_mont, ks)      # ciphertext
+        out = field_cuda.add_mod(chunk_mont, ks)      # ciphertext
         fed = out
     state = torch.cat([state[:, :1], fed, state[:, 1 + RATE :]], dim=1)
     return perm_mont_fn(state), out

@@ -18,7 +18,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import field
 from ..ops import field_cuda
 from ..params import N_DIGITS, WIDTH
 from ..utils import metrics
@@ -34,7 +33,7 @@ def _initial_state(n_streams: int, length: int, device) -> torch.Tensor:
     word, zeros elsewhere."""
     iv = torch.from_numpy(ints_to_digits([length])[0].astype(np.int32))
     state = torch.zeros((n_streams, WIDTH, N_DIGITS), dtype=torch.int32, device=device)
-    state[:, CAPACITY_INDEX, :] = field.to_mont(iv).to(device)
+    state[:, CAPACITY_INDEX, :] = field_cuda.to_mont(iv).to(device)
     return state
 
 
@@ -42,7 +41,7 @@ def absorb(state: torch.Tensor, chunk: torch.Tensor, perm_fn) -> torch.Tensor:
     """One sponge step: the (B, RATE, D) chunk added into words 1..4 of the
     (B, WIDTH, D) state, then permuted, all in one domain (here Montgomery,
     canonical in fri_cuda's leaf sponges)."""
-    fed = field.add_mod(state[:, 1:, :], chunk)
+    fed = field_cuda.add_mod(state[:, 1:, :], chunk)
     return perm_fn(torch.cat([state[:, :1, :], fed], dim=1))
 
 

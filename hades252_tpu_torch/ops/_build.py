@@ -129,6 +129,9 @@ def library() -> ctypes.CDLL:
     lib.hades_field_invert_launch.restype = ctypes.c_int
     lib.hades_field_convert_launch.argtypes = [p, i64, i64, p, i32, p]
     lib.hades_field_convert_launch.restype = ctypes.c_int
+    axes = ctypes.POINTER(ctypes.c_longlong)
+    lib.hades_field_arith_launch.argtypes = [i32, p, axes, p, axes, axes, i32, i64, p, p]
+    lib.hades_field_arith_launch.restype = ctypes.c_int
     lib.hades_error_string.argtypes = [ctypes.c_int]
     lib.hades_error_string.restype = ctypes.c_char_p
     return lib

@@ -142,6 +142,24 @@ HADES_FN void add_mod(uint32_t r[kLimbs], const uint32_t a[kLimbs],
   cond_sub_p(r, s);
 }
 
+// r = (a - b) mod p for a, b < p: the difference, and p added back (mod
+// 2^256) where it borrowed, as one more carry chain with p masked by the
+// borrow. r may alias a or b.
+HADES_FN void sub_mod(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                      const uint32_t b[kLimbs]) {
+  uint32_t d[kLimbs];
+  Carry k;
+  d[0] = sub_cc(k, a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < kLimbs; ++j) d[j] = subc_cc(k, a[j], b[j]);
+  const uint32_t borrow = subc(k, 0u, 0u);  // all ones when a < b
+  Carry c;
+  r[0] = add_cc(c, d[0], p_limb(0) & borrow);
+#pragma unroll
+  for (int j = 1; j < kLimbs - 1; ++j) r[j] = addc_cc(c, d[j], p_limb(j) & borrow);
+  r[kLimbs - 1] = addc(c, d[kLimbs - 1], p_limb(kLimbs - 1) & borrow);
+}
+
 // A 32 x 32 -> 64-bit product is a mad.lo and a mad.hi with the same
 // operands; written one after the other onto neighbouring limbs, with the
 // carry running through, the assembler makes one wide multiply-add with
@@ -321,6 +339,24 @@ HADES_FN void mont_sqr(uint32_t r[kLimbs], const uint32_t a[kLimbs]) {
   uint32_t t[2 * kLimbs];
   sqr_wide8(t, a);
   redc(r, t);
+}
+
+// The element-wise ops of hades_field_arith (field_arith.cu), by the
+// kernel's template argument: the bodies its threads run, one element each.
+constexpr int kArithMul = 0;  // a b R^-1 mod p
+constexpr int kArithAdd = 1;  // a + b mod p
+constexpr int kArithSub = 2;  // a - b mod p
+
+template <int kOp>
+HADES_FN void field_arith(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                          const uint32_t b[kLimbs]) {
+  if constexpr (kOp == kArithMul) {
+    mont_mul(r, a, b);
+  } else if constexpr (kOp == kArithAdd) {
+    add_mod(r, a, b);
+  } else {
+    sub_mod(r, a, b);
+  }
 }
 
 HADES_FN void copy(uint32_t r[kLimbs], const uint32_t a[kLimbs]) {

@@ -3,14 +3,18 @@
 Port of `hades252_tpu/ops/ntt.py`: the same iterative Cooley-Tukey
 schedule as `plonk.ntt` (bit reversal, then log2(N) butterfly stages),
 over arbitrary leading batch axes of (..., N, N_DIGITS) canonical digit
-tensors, on the port's `field` ops and on the input's device.
+tensors, on the port's element-wise field ops (`ops/field_cuda.py`: one
+kernel launch each on the card, `field`'s torch ops on the CPU) and on the
+input's device.
 
   * Twiddle factors are precomputed on the host IN MONTGOMERY FORM
     (w^k * R mod p), so each butterfly's twiddle product is one
-    `field.mont_mul` on canonical operands: values stay canonical end to
+    `mont_mul` on canonical operands: values stay canonical end to
     end, with no domain conversions inside the transform.
   * Each stage is one reshape, one batched mont_mul and add_mod/sub_mod
-    over (..., N/L, L/2, DIGITS), joined with one `torch.cat`.
+    over (..., N/L, L/2, DIGITS), joined with one `torch.cat`; the
+    kernels read the stage's strided halves and its (L/2, DIGITS)
+    twiddle row in place.
   * The host tables are cached per (n, invert); their tensors per
     (n, invert, device), as `field._const` caches its constants.
 
@@ -27,10 +31,10 @@ import functools
 import numpy as np
 import torch
 
-from .. import field
 from ..params import N_DIGITS, P, R
 from ..plonk import _domain_root
 from ..utils.encoding import ints_to_digits
+from . import field_cuda
 
 
 @functools.cache
@@ -80,10 +84,11 @@ def ntt_batched(x: torch.Tensor, invert: bool = False) -> torch.Tensor:
         length = 2 * half
         xr = x.reshape(*lead, n // length, length, N_DIGITS)
         u = xr[..., :half, :]
-        v = field.mont_mul(xr[..., half:, :], tw)
-        x = torch.cat([field.add_mod(u, v), field.sub_mod(u, v)], dim=-2).reshape(*lead, n, N_DIGITS)
+        v = field_cuda.mont_mul(xr[..., half:, :], tw)
+        x = torch.cat([field_cuda.add_mod(u, v), field_cuda.sub_mod(u, v)], dim=-2)
+        x = x.reshape(*lead, n, N_DIGITS)
     if invert:
-        x = field.mont_mul(x, n_inv_mont)
+        x = field_cuda.mont_mul(x, n_inv_mont)
     return x
 
 
@@ -107,7 +112,7 @@ def coset_eval_batched(coeffs: torch.Tensor, shift: int) -> torch.Tensor:
     (bit-identical to plonk._coset_eval with m = N; pad coefficients to N
     first)."""
     n = coeffs.shape[-2]
-    scaled = field.mont_mul(coeffs, _device_power_table(n, shift, coeffs.device))
+    scaled = field_cuda.mont_mul(coeffs, _device_power_table(n, shift, coeffs.device))
     return ntt_batched(scaled)
 
 
@@ -117,4 +122,4 @@ def coset_interp_batched(evals: torch.Tensor, shift: int) -> torch.Tensor:
     n = evals.shape[-2]
     coeffs = ntt_batched(evals, invert=True)
     inv_shift = pow(shift, P - 2, P)
-    return field.mont_mul(coeffs, _device_power_table(n, inv_shift, coeffs.device))
+    return field_cuda.mont_mul(coeffs, _device_power_table(n, inv_shift, coeffs.device))

@@ -2,8 +2,10 @@
 
 Port of `hades252_tpu/prover_tpu.py`. The prover's heavy polynomial passes
 (wire interpolation, the copy-constraint grand product and the 4n-coset
-quotient) run as batched digit arithmetic on the port's `field` ops and
-`ops/ntt.py` transforms, over B independent instances of the SAME circuit.
+quotient) run as batched digit arithmetic on the port's element-wise field
+ops (`ops/field_cuda.py`: one kernel launch each on the card, `field`'s
+torch ops on the CPU) and `ops/ntt.py` transforms, over B independent
+instances of the SAME circuit.
 The same code runs on a CPU tensor, which is how the tests hold it against
 the host prover; the entry point runs on the card unless asked otherwise.
 
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import field, plonk
+from . import plonk
 from .gadget import Composer
 from .ops import field_cuda, ntt, resolve_device
 from .params import P, R
@@ -191,7 +193,7 @@ def _prefix_products(x: torch.Tensor) -> torch.Tensor:
     sequential one."""
     step = 1
     while step < x.shape[1]:
-        x = torch.cat([x[:, :step], field.mont_mul(x[:, step:], x[:, :-step])], dim=1)
+        x = torch.cat([x[:, :step], field_cuda.mont_mul(x[:, step:], x[:, :-step])], dim=1)
         step <<= 1
     return x
 
@@ -204,24 +206,24 @@ def _phase2_grand_product(wire_evals, beta, gamma, ids_mont, sigma_n_mont,
     b4 = beta[:, None, None, :]
     g4 = gamma[:, None, None, :]
     # numerator / denominator factors on H (canonical adds, then lift)
-    beta_id = field.mont_mul(b4, ids_mont[None])
-    beta_sig = field.mont_mul(b4, sigma_n_mont[None])
-    num_f = field.to_mont(field.add_mod(field.add_mod(wire_evals, beta_id), g4))
-    den_f = field.to_mont(field.add_mod(field.add_mod(wire_evals, beta_sig), g4))
-    num = field.mont_mul(
-        field.mont_mul(num_f[:, 0], num_f[:, 1]),
-        field.mont_mul(num_f[:, 2], num_f[:, 3]),
+    beta_id = field_cuda.mont_mul(b4, ids_mont[None])
+    beta_sig = field_cuda.mont_mul(b4, sigma_n_mont[None])
+    num_f = field_cuda.to_mont(field_cuda.add_mod(field_cuda.add_mod(wire_evals, beta_id), g4))
+    den_f = field_cuda.to_mont(field_cuda.add_mod(field_cuda.add_mod(wire_evals, beta_sig), g4))
+    num = field_cuda.mont_mul(
+        field_cuda.mont_mul(num_f[:, 0], num_f[:, 1]),
+        field_cuda.mont_mul(num_f[:, 2], num_f[:, 3]),
     )  # (B, n, D) Montgomery
-    den = field.mont_mul(
-        field.mont_mul(den_f[:, 0], den_f[:, 1]),
-        field.mont_mul(den_f[:, 2], den_f[:, 3]),
+    den = field_cuda.mont_mul(
+        field_cuda.mont_mul(den_f[:, 0], den_f[:, 1]),
+        field_cuda.mont_mul(den_f[:, 2], den_f[:, 3]),
     )
     den_inv = field_cuda.invert(den, mont_in=True)
-    ratio = field.mont_mul(num, den_inv)  # Montgomery
+    ratio = field_cuda.mont_mul(num, den_inv)  # Montgomery
     # prefix products: z(omega^i) = prod_{j<i} ratio_j, z(1) = 1
     one = one_mont.expand(ratio.shape[0], 1, -1)
     shifted = torch.cat([one, ratio[:, :-1]], dim=1)
-    z_evals = field.from_mont(_prefix_products(shifted))
+    z_evals = field_cuda.from_mont(_prefix_products(shifted))
     return ntt.ntt_batched(z_evals, invert=True)
 
 
@@ -244,55 +246,55 @@ def _phase3_quotient(wires, z, pi_evals, beta, gamma, alpha, kx_mont,
 
     w_c = ce(wires)                       # (B, 4, m, D)
     z_c = ce(z)                           # (B, m, D)
-    zw = field.mont_mul(z, omega_mont)    # z(omega X) coeffs
+    zw = field_cuda.mont_mul(z, omega_mont)    # z(omega X) coeffs
     zw_c = ce(zw)
     pi_c = ce(ntt.ntt_batched(pi_evals, invert=True))
 
     b4 = beta[:, None, None, :]
     g4 = gamma[:, None, None, :]
-    beta_kx = field.mont_mul(b4, kx_mont[None])
-    beta_sig = field.mont_mul(b4, sigma_m_mont[None])
-    num_f = field.to_mont(field.add_mod(field.add_mod(w_c, beta_kx), g4))
-    den_f = field.to_mont(field.add_mod(field.add_mod(w_c, beta_sig), g4))
-    z_m = field.to_mont(z_c)
-    zw_m = field.to_mont(zw_c)
-    num = field.mont_mul(
-        field.mont_mul(field.mont_mul(num_f[:, 0], num_f[:, 1]),
-                       field.mont_mul(num_f[:, 2], num_f[:, 3])),
+    beta_kx = field_cuda.mont_mul(b4, kx_mont[None])
+    beta_sig = field_cuda.mont_mul(b4, sigma_m_mont[None])
+    num_f = field_cuda.to_mont(field_cuda.add_mod(field_cuda.add_mod(w_c, beta_kx), g4))
+    den_f = field_cuda.to_mont(field_cuda.add_mod(field_cuda.add_mod(w_c, beta_sig), g4))
+    z_m = field_cuda.to_mont(z_c)
+    zw_m = field_cuda.to_mont(zw_c)
+    num = field_cuda.mont_mul(
+        field_cuda.mont_mul(field_cuda.mont_mul(num_f[:, 0], num_f[:, 1]),
+                            field_cuda.mont_mul(num_f[:, 2], num_f[:, 3])),
         z_m,
     )
-    den = field.mont_mul(
-        field.mont_mul(field.mont_mul(den_f[:, 0], den_f[:, 1]),
-                       field.mont_mul(den_f[:, 2], den_f[:, 3])),
+    den = field_cuda.mont_mul(
+        field_cuda.mont_mul(field_cuda.mont_mul(den_f[:, 0], den_f[:, 1]),
+                            field_cuda.mont_mul(den_f[:, 2], den_f[:, 3])),
         zw_m,
     )
-    perm = field.sub_mod(num, den)
+    perm = field_cuda.sub_mod(num, den)
 
-    a_m, b_m, o_m, d_m = (field.to_mont(w_c[:, c]) for c in range(4))
-    gate = field.add_mod(
-        field.add_mod(
-            field.add_mod(
-                field.mont_mul(field.mont_mul(q_mont["q_m"], a_m), b_m),
-                field.mont_mul(q_mont["q_l"], a_m),
+    a_m, b_m, o_m, d_m = field_cuda.to_mont(w_c).unbind(1)
+    gate = field_cuda.add_mod(
+        field_cuda.add_mod(
+            field_cuda.add_mod(
+                field_cuda.mont_mul(field_cuda.mont_mul(q_mont["q_m"], a_m), b_m),
+                field_cuda.mont_mul(q_mont["q_l"], a_m),
             ),
-            field.add_mod(
-                field.mont_mul(q_mont["q_r"], b_m),
-                field.mont_mul(q_mont["q_o"], o_m),
+            field_cuda.add_mod(
+                field_cuda.mont_mul(q_mont["q_r"], b_m),
+                field_cuda.mont_mul(q_mont["q_o"], o_m),
             ),
         ),
-        field.add_mod(
-            field.add_mod(field.mont_mul(q_mont["q_4"], d_m), q_mont["q_c"]),
-            field.to_mont(pi_c),
+        field_cuda.add_mod(
+            field_cuda.add_mod(field_cuda.mont_mul(q_mont["q_4"], d_m), q_mont["q_c"]),
+            field_cuda.to_mont(pi_c),
         ),
     )
-    boundary = field.mont_mul(l1_mont, field.sub_mod(z_m, one_mont))
-    alpha_m = field.to_mont(alpha)[:, None, :]
-    alpha2_m = field.mont_mul(alpha_m, alpha_m)
-    combined = field.add_mod(
-        field.add_mod(gate, field.mont_mul(alpha_m, perm)),
-        field.mont_mul(alpha2_m, boundary),
+    boundary = field_cuda.mont_mul(l1_mont, field_cuda.sub_mod(z_m, one_mont))
+    alpha_m = field_cuda.to_mont(alpha)[:, None, :]
+    alpha2_m = field_cuda.mont_mul(alpha_m, alpha_m)
+    combined = field_cuda.add_mod(
+        field_cuda.add_mod(gate, field_cuda.mont_mul(alpha_m, perm)),
+        field_cuda.mont_mul(alpha2_m, boundary),
     )
-    t_evals = field.from_mont(field.mont_mul(combined, zh_inv_mont))
+    t_evals = field_cuda.from_mont(field_cuda.mont_mul(combined, zh_inv_mont))
     return ntt.coset_interp_batched(t_evals, g)
 
 

@@ -47,8 +47,12 @@ class CudaGraph:
     `held_states` to `perm_cuda.states`. `held_inverts` and
     `held_inverted` are the same for `field_cuda`'s inversion kernel: its
     launches, and the elements that each replay adds to
-    `field_cuda.inverted`. The capture runs nothing, so the states and
-    elements its wrappers counted are taken back out."""
+    `field_cuda.inverted`; `held_conversions` and `held_converted` for its
+    conversion kernel (`field_cuda.conversions`, `.converted`);
+    `held_arith` and `held_arith_elements`, by op, for its element-wise
+    kernel (`field_cuda.arith_launches`, `.arith_elements`). The capture
+    runs nothing, so the states and elements its wrappers counted are taken
+    back out."""
 
     def __init__(self, fn, inputs: tuple, pool=None):
         self._fn, self._inputs = fn, inputs
@@ -61,6 +65,8 @@ class CudaGraph:
             torch.cuda.current_stream(device).wait_stream(side)
             before, states = dict(perm_cuda.launches), dict(perm_cuda.states)
             inverts, inverted = field_cuda.launches, field_cuda.inverted
+            conversions, converted = field_cuda.conversions, field_cuda.converted
+            arith, elements = dict(field_cuda.arith_launches), dict(field_cuda.arith_elements)
             self._graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self._graph, pool=pool):
                 self._out = fn(*inputs)
@@ -70,6 +76,13 @@ class CudaGraph:
             self.held_inverts = field_cuda.launches - inverts
             self.held_inverted = field_cuda.inverted - inverted
             field_cuda.inverted = inverted
+            self.held_conversions = field_cuda.conversions - conversions
+            self.held_converted = field_cuda.converted - converted
+            field_cuda.converted = converted
+            self.held_arith = {op: field_cuda.arith_launches[op] - arith[op] for op in arith}
+            self.held_arith_elements = {op: field_cuda.arith_elements[op] - elements[op]
+                                        for op in elements}
+            field_cuda.arith_elements.update(elements)
         self.replays = 0
         _LIVE_GRAPHS.add(self)
 
@@ -82,6 +95,9 @@ class CudaGraph:
             for s, n in self.held_states.items():
                 perm_cuda.states[s] += n
             field_cuda.inverted += self.held_inverted
+            field_cuda.converted += self.held_converted
+            for op, n in self.held_arith_elements.items():
+                field_cuda.arith_elements[op] += n
             return _clone(self._out)
 
 

@@ -129,6 +129,22 @@ def convert_bound(n: int) -> dict:
     return _bounded(times)
 
 
+def arith_bound(n: int, op: str, *, read: int | None = None) -> dict:
+    """The least time the card could take for n output elements of
+    `field_cuda.mont_mul`, `add_mod` or `sub_mod` (op "mul", "add" or
+    "sub"), as `convert_bound` gives it: 136 multiply-adds an element for a
+    product, 16 operations for a sum or difference (`ops/csrc/field.cuh`'s
+    carry chains), 64 B read for each of the `read` operand elements the
+    call holds (2 n, two operands streamed, unless given: a broadcast
+    operand's elements are read once) and 64 B written for each output;
+    bound by the bytes."""
+    ops = {"mul": 136, "add": 16, "sub": 16}[op]
+    read = 2 * n if read is None else read
+    times = {"tensor_ms": 0.0, "cores_ms": ops * n / INT32_OPS_PER_S * 1e3,
+             "bytes_ms": (read + n) * N_DIGITS * 4 / HBM_BYTES_PER_S * 1e3}
+    return _bounded(times)
+
+
 _RESOURCE = {"tensor_ms": "tensor cores", "cores_ms": "cuda cores", "bytes_ms": "memory"}
 
 

@@ -248,6 +248,34 @@ int main(int argc, char** argv) {
 """
 
 
+# field.cuh's new sub_mod and field_arith, the per-element bodies of
+# hades_field_arith (field_arith.cu), over pairs of 8-limb values: harness IN
+# -> for each pair field_arith<kArithMul>, <kArithAdd>, <kArithSub> and
+# sub_mod, 8 limbs each, on stdout.
+HARNESS_ARITH = r"""
+#include <cstdio>
+#include <vector>
+#include "field.cuh"
+using namespace hades;
+int main(int argc, char** argv) {
+  FILE* f = fopen(argv[1], "rb");
+  std::vector<uint32_t> v;
+  uint32_t w;
+  while (fread(&w, 4, 1, f) == 1) v.push_back(w);
+  fclose(f);
+  for (size_t i = 0; i + 2 * kLimbs <= v.size(); i += 2 * kLimbs) {
+    uint32_t r[4][kLimbs];
+    field_arith<kArithMul>(r[0], &v[i], &v[i + kLimbs]);
+    field_arith<kArithAdd>(r[1], &v[i], &v[i + kLimbs]);
+    field_arith<kArithSub>(r[2], &v[i], &v[i + kLimbs]);
+    sub_mod(r[3], &v[i], &v[i + kLimbs]);
+    fwrite(r, 4, 4 * kLimbs, stdout);
+  }
+  return 0;
+}
+"""
+
+
 def _cxx():
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
@@ -425,6 +453,52 @@ def test_mont_convert_on_host_matches_int_oracle(harness_conv, tmp_path, inputs,
     digits = torch.from_numpy(np.stack([int_to_digits(v) for v in vals]).astype(np.int32))
     plain = (field.to_mont if to else field.from_mont)(digits)
     assert [int(v) for v in digits_to_ints(plain.numpy().astype(np.uint32))] == got
+
+
+@pytest.fixture(scope="module")
+def harness_arith(tmp_path_factory):
+    d = tmp_path_factory.mktemp("harness_arith")
+    (d / "h.cpp").write_text(HARNESS_ARITH)
+    subprocess.run([_cxx(), "-O1", "-std=c++17", "-w", f"-I{_build.CSRC}", "-o",
+                    str(d / "h"), str(d / "h.cpp")], check=True, timeout=300)
+    return d / "h"
+
+
+_ARITH_RNG = np.random.default_rng(23)
+#: the element-wise kernel's operand pairs: 0, 1 and p - 1 against each
+#: other, a pair whose sum crosses p, one whose difference borrows (and its
+#: mirror, which does not), R mod p (the Montgomery form of 1) by seeded
+#: values, and seeded pairs
+ARITH_PAIRS = {
+    "edges": [(a, b) for a in (0, 1, P - 1) for b in (0, 1, P - 1)],
+    "sum_crosses_p": [(P - 5, 9), ((P + 1) // 2, (P + 1) // 2)],
+    "difference_borrows": [(3, 7), (7, 3), (0, P - 1), ((1 << 255) % P, (1 << 255) % P + 1)],
+    "mont_one": [(_R % P, int.from_bytes(_ARITH_RNG.bytes(32), "little") % P) for _ in range(4)],
+    "seeded": [(int.from_bytes(_ARITH_RNG.bytes(32), "little") % P,
+                int.from_bytes(_ARITH_RNG.bytes(32), "little") % P) for _ in range(12)],
+}
+
+
+@pytest.mark.parametrize("pairs", ARITH_PAIRS)
+def test_field_arith_on_host_matches_int_oracle(harness_arith, tmp_path, pairs):
+    """field.cuh's field_arith (the bodies of hades_field_arith: mont_mul,
+    add_mod and the new sub_mod) compiled for the host, against Python's
+    ints: a b R^-1, a + b and a - b mod p; sub_mod alone gives field_arith's
+    difference; and the same as field.py's torch ops."""
+    vals = ARITH_PAIRS[pairs]
+    limbs = [[(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for pair in vals for x in pair]
+    np.asarray(limbs, "<u4").tofile(tmp_path / "in.bin")
+    out = subprocess.run([str(harness_arith), str(tmp_path / "in.bin")], capture_output=True,
+                         check=True, timeout=60).stdout
+    rows = np.frombuffer(out, "<u4").reshape(len(vals), 4, 8)
+    got = [[sum(int(w) << (32 * i) for i, w in enumerate(r)) for r in row] for row in rows]
+    rinv = pow(_R, -1, P)
+    assert got == [[a * b * rinv % P, (a + b) % P, (a - b) % P, (a - b) % P] for a, b in vals]
+    da, db = (torch.from_numpy(np.stack([int_to_digits(v[k]) for v in vals]).astype(np.int32))
+              for k in (0, 1))
+    plain = [field.mont_mul(da, db), field.add_mod(da, db), field.sub_mod(da, db)]
+    assert [[int(v) for v in digits_to_ints(x.numpy().astype(np.uint32))] for x in plain] == \
+        [list(col) for col in zip(*got)][:3]
 
 
 @pytest.fixture(scope="module")
@@ -689,9 +763,9 @@ def test_source_hash_covers_every_source():
     h = _build.source_hash()
     assert len(h) == 16 and h == _build.source_hash()
     names = sorted(p.name for p in _build.CSRC.glob("*.cu*"))
-    assert names == ["field.cuh", "field_conv.cu", "field_inv.cu", "perm.cu", "perm.cuh",
-                     "perm_dense.cuh", "perm_dense_block.cuh", "perm_hybp.cu", "perm_hybp.cuh",
-                     "perm_mxu.cu", "perm_mxu8.cu", "perm_mxu8.cuh", "wgmma.cuh"]
+    assert names == ["field.cuh", "field_arith.cu", "field_conv.cu", "field_inv.cu", "perm.cu",
+                     "perm.cuh", "perm_dense.cuh", "perm_dense_block.cuh", "perm_hybp.cu",
+                     "perm_hybp.cuh", "perm_mxu.cu", "perm_mxu8.cu", "perm_mxu8.cuh", "wgmma.cuh"]
 
 
 def test_ptxas_summary():

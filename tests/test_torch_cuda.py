@@ -969,3 +969,165 @@ def test_profiled_spans_own_the_kernels_they_launch(cuda_device):
     assert by["merkle.level"]["device_ms"] >= by["perm.call"]["device_ms"]  # replays call no wrapper
     assert by["graph.replay"]["self_own_ms"] > 0 and by["graph.replay"]["launches"] == 1
     assert by["merkle.convert"]["device_ms"] > 0
+
+
+def _arith_operands(case: str, device) -> tuple:
+    """Operand pairs of hades_field_arith on the card, at the callers'
+    shapes: a (B, 1, 1, 16) challenge against (1, 4, n, 16) key columns; an
+    NTT stage's strided upper half against its (L/2, 16) twiddle row and
+    its two halves against each other (B = 2, 4 columns, N = 1024, at the
+    first, a middle and the last stage); ragged rows around the kernel's
+    32-element warps and 256-element blocks; one element against rows;
+    and empty operands. The first rows of each are 0, 1 and p - 1."""
+    from hades252_tpu_torch.params import P, int_to_digits
+
+    x, y = _elements((2, 4, 1024), 800).to(device), _elements((2, 4, 1024), 801).to(device)
+    edges = torch.from_numpy(np.stack([int_to_digits(v) for v in (0, 1, P - 1)]).astype(np.int32))
+    x.view(-1, 16)[:9] = edges.repeat(3, 1).to(device)
+    y.view(-1, 16)[:9] = edges.repeat_interleave(3, 0).to(device)
+    if case.startswith("stage_"):
+        length = int(case.split("_")[-1])
+        xr = x.reshape(2, 4, 1024 // length, length, 16)
+        tw = y[0, 0, : length // 2]
+        return (xr[..., length // 2 :, :], tw) if "twiddle" in case else \
+            (xr[..., : length // 2, :], xr[..., length // 2 :, :])
+    rows = x.view(-1, 16)
+    return {
+        "challenge_table": lambda: (y[:, 0, :1][:, None], x[:1]),
+        "rows_1": lambda: (rows[:1], y.view(-1, 16)[:1]),
+        "rows_33": lambda: (rows[:33], y.view(-1, 16)[5:38]),
+        "rows_8191": lambda: (rows[:8191], y.view(-1, 16)[1:8192]),
+        "row_element": lambda: (rows, y[1, 2, 3]),
+        "empty": lambda: (rows[:0], y.view(-1, 16)[:1]),
+    }[case]()
+
+
+ARITH_CARD_CASES = ["challenge_table", "stage_twiddle_2", "stage_twiddle_64", "stage_twiddle_1024",
+                    "stage_halves_2", "stage_halves_64", "stage_halves_1024", "rows_1", "rows_33",
+                    "rows_8191", "row_element", "empty"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+@pytest.mark.parametrize("case", ARITH_CARD_CASES)
+def test_field_arith_kernel_matches_plain(cuda_device, op, case):
+    """hades_field_arith against field's torch ops on the card, bit for bit,
+    at every shape and layout of `_arith_operands`: one launch a call (none
+    for an empty output), its output elements counted, a new contiguous
+    int32 tensor of the broadcast shape."""
+    name = {"mul": "mont_mul", "add": "add_mod", "sub": "sub_mod"}[op]
+    a, b = _arith_operands(case, cuda_device)
+    launches, elements = field_cuda.arith_launches[op], field_cuda.arith_elements[op]
+    got = getattr(field_cuda, name)(a, b)
+    torch.cuda.synchronize()
+    n = got.numel() // 16
+    assert field_cuda.arith_launches[op] == launches + (1 if n else 0)
+    assert field_cuda.arith_elements[op] == elements + n
+    assert got.is_contiguous() and got.dtype == torch.int32 and got.device == a.device
+    assert got.shape == torch.broadcast_shapes(a.shape, b.shape)
+    assert torch.equal(got, getattr(field, name)(a, b))
+
+
+@pytest.mark.cuda
+def test_field_arith_kernel_replays_in_a_graph(cuda_device):
+    """The element-wise kernels and the conversion captured in a CudaGraph
+    (as the prover's phases are): replays give the eager outputs, each
+    launch is held once, and each replay adds the elements the graph holds
+    to field_cuda.arith_elements and .converted."""
+    from hades252_tpu_torch.utils.graphs import CudaGraph
+
+    x, y = _elements((4, 256), 810).to(cuda_device), _elements((256,), 811).to(cuda_device)
+
+    def body(a, b):
+        s = field_cuda.add_mod(a, b)
+        prod = field_cuda.mont_mul(field_cuda.sub_mod(s, b), field_cuda.to_mont(s))
+        return field_cuda.from_mont(prod)
+
+    want = body(x, y)
+    arith, elements = dict(field_cuda.arith_launches), dict(field_cuda.arith_elements)
+    conversions, converted = field_cuda.conversions, field_cuda.converted
+    graph = CudaGraph(body, (x.clone(), y.clone()))
+    held = {"mul": 1, "add": 1, "sub": 1}
+    assert graph.held_arith == held and graph.held_conversions == 2
+    assert graph.held_arith_elements == {op: 1024 for op in held}
+    assert graph.held_converted == 2048
+    # the warm-up's and the capture's launches; the warm-up's elements alone
+    assert field_cuda.arith_launches == {op: arith[op] + 2 for op in held}
+    assert field_cuda.arith_elements == {op: elements[op] + 1024 for op in held}
+    assert field_cuda.conversions == conversions + 4 and field_cuda.converted == converted + 2048
+    for k in (1, 2):
+        assert torch.equal(graph(x, y), want)
+        assert field_cuda.arith_elements == {op: elements[op] + (1 + k) * 1024 for op in held}
+        assert field_cuda.converted == converted + (1 + k) * 2048
+    # a replay calls no wrapper
+    assert field_cuda.arith_launches == {op: arith[op] + 2 for op in held}
+
+
+def _refuse_plain_field_ops_on_the_card(monkeypatch) -> None:
+    """field's element-wise ops and conversions raise when handed a CUDA
+    tensor, so a device path that still reaches the torch composition
+    fails; CPU tensors pass through."""
+    for name in ("mont_mul", "add_mod", "sub_mod", "to_mont", "from_mont"):
+        plain = getattr(field, name)
+
+        def guard(*args, _plain=plain, _name=name):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in args):
+                raise AssertionError(f"field.{_name} ran on a CUDA tensor")
+            return _plain(*args)
+
+        monkeypatch.setattr(field, name, guard)
+
+
+@pytest.mark.cuda
+def test_prove_batched_takes_no_plain_field_op_on_the_card(cuda_device, monkeypatch):
+    """prove_batched at B = 2 with field's ops refusing CUDA tensors: every
+    element-wise op and conversion of its phases runs through field_cuda's
+    kernels, all of them inside the phases' three graphs (no eager launch:
+    a graph captured in the call launched what it holds at its warm-up and
+    its capture, and each replay adds exactly the elements it holds), and
+    the proofs equal the host prover's byte for byte."""
+    from hades252_tpu_torch import plonk, prover_cuda
+    from hades252_tpu_torch.utils.graphs import _LIVE_GRAPHS
+
+    cs = _fast_instances(2, 820)
+    key = plonk.preprocess(cs[0])
+    _refuse_plain_field_ops_on_the_card(monkeypatch)
+    replays = {g: g.replays for g in _LIVE_GRAPHS}
+    launches, elements = dict(field_cuda.arith_launches), dict(field_cuda.arith_elements)
+    proofs = prover_cuda.prove_batched(cs, key)
+    torch.cuda.synchronize()
+    (group,) = [g for (b, n, _), (_, g) in prover_cuda._PHASE_GRAPHS.items()
+                if (b, n) == (2, key.n)]
+    assert sorted(phase for phase, _, _ in group) == [0, 1, 2]
+    phases = list(group.values())
+    assert all(g.replays == replays.get(g, 0) + 1 and g.held_arith["mul"] > 0 for g in phases)
+    new = [g for g in phases if g not in replays]
+    for op in field_cuda.ARITH_OPS:
+        assert field_cuda.arith_launches[op] - launches[op] == sum(2 * g.held_arith[op]
+                                                                   for g in new)
+        assert field_cuda.arith_elements[op] - elements[op] == (
+            sum(g.held_arith_elements[op] for g in phases)
+            + sum(g.held_arith_elements[op] for g in new))
+    for c, pr in zip(cs, proofs, strict=True):
+        host = plonk.prove(c, key)
+        assert (pr.wires, pr.z, pr.t, pr.commitments) == (host.wires, host.z, host.t,
+                                                          host.commitments)
+
+
+@pytest.mark.cuda
+def test_device_succinct_prover_takes_no_plain_field_op(cuda_device, monkeypatch):
+    """prove_succinct_device at the "fast" preset with field's ops refusing
+    CUDA tensors: its eager coset transforms, claimed evaluations, DEEP
+    composition and folds launch field_cuda's kernels, and the proof equals
+    the native engine's byte for byte."""
+    from hades252_tpu_torch import fri, fri_cuda, serialize
+
+    (c,) = _fast_instances(1, 821)
+    pk, vk = fri.preprocess_succinct(c, fri.FriParams(**_FAST), fri.default_pcs_perm())
+    _refuse_plain_field_ops_on_the_card(monkeypatch)
+    launches = dict(field_cuda.arith_launches)
+    proof = fri_cuda.prove_succinct_device(c, pk, np.random.default_rng(822))
+    torch.cuda.synchronize()
+    assert all(field_cuda.arith_launches[op] > launches[op] for op in launches)
+    host = fri.prove_succinct(c, pk, fri.default_pcs_perm(), rng=np.random.default_rng(822))
+    assert serialize.proof_to_bytes(proof, vk) == serialize.proof_to_bytes(host, vk)

@@ -181,3 +181,130 @@ def test_field_cuda_convert_rejects_what_the_kernel_cannot_take():
         with pytest.raises(ValueError):
             convert(torch.zeros((4, 16), dtype=torch.int32, device="meta"))
         assert convert(torch.zeros((0, 16), dtype=torch.int32)).shape == (0, 16)
+
+
+def _arith_cases(a: np.ndarray, b: np.ndarray) -> dict:
+    """The operand pairs the element-wise ops' callers pass: rows; a
+    challenge against a key table, (B, 1, 1, 16) x (1, 4, n, 16); an NTT
+    stage's upper half against its (L/2, 16) twiddle row and its two
+    strided halves; a row against one element; DEEP's (B, m0) slab against
+    a (B, 1) challenge; the grinding word, (B, 1) state words against (1, C)
+    nonces; a broadcast constant expanded with stride 0. Then three the
+    kernel cannot read in place, which the wrappers refuse on every device
+    (`REFUSED`): int64 digits, rows 18 digits apart (off a 16-byte
+    boundary) and five axes that do not merge."""
+    x, y = _t(a[:64]), _t(b[:64])
+    xr = x.reshape(2, 4, 2, 4, 16)  # B = 2, 4 columns, N = 8 at the stage of L = 4
+    states = torch.stack([y[:2]] * 5, dim=1)
+    odd = torch.cat([x, x[:, :2]], dim=1)[:, :16]
+    return {
+        "rows": (x, y),
+        "challenge_table": (y[:2][:, None, None, :], x.reshape(1, 4, 16, 16)),
+        "stage_twiddle": (xr[..., 2:, :], y[:2]),
+        "stage_halves": (xr[..., :2, :], xr[..., 2:, :]),
+        "row_element": (x[:5], y[3]),
+        "deep_slab": (x.reshape(2, 32, 16), y[:2][:, None]),
+        "grind_word": (states[:, None, 1], x[:8][None]),
+        "expanded": (y[5].expand(2, 3, 1, 16), x[:6].reshape(2, 3, 1, 16)),
+        "int64": (x.to(torch.int64), y),
+        "unaligned_rows": (odd, y),
+        "five_axes": (x[:32].reshape(2, 2, 2, 2, 2, 16).permute(4, 3, 2, 1, 0, 5),
+                      y[:32].reshape(2, 2, 2, 2, 2, 16)),
+    }
+
+
+ARITH_CASES = ["rows", "challenge_table", "stage_twiddle", "stage_halves", "row_element",
+               "deep_slab", "grind_word", "expanded", "int64", "unaligned_rows", "five_axes"]
+REFUSED = {"int64": "int32 digits", "unaligned_rows": "16-byte boundary",
+           "five_axes": "at most 4 axes"}
+
+
+@pytest.mark.parametrize("op", ["mont_mul", "add_mod", "sub_mod"])
+@pytest.mark.parametrize("case", ARITH_CASES)
+def test_field_cuda_arith_on_the_cpu_is_field_s(operands, monkeypatch, op, case):
+    """ops/field_cuda.mont_mul / add_mod / sub_mod on CPU tensors: field's
+    own op, bit for bit, at each shape and layout the callers pass, int32
+    digits of the broadcast shape, and no kernel launched; a layout the
+    kernel cannot read in place refused here as on the card."""
+    from hades252_tpu_torch.ops import field_cuda
+
+    a, b = _arith_cases(*operands)[case]
+    monkeypatch.setattr(field_cuda, "arith_launches", dict.fromkeys(field_cuda.ARITH_OPS, 0))
+    monkeypatch.setattr(field_cuda, "arith_elements", dict.fromkeys(field_cuda.ARITH_OPS, 0))
+    if case in REFUSED:
+        with pytest.raises(ValueError, match=REFUSED[case]):
+            getattr(field_cuda, op)(a, b)
+    else:
+        got = getattr(field_cuda, op)(a, b)
+        want = getattr(field, op)(a, b)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert got.shape == torch.broadcast_shapes(a.shape, b.shape)
+    assert not any(field_cuda.arith_launches.values())
+    assert not any(field_cuda.arith_elements.values())
+
+
+def _kernel_reads(x: torch.Tensor, sizes: list, strides: list) -> torch.Tensor:
+    """The elements hades_field_arith reads of an operand: output element
+    i at the offset its index gives over the axes (innermost first, the
+    last axis taking what the others leave), as the kernel computes it."""
+    storage = torch.empty(0, dtype=torch.int32).set_(x.untyped_storage())
+    rows = []
+    for i in range(int(np.prod(sizes))):
+        r, off = i, x.storage_offset()
+        for k, (size, stride) in enumerate(zip(sizes, strides)):
+            c, r = (r % size, r // size) if k + 1 < len(sizes) else (r, 0)
+            off += c * stride
+        rows.append(storage[off : off + 16])
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("case", ARITH_CASES)
+def test_field_cuda_kernel_layout_reads_every_operand_element(operands, case):
+    """What the wrapper hands hades_field_arith, worked through the
+    kernel's own address arithmetic on the CPU: at most four axes, each
+    output element's operands where the broadcast puts them, every element
+    on a 16-byte boundary, the operands read in place; and a layout the
+    kernel cannot read in place refused, not copied."""
+    from hades252_tpu_torch.ops import field_cuda
+
+    a, b = _arith_cases(*operands)[case]
+    if case in REFUSED:
+        with pytest.raises(ValueError, match=REFUSED[case]):
+            field_cuda.kernel_layout(a, b) if case != "int64" else field_cuda.mont_mul(a, b)
+        return
+    shape, sizes, strides = field_cuda.kernel_layout(a, b)
+    assert shape == torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    assert 1 <= len(sizes) <= 4 and int(np.prod(sizes)) == int(np.prod(shape))
+    for x, st in ((a, strides[0]), (b, strides[1])):
+        assert x.dtype == torch.int32 and x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+        assert all(s % 4 == 0 for s in st) and len(st) == len(sizes)
+        want = x.expand(*shape, 16).reshape(-1, 16)
+        assert torch.equal(_kernel_reads(x, sizes, st), want)
+    if case == "stage_twiddle":  # the twiddle row broadcast, B x 4 x N/L merged
+        assert sizes == [2, 16] and strides == [[16, 64], [16, 0]]
+    if case == "challenge_table":
+        assert sizes == [64, 2] and strides == [[0, 16], [16, 0]]
+
+
+def test_field_cuda_arith_rejects_what_the_kernel_cannot_take():
+    from hades252_tpu_torch.ops import field_cuda
+
+    x = torch.zeros((4, 16), dtype=torch.int32)
+    for op in (field_cuda.mont_mul, field_cuda.add_mod, field_cuda.sub_mod):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            op(x.to("meta"), x.to("meta"))
+        with pytest.raises(ValueError, match="two devices"):
+            op(x, x.to("meta"))
+        with pytest.raises(ValueError, match="int32 digits"):
+            op(x.to(torch.float32), x)
+        with pytest.raises(ValueError, match="int32 digits"):
+            op(x, x.to(torch.int64))
+        with pytest.raises(ValueError, match="int32 digits"):
+            op(x, x.to(torch.int16))
+        with pytest.raises(ValueError, match="int32 digits"):
+            op(x[:, :15], x[:, :15])
+        with pytest.raises(ValueError, match="int32 digits"):
+            op(torch.zeros(32, dtype=torch.int32).reshape(1, 32), x)
+        assert op(x[:0], x[:1]).shape == (0, 16)
+    with pytest.raises(ValueError, match="do not broadcast"):
+        field_cuda.kernel_layout(x[:3], x)

@@ -214,3 +214,65 @@ def test_a_failed_capture_raises(monkeypatch):
     x = torch.from_numpy(np.zeros((1, 4, 4, 16), np.int32))
     with pytest.raises(RuntimeError, match="capture refused"):
         phase1(x)
+
+
+def test_cuda_graph_holds_every_field_kernel_counter(monkeypatch):
+    """utils/graphs.CudaGraph's bookkeeping, with torch.cuda's stream and
+    graph calls stood in for on the CPU and a body that counts as
+    field_cuda's wrappers count a launch: the capture holds the launches
+    and elements of the inversion, the conversion and each element-wise op;
+    the capture's elements are taken back out (it runs nothing), the
+    launches are not; each replay adds the held elements and no launch."""
+    import contextlib
+
+    from hades252_tpu_torch.ops import field_cuda
+
+    class Stream:
+        def __init__(self, *_a):
+            pass
+
+        def wait_stream(self, _other):
+            pass
+
+    class Graph:
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *_a: Stream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda _s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda _g, pool=None: contextlib.nullcontext())
+    for name in ("launches", "inverted", "conversions", "converted"):
+        monkeypatch.setattr(field_cuda, name, 0)
+    monkeypatch.setattr(field_cuda, "arith_launches", dict.fromkeys(field_cuda.ARITH_OPS, 0))
+    monkeypatch.setattr(field_cuda, "arith_elements", dict.fromkeys(field_cuda.ARITH_OPS, 0))
+
+    def body(x):
+        field_cuda.launches += 1
+        field_cuda.inverted += 3
+        field_cuda.conversions += 2
+        field_cuda.converted += 10
+        field_cuda.arith_launches["mul"] += 4
+        field_cuda.arith_elements["mul"] += 40
+        field_cuda.arith_launches["sub"] += 1
+        field_cuda.arith_elements["sub"] += 5
+        return x + 1
+
+    x = torch.zeros(3)
+    graph = graphs.CudaGraph(body, (x.clone(),))
+    assert (graph.held_inverts, graph.held_inverted) == (1, 3)
+    assert (graph.held_conversions, graph.held_converted) == (2, 10)
+    assert graph.held_arith == {"mul": 4, "add": 0, "sub": 1}
+    assert graph.held_arith_elements == {"mul": 40, "add": 0, "sub": 5}
+    # the warm-up's and the capture's launches, the warm-up's elements alone
+    assert (field_cuda.launches, field_cuda.inverted) == (2, 3)
+    assert (field_cuda.conversions, field_cuda.converted) == (4, 10)
+    assert field_cuda.arith_launches == {"mul": 8, "add": 0, "sub": 2}
+    assert field_cuda.arith_elements == {"mul": 40, "add": 0, "sub": 5}
+    for k in (1, 2):
+        assert torch.equal(graph(x), x + 1) and graph.replays == k
+        assert (field_cuda.inverted, field_cuda.converted) == (3 * (1 + k), 10 * (1 + k))
+        assert field_cuda.arith_elements == {"mul": 40 * (1 + k), "add": 0, "sub": 5 * (1 + k)}
+    assert field_cuda.launches == 2 and field_cuda.conversions == 4
+    assert field_cuda.arith_launches == {"mul": 8, "add": 0, "sub": 2}
